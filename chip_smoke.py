@@ -22,7 +22,23 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                 from a seeded generator; the first batch's outputs held
                 bit-exactly against the same plan through the plain
                 compaction; rows/s, K1 launches, peak device memory, and
-                device time by kernel for one call (torch.profiler).
+                device time by kernel for one call (torch.profiler);
+  7. K5       — the one-pass GROUP BY against its plain torch version on the
+                card: BASELINE configs[1]'s columns (100,000,000 rows, 64
+                keys, f64 and then int64 values), and at a ragged 1,000,037
+                rows with 10% null keys and values over int8, int32, uint32,
+                uint64, f32 and f64 columns (two launches), at 64 and 1024
+                groups, past 1024 distinct keys (overflow), count_all only,
+                and the keys int64::min/max and 0; bit-exact apart from f64
+                sums (rtol 1e-9: atomics add in a varying order);
+  8. K5 times — K5, its plain version and the nearest PyTorch calls
+                (torch.unique + index_add_ + scatter_reduce_) at the
+                configs[1] shape, beside the least time the card's memory
+                allows;
+  9. agg path — ops.hash_aggregate(...) as bench.py runs configs[1], on
+                100,000,000 rows made on the card: rows/s (best of 3), K5
+                launches, peak device memory, device time by kernel; its
+                groups held against K5's plain version and pyarrow.
 Then one {"kernels": [...]} line, and last {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -44,6 +60,9 @@ DENSITIES = (0.0, 0.02, 0.474, 0.97, 1.0)
 FLAGSHIP_DENSITY = 0.474         # 0.499 (a > 500 of [0, 1000)) × 0.95 valid
 STREAM_K = 4
 ARROW_ROWS = 1_000_000
+N_AGG = 100_000_000              # bench.py's configs[1] rows (bench.py:88-93)
+AGG_GROUPS = 64
+AGG_RTOL = 1e-9                  # f64 sums: ~1.56M atomic addends a group
 
 
 def log(*a):
@@ -105,9 +124,9 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def profile_stream(fn, cols):
-    """Device time by kernel for one stream call (torch.profiler), and the
-    device's busy share of that same call's synchronized wall time (the
+def profile_call(fn):
+    """Device time by kernel for one call of ``fn`` (torch.profiler), and
+    the device's busy share of that same call's synchronized wall time (the
     profiler's own overhead included); None if the profiler sees no device
     time."""
     from torch.autograd import DeviceType
@@ -117,7 +136,7 @@ def profile_stream(fn, cols):
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t = time.perf_counter()
-        fn(cols)
+        fn()
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t
     # device-side events only: a CPU op's entry repeats its kernels' time
@@ -140,6 +159,36 @@ def profile_stream(fn, cols):
     return device_us / 1e6 / wall_s
 
 
+def hold_k5(got, want, kinds, what: str) -> float:
+    """K5's outputs against its plain version's: bit-exact apart from f64
+    sums (rtol AGG_RTOL); only the flag where the query overflows. Returns
+    the largest absolute difference of the f64 sums."""
+    from gandiva_tpu_torch.ops.kernels.aggregate import FLOAT64, ROW_SUM
+
+    if bool(got.overflow) != bool(want.overflow):
+        raise AssertionError(f"{what}: overflow {bool(got.overflow)} != "
+                             f"{bool(want.overflow)}")
+    if bool(want.overflow):
+        return 0.0
+    if int(got.count) != int(want.count) or \
+            not torch.equal(got.keys, want.keys) or \
+            not torch.equal(got.count_all, want.count_all):
+        raise AssertionError(f"{what}: keys, group count or count_all "
+                             "differ")
+    err = 0.0
+    for v, kind in enumerate(kinds):
+        for r in range(4):
+            g, w = got.acc[v, r], want.acc[v, r]
+            if r == ROW_SUM and kind == FLOAT64:
+                g, w = g.view(torch.float64), w.view(torch.float64)
+                torch.testing.assert_close(g, w, rtol=AGG_RTOL, atol=0,
+                                           equal_nan=True, msg=what)
+                err = max(err, float((g - w).abs().nan_to_num().max()))
+            elif not torch.equal(g, w):
+                raise AssertionError(f"{what}: column {v} row {r} differs")
+    return err
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -156,6 +205,8 @@ def main() -> int:
     from gandiva_tpu_torch.ops.kernels import LAUNCHES, build, reset_launches
     from gandiva_tpu_torch.ops.kernels.compaction import (
         MAX_PAYLOADS, compact_columns_cuda, compact_columns_plain)
+    from gandiva_tpu_torch.ops.kernels import aggregate as k5
+    from gandiva_tpu_torch.ops.hash_aggregate import _kernel_column
 
     dev = torch.device("cuda")
 
@@ -313,7 +364,7 @@ def main() -> int:
         f"max_memory_allocated={peak}")
     if stream_launches != (1 + runs) * STREAM_K:
         raise AssertionError("the stream did not launch K1 once per batch")
-    busy = profile_stream(fn, cols)
+    busy = profile_call(lambda: fn(cols))
 
     plan = flagship_plan(dev)
     first = {name: (d[0], v[0]) for name, (d, v) in cols.items()}
@@ -343,7 +394,196 @@ def main() -> int:
         "k1_launches_arrow": arrow_launches,
         "k1_launches_stream": stream_launches}}))
 
-    # -- 7. kernels line, 8. last line -----------------------------------
+    # -- 7. K5 against plain ---------------------------------------------
+    phase("K5 against its plain version")
+    g.manual_seed(11)
+    agg_keys = torch.randint(0, AGG_GROUPS, (N_AGG,), generator=g,
+                             device=dev) * 7 + 3           # bench.py:89
+    agg_f64 = torch.rand(N_AGG, generator=g, dtype=torch.float64, device=dev)
+    agg_i64 = torch.randint(-1000, 1000, (N_AGG,), generator=g, device=dev)
+    k5_err = 0.0
+    for label, vals in (("f64", agg_f64), ("int64", agg_i64)):
+        cols = [_kernel_column(vals, None, True, True)]
+        got = k5.aggregate_cuda(agg_keys, None, cols, AGG_GROUPS)
+        torch.cuda.synchronize()
+        want = k5.aggregate_plain(agg_keys, None, cols, AGG_GROUPS)
+        torch.cuda.synchronize()
+        k5_err = max(k5_err, hold_k5(got, want, [c.kind for c in cols],
+                                     f"configs[1] {label}"))
+        log(f"n={N_AGG} {label}: {int(got.count)} groups, matches plain")
+    del got, want
+
+    def ragged_columns(n):
+        raw = [torch.randint(-128, 128, (n,), generator=g, device=dev
+                             ).to(torch.int8),
+               torch.randint(-2**31, 2**31, (n,), generator=g, device=dev
+                             ).to(torch.int32),
+               torch.randint(0, 2**32, (n,), generator=g, device=dev
+                             ).to(torch.int32).view(torch.uint32),
+               ((torch.randint(0, 2**32, (n,), generator=g, device=dev) << 32)
+                | torch.randint(0, 2**32, (n,), generator=g, device=dev)
+                ).view(torch.uint64),
+               torch.rand(n, generator=g, device=dev) * 200 - 100,
+               torch.randn(n, generator=g, dtype=torch.float64, device=dev)]
+        return [_kernel_column(a, torch.rand(n, generator=g, device=dev)
+                               >= 0.1, True, True) for a in raw]
+
+    n = N_RAGGED
+    u = torch.rand(n, generator=g, device=dev)
+    code = torch.where(u < 0.1, 2, 1).to(torch.uint8)      # 10% null keys
+    cols = ragged_columns(n)
+    extreme = torch.tensor([-2**63, 2**63 - 1, 0, -1, 1], device=dev)
+    cases = [
+        ("64 groups", torch.randint(0, 64, (n,), generator=g, device=dev),
+         code, cols, 64),
+        ("1000 groups", torch.randint(0, 1000, (n,), generator=g,
+                                      device=dev) * 7 + 3, code, cols, 1024),
+        ("1100 keys", torch.randint(0, 1100, (n,), generator=g, device=dev),
+         code, cols, 1024),
+        ("count_all only", torch.randint(0, 64, (n,), generator=g,
+                                         device=dev), code, [], 64),
+        ("int64::min/max, 0", extreme[torch.randint(0, 5, (n,), generator=g,
+                                                    device=dev)],
+         None, cols[:2], 8)]
+    for label, keys, code_, cols_, max_groups in cases:
+        before = LAUNCHES["aggregate"]
+        got = k5.aggregate_cuda(keys, code_, cols_, max_groups)
+        torch.cuda.synchronize()
+        launched = LAUNCHES["aggregate"] - before
+        want = k5.aggregate_plain(keys, code_, cols_, max_groups)
+        torch.cuda.synchronize()
+        k5_err = max(k5_err, hold_k5(got, want, [c.kind for c in cols_],
+                                     f"ragged {label}"))
+        if launched != max(1, -(-len(cols_) // k5.MAX_VALUES)):
+            raise AssertionError(f"ragged {label}: {launched} launches")
+        log(f"ragged n={n} {label} (max_groups {max_groups}, "
+            f"{len(cols_)} columns, {launched} launches): "
+            f"{int(got.count)} groups, overflow {bool(got.overflow)}, "
+            "matches plain")
+    if not bool(got.overflow) and int(got.count) != 5:
+        raise AssertionError("the extreme keys did not form 5 groups")
+    del got, want, cols, cases, code, u
+
+    # -- 8. K5 times -----------------------------------------------------
+    phase("K5 times")
+    agg_cols = [_kernel_column(agg_f64, None, True, True)]
+
+    def agg_library():
+        uniq, inv = torch.unique(agg_keys, sorted=True, return_inverse=True)
+        groups = uniq.shape[0]
+        cnt = torch.zeros(groups, dtype=torch.int64, device=dev).index_add_(
+            0, inv, torch.ones_like(inv))
+        tot = torch.zeros(groups, dtype=torch.float64, device=dev
+                          ).index_add_(0, inv, agg_f64)
+        lo = torch.full((groups,), float("inf"), dtype=torch.float64,
+                        device=dev).scatter_reduce_(0, inv, agg_f64, "amin")
+        hi = torch.full((groups,), float("-inf"), dtype=torch.float64,
+                        device=dev).scatter_reduce_(0, inv, agg_f64, "amax")
+        return cnt, tot, lo, hi
+
+    k5_ms = time_ms(lambda: k5.aggregate_cuda(agg_keys, None, agg_cols,
+                                              AGG_GROUPS), iters=20)
+    k5_plain_ms = time_ms(lambda: k5.aggregate_plain(
+        agg_keys, None, agg_cols, AGG_GROUPS), iters=5, warmup=1)
+    k5_library_ms = time_ms(agg_library, iters=5, warmup=1)
+    k5_ms2 = time_ms(lambda: k5.aggregate_cuda(agg_keys, None, agg_cols,
+                                               AGG_GROUPS), iters=20)
+    k5_i64_ms = time_ms(lambda: k5.aggregate_cuda(
+        agg_keys, None, [_kernel_column(agg_i64, None, True, True)],
+        AGG_GROUPS), iters=20)
+    # where K5's time goes: the same rows with fewer atomics per row
+    k5_parts = {label: time_ms(lambda c=c: k5.aggregate_cuda(
+        agg_keys, None, c, AGG_GROUPS), iters=20) for label, c in (
+            ("count_all only", []),
+            ("f64 sum only", [_kernel_column(agg_f64, None, True, False)]),
+            ("f64 min/max only", [_kernel_column(agg_f64, None, False,
+                                                 True)]))}
+    # least bytes: each input read once (8 B key + 8 B value per row), each
+    # output written once (keys, meta, count_all, 4 accumulator rows)
+    gcap = k5.capacity_for(AGG_GROUPS)
+    k5_bytes = N_AGG * (8 + 8) + 8 * (gcap + 2 + (gcap + 2) * (1 + 4))
+    k5_bound_ms = k5_bytes / bw * 1e3
+    log(f"n={N_AGG} groups={AGG_GROUPS} bytes={k5_bytes}")
+    log(f"k5_ms={k5_ms:.4f} (again {k5_ms2:.4f}; int64 values "
+        f"{k5_i64_ms:.4f}) plain_ms={k5_plain_ms:.4f} "
+        f"library_ms={k5_library_ms:.4f} bound_ms={k5_bound_ms:.4f} -> "
+        f"{k5_bound_ms / k5_ms:.1%} of the bound")
+    log("K5 by atomics per row: " + ", ".join(
+        f"{label} {ms:.4f} ms" for label, ms in k5_parts.items()))
+
+    # -- 9. main path: the configs[1] aggregate --------------------------
+    phase("main path: hash_aggregate (configs[1])")
+    aggs = [("v", "sum"), ("v", "count"), ("v", "min"), ("v", "max")]
+
+    def agg_path():
+        return gt.ops.hash_aggregate(agg_keys, aggs, {"v": (agg_f64, None)},
+                                     max_groups=AGG_GROUPS)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    reset_launches()
+    res = agg_path()                                      # warm-up
+    torch.cuda.synchronize()
+    agg_walls = []
+    for _ in range(runs):
+        t = time.perf_counter()
+        res = agg_path()
+        torch.cuda.synchronize()
+        agg_walls.append(time.perf_counter() - t)
+    agg_launches = LAUNCHES["aggregate"]
+    agg_peak = torch.cuda.max_memory_allocated()
+    agg_rows_s = N_AGG / min(agg_walls)
+    log(f"n={N_AGG}: walls_s={[round(w, 6) for w in agg_walls]} "
+        f"rows/s={agg_rows_s:.6g} K5 launches {agg_launches} (expected "
+        f"{1 + runs}) max_memory_allocated={agg_peak} (resident before "
+        f"the first call {resident}: the path's own {agg_peak - resident})")
+    if agg_launches != 1 + runs:
+        raise AssertionError("hash_aggregate did not launch K5 once a call")
+    agg_busy = profile_call(agg_path)
+
+    # its groups against K5's plain version on the same columns
+    cnt = int(res["group_count"])
+    if cnt != AGG_GROUPS or bool(res["overflow"]) or \
+            bool(res["key_is_null"].any()):
+        raise AssertionError(f"configs[1]: {cnt} groups, overflow "
+                             f"{bool(res['overflow'])}")
+    want = k5.aggregate_plain(agg_keys, None, agg_cols, AGG_GROUPS)
+    acc = want.acc[0, :, :cnt]
+    plain = {"keys": want.keys[:cnt], "agg:v:count": acc[k5.ROW_COUNT_VALID],
+             "agg:v:min": k5.float_from_key(acc[k5.ROW_MIN], False),
+             "agg:v:max": k5.float_from_key(acc[k5.ROW_MAX], True)}
+    for k, w in plain.items():
+        if not torch.equal(bits(res[k][:cnt]), bits(w)):
+            raise AssertionError(f"configs[1] path: {k} differs from plain")
+    torch.testing.assert_close(res["agg:v:sum"][:cnt],
+                               acc[k5.ROW_SUM].view(torch.float64),
+                               rtol=AGG_RTOL, atol=0)
+    # and against pyarrow's group_by on the same columns, copied once
+    host = pa.table({"k": agg_keys.cpu().numpy(), "v": agg_f64.cpu().numpy()})
+    oracle = host.group_by("k").aggregate(
+        [("v", "sum"), ("v", "count"), ("v", "min"), ("v", "max")]
+    ).sort_by("k")
+    got_np = {k: v[:cnt].cpu().numpy() for k, v in res.items()
+              if k != "overflow" and k != "group_count"}
+    for col, key in (("k", "keys"), ("v_count", "agg:v:count"),
+                     ("v_min", "agg:v:min"), ("v_max", "agg:v:max")):
+        if not np.array_equal(oracle.column(col).to_numpy(), got_np[key]):
+            raise AssertionError(f"configs[1] path: {key} != pyarrow {col}")
+    np.testing.assert_allclose(got_np["agg:v:sum"],
+                               oracle.column("v_sum").to_numpy(),
+                               rtol=AGG_RTOL)
+    log(f"{cnt} groups equal to K5's plain version and to pyarrow "
+        f"group_by (sums within rtol {AGG_RTOL})")
+    del host, oracle, res, want, agg_keys, agg_f64, agg_i64
+    log(json.dumps({"agg_path": {
+        "rows_per_s": agg_rows_s, "walls_s": agg_walls, "rows": N_AGG,
+        "groups": AGG_GROUPS, "max_memory_allocated": agg_peak,
+        "resident_before": resident,
+        "device_busy_share": agg_busy, "k5_launches": agg_launches,
+        "k5_ms_int64_values": k5_i64_ms, "k5_ms_parts": k5_parts}}))
+
+    # -- the kernels line, then the last line ----------------------------
     log(json.dumps({"kernels": [{
         "name": "compact",
         "route": "cuda",
@@ -357,6 +597,19 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": "bytes",
         "library_ms": library_ms,
+    }, {
+        "name": "aggregate",
+        "route": "cuda",
+        "source": "gandiva_tpu_torch/csrc/aggregate.cu",
+        "replaces": "gandiva_tpu/ops/kernels/agg_pallas.py:147",
+        "launches": agg_launches,
+        "matches_plain": True,
+        "max_abs_err": k5_err,
+        "ms": k5_ms,
+        "plain_ms": k5_plain_ms,
+        "bound_ms": k5_bound_ms,
+        "bound_by": "bytes",
+        "library_ms": k5_library_ms,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}), flush=True)

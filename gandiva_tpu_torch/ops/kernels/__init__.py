@@ -2,11 +2,13 @@
 
 ``LAUNCHES`` counts, per kernel, its launches on the card by its wrapper
 (never the plain version), so a run can show which path it took. K1 counts
-one per scatter launch: one per call for up to eight payload columns.
+one per scatter launch: one per call for up to eight payload columns. K5
+counts one per launch of its three-kernel sequence: one per call for up to
+four value columns.
 """
 from typing import Dict
 
-LAUNCHES: Dict[str, int] = {"compact": 0}
+LAUNCHES: Dict[str, int] = {"compact": 0, "aggregate": 0}
 
 
 def reset_launches() -> None:

@@ -1,5 +1,6 @@
-"""Kernel K1 (stream compaction, csrc/compaction.cu) against its plain torch
-version on the card. Marked ``gpu``; each test decides in its body whether a
+"""Kernels K1 (stream compaction, csrc/compaction.cu) and K5 (one-pass
+GROUP BY, csrc/aggregate.cu) against their plain torch versions on the
+card. Marked ``gpu``; each test decides in its body whether a
 card is present and skips with a reason where there is none. Needs no JAX:
 
     python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
@@ -148,3 +149,140 @@ def test_multi_projection_filter_project_matches_cpu():
     assert 0 < len(gi) < n
     for got, want in zip(gcols, ccols):
         assert got.equals(want)
+
+
+# ---------------------------------------------------------------------------
+# K5 (one-pass GROUP BY, csrc/aggregate.cu) against its plain torch version
+# ---------------------------------------------------------------------------
+
+def _bits64(n, g, dev):
+    """Uniform random 64-bit patterns as int64."""
+    hi = torch.randint(0, 2**32, (n,), generator=g, device=dev)
+    return (hi << 32) | torch.randint(0, 2**32, (n,), generator=g, device=dev)
+
+
+def _k5_columns(n, g, dev, with_nulls):
+    """The smoke's ragged matrix at a small size: int8, int32, uint32,
+    uint64, f32 and f64 values (six columns: two K5 launches), each with
+    10% nulls when ``with_nulls``."""
+    from gandiva_tpu_torch.ops.hash_aggregate import _kernel_column
+
+    raw = [torch.randint(-128, 128, (n,), generator=g, device=dev
+                         ).to(torch.int8),
+           torch.randint(-2**31, 2**31, (n,), generator=g, device=dev
+                         ).to(torch.int32),
+           torch.randint(0, 2**32, (n,), generator=g, device=dev
+                         ).to(torch.int32).view(torch.uint32),
+           _bits64(n, g, dev).view(torch.uint64),
+           (torch.rand(n, generator=g, device=dev) * 200 - 100),
+           torch.randn(n, generator=g, dtype=torch.float64, device=dev)]
+    cols = []
+    for k, a in enumerate(raw):
+        valid = (torch.rand(n, generator=g, device=dev) >= 0.1) \
+            if with_nulls else None
+        cols.append(_kernel_column(a, valid, want_sum=k != 2,
+                                   want_minmax=k != 3))
+    return cols
+
+
+def _hold_k5(got, want, kinds, rtol=1e-9):
+    """Bit-exact apart from float sums (atomics add in a varying order);
+    only the flag is compared where the query overflows."""
+    from gandiva_tpu_torch.ops.kernels.aggregate import FLOAT64, ROW_SUM
+
+    assert bool(got.overflow) == bool(want.overflow)
+    if bool(want.overflow):
+        return
+    assert int(got.count) == int(want.count)
+    assert torch.equal(got.keys, want.keys)
+    assert torch.equal(got.count_all, want.count_all)
+    assert got.acc.shape == want.acc.shape
+    for v in range(want.acc.shape[0]):
+        for r in range(4):
+            g, w = got.acc[v, r], want.acc[v, r]
+            if r == ROW_SUM and kinds[v] == FLOAT64:
+                torch.testing.assert_close(g.view(torch.float64),
+                                           w.view(torch.float64), rtol=rtol,
+                                           atol=0, equal_nan=True)
+            else:
+                assert torch.equal(g, w), (v, r)
+
+
+@pytest.mark.parametrize("n,groups,max_groups,nulls", [
+    (1, 1, 8, False), (1000, 7, 16, True), (100_003, 64, 64, False),
+    (1_000_037, 64, 64, True), (300_007, 1000, 1024, True),
+    (200_003, 1500, 1024, False), (50_000, 300, 256, True)])
+def test_k5_matches_plain(n, groups, max_groups, nulls):
+    dev = _card()
+    from gandiva_tpu_torch.ops.kernels.aggregate import (aggregate,
+                                                         aggregate_plain)
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(n + groups)
+    keys = torch.randint(0, groups, (n,), generator=g, device=dev) * 7 - 3
+    code = None
+    if nulls:
+        u = torch.rand(n, generator=g, device=dev)
+        code = torch.where(u < 0.1, 2, torch.where(u < 0.15, 0, 1)
+                           ).to(torch.uint8)
+    cols = _k5_columns(n, g, dev, nulls)
+    reset_launches()
+    got = aggregate(keys, code, cols, max_groups)
+    torch.cuda.synchronize()
+    assert LAUNCHES["aggregate"] == 2
+    want = aggregate_plain(keys, code, cols, max_groups)
+    _hold_k5(got, want, [c.kind for c in cols])
+    if groups > max_groups:
+        assert bool(got.overflow)
+
+
+def test_k5_extreme_keys_and_count_only():
+    """Keys int64::min, int64::max and 0 (no sentinel key value), and a
+    query with no value columns (one launch)."""
+    dev = _card()
+    from gandiva_tpu_torch.ops.kernels.aggregate import (aggregate,
+                                                         aggregate_plain)
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(5)
+    pool = torch.tensor([-2**63, 2**63 - 1, 0, -1, 1], device=dev)
+    n = 77_777
+    keys = pool[torch.randint(0, 5, (n,), generator=g, device=dev)]
+    for cols in ([], _k5_columns(n, g, dev, True)[:4]):
+        reset_launches()
+        got = aggregate(keys, None, cols, 8)
+        torch.cuda.synchronize()
+        assert LAUNCHES["aggregate"] == 1
+        want = aggregate_plain(keys, None, cols, 8)
+        _hold_k5(got, want, [c.kind for c in cols])
+        assert int(got.count) == 5
+        assert got.keys[:5].tolist() == sorted(pool.tolist())
+
+
+def test_hash_aggregate_on_card_matches_cpu():
+    """configs[1]'s query through hash_aggregate("auto") on the card (K5)
+    against the same query on the CPU (K5's plain version)."""
+    dev = _card()
+    import numpy as np
+
+    from gandiva_tpu_torch.ops import hash_aggregate
+
+    rng = np.random.default_rng(1)
+    n = 100_003
+    keys = rng.integers(0, 64, n) * 7 + 3
+    for vals in (rng.random(n), rng.integers(-1000, 1000, n)):
+        out = {}
+        for d in (dev, torch.device("cpu")):
+            reset_launches()
+            out[d.type] = hash_aggregate(
+                torch.from_numpy(keys).to(d),
+                [("v", "sum"), ("v", "count"), ("v", "min"), ("v", "max")],
+                {"v": (torch.from_numpy(vals).to(d), None)}, max_groups=64)
+            if d.type == "cuda":
+                assert LAUNCHES["aggregate"] == 1
+        for k, want in out["cpu"].items():
+            got = out["cuda"][k].cpu()
+            if got.dtype.is_floating_point and k.endswith(":sum"):
+                torch.testing.assert_close(got, want, rtol=1e-9, atol=0)
+            else:
+                assert torch.equal(got, want), k

@@ -6,14 +6,22 @@ the listed test functions are called with their parametrize cases. The
 reference test files stay as they are. Tests of features the port does not
 have yet (strings, decimals, profiling, the jit flag's internals) are left
 out and named in ROADMAP.md.
+
+The aggregate tests hand the port the reference's (JAX) arrays: the
+stand-ins for ``gandiva_tpu.ops.hash_aggregate`` and ``.groupby`` below turn
+them into CPU tensors through ``np.asarray`` and the results into numpy
+arrays; the port itself takes torch tensors only.
 """
 import functools
+import importlib
 import os
 import sys
 import types
 from contextlib import contextmanager
 
+import numpy as np
 import pytest
+import torch
 
 import gandiva_tpu_torch as gt
 
@@ -43,6 +51,26 @@ CASES = (
         "test_evaluate_many_batches_reuses_compile",
         "test_selection_mode_enforced")]
     + [("test_filter_project_fused", "test_fused_equals_unfused", {})]
+    + [("test_hash_aggregate", name, {}) for name in (
+        "test_group_ids_basic", "test_group_ids_overflow",
+        "test_group_ids_many_collisions",
+        "test_group_ids_float_keys_not_truncated",
+        "test_group_ids_multi_with_nulls")]
+    + [("test_hash_aggregate", "test_hash_aggregate_vs_arrow_int",
+        {"nulls": nulls, "backend": backend})
+       for nulls in (False, True) for backend in ("auto", "pallas_interpret")]
+    + [("test_hash_aggregate", "test_pallas_float_values_vs_acero",
+        {"dtype": dtype}) for dtype in (np.float32, np.float64)]
+    + [("test_hash_aggregate", name, {}) for name in (
+        "test_hash_aggregate_float_sum_close", "test_pallas_512_groups_vs_acero",
+        "test_pallas_float_nulls_and_null_keys",
+        "test_hash_aggregate_pallas_wide_values_and_kinds",
+        "test_hash_aggregate_pallas_padding_unaligned",
+        "test_hash_aggregate_pallas_overflow_flag")]
+    + [("test_registry_tail", "test_unsigned_aggregates",
+        {"backend": backend, "dtype": dtype})
+       for backend in ("xla", "pallas_interpret")
+       for dtype in (np.uint8, np.uint32, np.uint64)]
 )
 
 
@@ -60,6 +88,52 @@ def _port_on_cpu() -> types.ModuleType:
     return mod
 
 
+def _tensor(x):
+    return None if x is None else torch.from_numpy(np.array(np.asarray(x)))
+
+
+def _numpy(x):
+    return tuple(_numpy(v) for v in x) if isinstance(x, tuple) \
+        else np.asarray(x)
+
+
+def _aggregate_shim() -> types.ModuleType:
+    port = importlib.import_module("gandiva_tpu_torch.ops.hash_aggregate")
+    mod = types.ModuleType("gandiva_tpu.ops.hash_aggregate")
+
+    def hash_aggregate(keys, aggs, values, key_valid=None, row_valid=None,
+                       **kw):
+        res = port.hash_aggregate(
+            _tensor(keys), aggs,
+            {k: (_tensor(a), _tensor(v)) for k, (a, v) in values.items()},
+            key_valid=_tensor(key_valid), row_valid=_tensor(row_valid), **kw)
+        return {k: _numpy(v) for k, v in res.items()}
+
+    mod.hash_aggregate = hash_aggregate
+    return mod
+
+
+def _groupby_shim() -> types.ModuleType:
+    port = gt.ops.groupby
+    mod = types.ModuleType("gandiva_tpu.ops.groupby")
+
+    def group_ids(keys, valid=None, **kw):
+        return _numpy(port.group_ids(_tensor(keys), _tensor(valid), **kw))
+
+    def group_ids_multi(key_columns, valids=None, **kw):
+        return _numpy(port.group_ids_multi(
+            [_tensor(c) for c in key_columns],
+            None if valids is None else [_tensor(v) for v in valids], **kw))
+
+    mod.group_ids, mod.group_ids_multi = group_ids, group_ids_multi
+    return mod
+
+
+_AGG = _aggregate_shim()
+_GROUPBY = _groupby_shim()
+_OPS = types.ModuleType("gandiva_tpu.ops")
+_OPS.hash_aggregate, _OPS.groupby = _AGG, _GROUPBY
+
 _STAND_INS = {
     "gandiva_tpu": _port_on_cpu(),
     "gandiva_tpu.dtypes": gt.dtypes,
@@ -67,6 +141,9 @@ _STAND_INS = {
     "gandiva_tpu.expr.nodes": gt.expr.nodes,
     "gandiva_tpu.registry": gt.registry,
     "gandiva_tpu.registry.registry": gt.registry.registry,
+    "gandiva_tpu.ops": _OPS,
+    "gandiva_tpu.ops.hash_aggregate": _AGG,
+    "gandiva_tpu.ops.groupby": _GROUPBY,
 }
 
 
@@ -95,11 +172,18 @@ def _module(stem: str) -> dict:
     return ns
 
 
+def _case_id(stem, name, kwargs) -> str:
+    return f"{stem}::{name}" + "".join(
+        f"[{getattr(v, '__name__', v)}]" for v in kwargs.values())
+
+
 @pytest.mark.parametrize("stem,name,kwargs", CASES,
-                         ids=[f"{s}::{n}{''.join(f'[{v}]' for v in k.values())}"
-                              for s, n, k in CASES])
+                         ids=[_case_id(*c) for c in CASES])
 def test_reference_case_on_port(stem, name, kwargs):
     ns = _module(stem)
-    assert ns["g"] is _STAND_INS["gandiva_tpu"]
+    for alias, stand_in in (("g", _STAND_INS["gandiva_tpu"]),
+                            ("hash_aggregate", _AGG.hash_aggregate),
+                            ("group_ids", _GROUPBY.group_ids)):
+        assert alias not in ns or ns[alias] is stand_in, alias
     with _port_as_reference():
         ns[name](**kwargs)
