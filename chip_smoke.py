@@ -38,7 +38,25 @@ Phases (any failure exits non-zero; there is no CPU fallback):
   9. agg path — ops.hash_aggregate(...) as bench.py runs configs[1], on
                 100,000,000 rows made on the card: rows/s (best of 3), K5
                 launches, peak device memory, device time by kernel; its
-                groups held against K5's plain version and pyarrow.
+                groups held against K5's plain version and pyarrow;
+ 10. K4, K3   — the block sort and the merge-path round against their plain
+                torch versions on the card, bit for bit: at configs[2]'s
+                shape (100,000,000 int64 keys as bench.py makes them) K4 and
+                the first and last K3 rounds; at a ragged 1,000,037 rows
+                every round, for heavy ties, sorted and reversed input, four
+                words (two nullable keys), 14 words (the tile halves), and
+                at n < W and n = 0;
+ 11. sort times — K4, each K3 round, the whole merge_sort, sort_columns,
+                their plain versions and the nearest PyTorch calls
+                (segmented torch.sort for a kernel, torch.sort +
+                index_select for the operator) at the configs[2] shape,
+                beside the least time the card's memory allows;
+ 12. sort path — ops.sort_columns([SortKey(keys)], [payload]) as bench.py
+                runs configs[2], on 100,000,000 rows made on the card, and
+                again with 10% null keys nulls first: rows/s (best of 3), K4
+                and K3 launches, peak device memory, device time by kernel;
+                perm held against the plain merge sort, sorted columns against
+                keys[perm]; then a ragged multi-key sort against pyarrow.
 Then one {"kernels": [...]} line, and last {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -63,6 +81,8 @@ ARROW_ROWS = 1_000_000
 N_AGG = 100_000_000              # bench.py's configs[1] rows (bench.py:88-93)
 AGG_GROUPS = 64
 AGG_RTOL = 1e-9                  # f64 sums: ~1.56M atomic addends a group
+N_SORT = 100_000_000             # bench.py's configs[2] (bench.py:101-122)
+I64_MIN = -(1 << 63)
 
 
 def log(*a):
@@ -186,6 +206,56 @@ def hold_k5(got, want, kinds, what: str) -> float:
                 err = max(err, float((g - w).abs().nan_to_num().max()))
             elif not torch.equal(g, w):
                 raise AssertionError(f"{what}: column {v} row {r} differs")
+    return err
+
+
+def plain_merge_sort(words, w_log2):
+    """``merge_sort``'s steps through K4's and K3's plain versions."""
+    from gandiva_tpu_torch.ops.kernels.merge_path import (merge_round_plain,
+                                                          num_rounds)
+    from gandiva_tpu_torch.ops.kernels.sort_bitonic import block_sort_plain
+
+    idx, cur = block_sort_plain(words, w_log2)
+    for r in range(num_rounds(words.shape[1], w_log2)):
+        cur, idx = merge_round_plain(cur, idx, 1 << (w_log2 + r))
+    return idx, cur
+
+
+def hold_sort(got, want, what: str) -> float:
+    """A (perm, words) pair against its plain version's, bit for bit;
+    returns the largest absolute difference of the permutations (0)."""
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        raise AssertionError(f"{what}: differs from the plain version")
+    if got[0].numel() == 0:
+        return 0.0
+    return float((got[0].long() - want[0].long()).abs().max())
+
+
+def sort_rounds_against_plain(words, what: str, every_round: bool = True
+                              ) -> float:
+    """K4 and then K3's rounds on ``words``, each held against its plain
+    version on the same input; with ``every_round`` false only the first and
+    last rounds are. Returns the largest absolute difference."""
+    from gandiva_tpu_torch.ops.kernels import merge_path as k3
+    from gandiva_tpu_torch.ops.kernels import sort_bitonic as k4
+
+    w_log2 = k4.tile_log2(words.shape[0])
+    got = k4.block_sort_cuda(words, w_log2)
+    torch.cuda.synchronize()
+    err = hold_sort(got, k4.block_sort_plain(words, w_log2), f"{what} K4")
+    idx, cur = got
+    rounds = k3.num_rounds(words.shape[1], w_log2)
+    for r in range(rounds):
+        run = 1 << (w_log2 + r)
+        got = k3.merge_round_cuda(cur, idx, run)
+        torch.cuda.synchronize()
+        if every_round or r in (0, rounds - 1):
+            err = max(err, hold_sort(got[::-1], k3.merge_round_plain(
+                cur, idx, run)[::-1], f"{what} K3 round {r}"))
+        cur, idx = got
+    log(f"{what}: {words.shape[0]} words, n={words.shape[1]}, W=2^{w_log2}: "
+        f"K4 and {'every' if every_round else 'the first and last'} of "
+        f"{rounds} K3 rounds match plain")
     return err
 
 
@@ -583,6 +653,226 @@ def main() -> int:
         "device_busy_share": agg_busy, "k5_launches": agg_launches,
         "k5_ms_int64_values": k5_i64_ms, "k5_ms_parts": k5_parts}}))
 
+    # -- 10. K4 and K3 against plain -------------------------------------
+    phase("K4 and K3 against their plain versions")
+    from gandiva_tpu_torch.ops import SortKey
+    from gandiva_tpu_torch.ops.kernels import merge_path as k3
+    from gandiva_tpu_torch.ops.kernels import sort_bitonic as k4
+    from gandiva_tpu_torch.ops.sort import _build_operands, normalize_key
+
+    g.manual_seed(13)
+    # bench.py:116-118: int64 keys uniform in [-2^62, 2^62), one payload
+    sort_keys = torch.randint(-2**62, 2**62, (N_SORT,), generator=g,
+                              device=dev)
+    sort_pay = torch.randint(0, 10**9, (N_SORT,), generator=g, device=dev)
+    words = normalize_key(sort_keys).unsqueeze(0)   # configs[2]'s one word
+    sort_err = sort_rounds_against_plain(words, f"configs[2] n={N_SORT}",
+                                         every_round=False)
+    n = N_RAGGED
+
+    def two_nullable_keys():
+        a = torch.randint(-5, 5, (n,), generator=g, device=dev)
+        b = torch.randint(-2**62, 2**62, (n,), generator=g, device=dev)
+        va = torch.rand(n, generator=g, device=dev) >= 0.1
+        vb = torch.rand(n, generator=g, device=dev) >= 0.1
+        return torch.stack(_build_operands(
+            [SortKey(a, va), SortKey(b, vb, False, False)], None)[0])
+
+    ragged_words = [
+        ("ties", torch.randint(0, 3, (1, n), generator=g, device=dev)),
+        ("sorted", torch.arange(n, device=dev).unsqueeze(0)),
+        ("reversed", torch.arange(n, 0, -1, device=dev).unsqueeze(0)),
+        ("two nullable keys", two_nullable_keys()),
+        ("14 words", torch.randint(0, 2, (14, n), generator=g, device=dev)),
+        ("n < W", torch.randint(-2**62, 2**62, (1, 1000), generator=g,
+                                device=dev)),
+        ("n = 0", torch.empty((1, 0), dtype=torch.int64, device=dev))]
+    for label, w in ragged_words:
+        sort_err = max(sort_err, sort_rounds_against_plain(
+            w, f"ragged {label}"))
+    if k4.tile_log2(14) >= k4.DEFAULT_W_LOG2:
+        raise AssertionError("14 words did not halve the tile")
+    del ragged_words
+
+    # -- 11. sort times --------------------------------------------------
+    phase("sort times")
+    w_log2 = k4.tile_log2(1)
+    W = 1 << w_log2
+    rounds = k3.num_rounds(N_SORT, w_log2)
+    tiles = -(-N_SORT // W)
+    padded = torch.cat([words[0], words.new_full((tiles * W - N_SORT,), -1)])
+    k4_ms = time_ms(lambda: k4.block_sort_cuda(words, w_log2), iters=10)
+    k4_plain_ms = time_ms(lambda: k4.block_sort_plain(words, w_log2),
+                          iters=2, warmup=1)
+    # one PyTorch call of the same function: a stable sort of every tile
+    k4_library_ms = time_ms(lambda: torch.sort(
+        (padded ^ I64_MIN).view(tiles, W), dim=1, stable=True), iters=3,
+        warmup=1)
+    k4_ms2 = time_ms(lambda: k4.block_sort_cuda(words, w_log2), iters=10)
+    del padded
+    idx, cur = k4.block_sort_cuda(words, w_log2)
+    spare = (torch.empty_like(cur), torch.empty_like(idx))
+    round_ms, round_plain_ms, round_library_ms = [], [], []
+    for r in range(rounds):
+        run = W << r
+        round_ms.append(time_ms(lambda: k3.merge_round_cuda(
+            cur, idx, run, out=spare), iters=5))
+        round_plain_ms.append(time_ms(lambda: k3.merge_round_plain(
+            cur, idx, run), iters=1, warmup=1))
+        pairs = -(-N_SORT // (2 * run))
+        padded = torch.cat([cur[0], cur.new_full(
+            (pairs * 2 * run - N_SORT,), -1)]) ^ I64_MIN
+        # one PyTorch call of the same function: a stable sort of each pair
+        round_library_ms.append(time_ms(lambda: torch.sort(
+            padded.view(pairs, 2 * run), dim=1, stable=True), iters=2,
+            warmup=1))
+        del padded
+        merged = k3.merge_round_cuda(cur, idx, run, out=spare)
+        spare = (cur, idx)
+        cur, idx = merged
+    del spare, cur, idx, merged
+    k3_ms = sum(round_ms) / rounds
+    k3_plain_ms = sum(round_plain_ms) / rounds
+    k3_library_ms = sum(round_library_ms) / rounds
+    merge_sort_ms = time_ms(lambda: k3.merge_sort(list(words)), iters=5)
+    merge_sort_plain_ms = time_ms(lambda: plain_merge_sort(words, w_log2),
+                                  iters=1, warmup=1)
+
+    def sort_op():
+        return gt.ops.sort_columns([SortKey(sort_keys)], [sort_pay])
+
+    def sort_library():
+        values, order = torch.sort(sort_keys, stable=True)
+        return order, values, sort_pay.index_select(0, order)
+
+    op_ms = time_ms(sort_op, iters=5)
+    op_library_ms = time_ms(sort_library, iters=5)
+    op_ms2 = time_ms(sort_op, iters=5)
+    # least bytes, each input read once and each output written once:
+    # K4 reads the word and writes word + index; a K3 round reads and
+    # writes word + index; the operator reads key + payload and writes the
+    # sorted key, sorted payload and perm
+    k4_bound_ms = N_SORT * (8 + 8 + 4) / bw * 1e3
+    k3_bound_ms = N_SORT * 2 * (8 + 4) / bw * 1e3
+    op_bound_ms = N_SORT * (16 + 8 + 8 + 4) / bw * 1e3
+    log(f"n={N_SORT} W={W} rounds={rounds}")
+    log(f"K4 k4_ms={k4_ms:.4f} (again {k4_ms2:.4f}) "
+        f"plain_ms={k4_plain_ms:.4f} library_ms={k4_library_ms:.4f} "
+        f"bound_ms={k4_bound_ms:.4f} -> {k4_bound_ms / k4_ms:.1%} of the "
+        "bound")
+    log(f"K3 mean round k3_ms={k3_ms:.4f} (first {round_ms[0]:.4f}, last "
+        f"{round_ms[-1]:.4f}) plain_ms={k3_plain_ms:.4f} "
+        f"library_ms={k3_library_ms:.4f} bound_ms={k3_bound_ms:.4f} -> "
+        f"{k3_bound_ms / k3_ms:.1%} of the bound")
+    log("K3 by round (ms): " + ", ".join(f"{x:.4f}" for x in round_ms))
+    log(f"merge_sort {merge_sort_ms:.4f} ms (plain {merge_sort_plain_ms:.4f})"
+        f"; sort_columns {op_ms:.4f} ms (again {op_ms2:.4f}); torch.sort + "
+        f"index_select {op_library_ms:.4f} ms; operator bound "
+        f"{op_bound_ms:.4f} ms -> {op_bound_ms / op_ms:.1%}")
+
+    # -- 12. main path: the configs[2] sort ------------------------------
+    phase("main path: sort_columns (configs[2])")
+    valid = torch.rand(N_SORT, generator=g, device=dev) >= 0.1
+    sort_runs = {"no nulls": [SortKey(sort_keys)],
+                 "10% null keys, nulls first": [SortKey(sort_keys, valid,
+                                                        True, True)]}
+    sort_launches = {"sort_block": 0, "merge_path": 0}
+    sort_report = {}
+    for label, keys in sort_runs.items():
+        def sort_path(keys=keys):
+            return gt.ops.sort_columns(keys, [sort_pay])
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        reset_launches()
+        res = sort_path()                                 # warm-up
+        torch.cuda.synchronize()
+        walls = []
+        for _ in range(runs):
+            t = time.perf_counter()
+            res = sort_path()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+        peak = torch.cuda.max_memory_allocated()
+        busy = profile_call(sort_path)
+        launched = {k: LAUNCHES[k] for k in sort_launches}
+        calls = 2 + runs
+        if launched != {"sort_block": calls, "merge_path": calls * rounds}:
+            raise AssertionError(f"{label}: {launched} in {calls} calls, "
+                                 f"expected K4 once and K3 {rounds} times "
+                                 "a call")
+        for k in sort_launches:
+            sort_launches[k] += launched[k]
+        rows_s = N_SORT / min(walls)
+        perm, (sk,), (sp,) = res
+        words_ = torch.stack(_build_operands(keys, None)[0])
+        want = plain_merge_sort(words_, k4.tile_log2(words_.shape[0]))[0]
+        if not torch.equal(perm, want):
+            raise AssertionError(f"{label}: perm differs from the plain "
+                                 "merge sort")
+        if not (torch.equal(sk, sort_keys.index_select(0, perm))
+                and torch.equal(sp, sort_pay.index_select(0, perm))):
+            raise AssertionError(f"{label}: sorted columns != columns[perm]")
+        del words_, want, res, perm, sk, sp
+        log(f"{label}: n={N_SORT} walls_s={[round(w, 6) for w in walls]} "
+            f"rows/s={rows_s:.6g} launches {launched} in {calls} calls "
+            f"max_memory_allocated={peak} (resident before the first call "
+            f"{resident}: the path's own {peak - resident}); perm equal to "
+            "the plain merge sort's, sorted key and payload equal to "
+            "columns[perm]")
+        sort_report[label] = {"rows_per_s": rows_s, "walls_s": walls,
+                              "max_memory_allocated": peak,
+                              "resident_before": resident,
+                              "device_busy_share": busy}
+    del sort_keys, sort_pay, valid, words
+
+    # the ragged multi-key sort against pyarrow, copied to the host once
+    n = N_RAGGED
+    a = torch.randint(-50, 50, (n,), generator=g, device=dev)
+    va = torch.rand(n, generator=g, device=dev) >= 0.1
+    f = torch.randint(-8, 8, (n,), generator=g, device=dev).double() / 2
+    u = torch.rand(n, generator=g, device=dev)
+    f = torch.where(u < 0.05, float("nan"), f)
+    f = torch.where((u >= 0.05) & (u < 0.1), -0.0, f)
+    f = torch.where((u >= 0.1) & (u < 0.12), float("inf"), f)
+    f = torch.where((u >= 0.12) & (u < 0.14), float("-inf"), f)
+    p1 = torch.randint(-2**62, 2**62, (n,), generator=g, device=dev)
+    p2 = torch.rand(n, generator=g, device=dev)
+    perm, (sa, sf), (sp1, sp2) = gt.ops.sort_columns(
+        [SortKey(a, va, True, True), SortKey(f, None, False, True)],
+        [p1, p2])
+    host = {k: v.cpu().numpy() for k, v in dict(
+        a=a, va=va, f=f, p1=p1, p2=p2, perm=perm, sa=sa, sf=sf, sp1=sp1,
+        sp2=sp2).items()}
+    table = pa.table({"a": pa.array(host["a"], mask=~host["va"]),
+                      "f": host["f"], "p1": host["p1"], "p2": host["p2"]})
+    order = pc.sort_indices(table, sort_keys=[("a", "ascending"),
+                                              ("f", "descending")],
+                            null_placement="at_start")
+    taken = table.take(order)
+    got = pa.table({"a": pa.array(host["sa"], mask=~host["va"][host["perm"]]),
+                    "p1": host["sp1"], "p2": host["sp2"]})
+    if not np.array_equal(host["perm"], np.asarray(order)):
+        raise AssertionError("ragged sort: perm != pyarrow sort_indices")
+    # f by its bits: Arrow's equality holds NaN unequal and -0.0 == 0.0
+    if not got.equals(taken.select(["a", "p1", "p2"])) or not np.array_equal(
+            host["sf"].view(np.int64),
+            taken.column("f").to_numpy().view(np.int64)):
+        raise AssertionError("ragged sort: columns != pyarrow take")
+    log(f"ragged n={n}: nullable int64 key (nulls first) + descending f64 "
+        "key with -0.0, NaN, ±inf, two payloads: equal to pyarrow "
+        "sort_indices and take, row for row")
+    del host, table, taken, got
+    log(json.dumps({"sort_path": {
+        "rows": N_SORT, "runs": sort_report, "rounds_per_call": rounds,
+        "tile_rows": W, "launches": sort_launches,
+        "k4_ms": k4_ms, "k3_round_ms": round_ms,
+        "merge_sort_ms": merge_sort_ms,
+        "merge_sort_plain_ms": merge_sort_plain_ms,
+        "sort_columns_ms": op_ms, "library_ms": op_library_ms,
+        "operator_bound_ms": op_bound_ms}}))
+
     # -- the kernels line, then the last line ----------------------------
     log(json.dumps({"kernels": [{
         "name": "compact",
@@ -610,6 +900,32 @@ def main() -> int:
         "bound_ms": k5_bound_ms,
         "bound_by": "bytes",
         "library_ms": k5_library_ms,
+    }, {
+        "name": "sort_block",
+        "route": "cuda",
+        "source": "gandiva_tpu_torch/csrc/sort_bitonic.cu",
+        "replaces": "gandiva_tpu/ops/kernels/sort_bitonic.py:69",
+        "launches": sort_launches["sort_block"],
+        "matches_plain": True,
+        "max_abs_err": sort_err,
+        "ms": k4_ms,
+        "plain_ms": k4_plain_ms,
+        "bound_ms": k4_bound_ms,
+        "bound_by": "bytes",
+        "library_ms": k4_library_ms,
+    }, {
+        "name": "merge_path",
+        "route": "cuda",
+        "source": "gandiva_tpu_torch/csrc/merge_path.cu",
+        "replaces": "gandiva_tpu/ops/kernels/merge_path.py:153",
+        "launches": sort_launches["merge_path"],
+        "matches_plain": True,
+        "max_abs_err": sort_err,
+        "ms": k3_ms,
+        "plain_ms": k3_plain_ms,
+        "bound_ms": k3_bound_ms,
+        "bound_by": "bytes",
+        "library_ms": k3_library_ms,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}), flush=True)

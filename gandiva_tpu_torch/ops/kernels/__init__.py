@@ -4,11 +4,13 @@
 (never the plain version), so a run can show which path it took. K1 counts
 one per scatter launch: one per call for up to eight payload columns. K5
 counts one per launch of its three-kernel sequence: one per call for up to
-four value columns.
+four value columns. K4 (``sort_block``) counts one per sort; K3
+(``merge_path``) one per merge round, ⌈log2 ⌈n / W⌉⌉ of them per sort.
 """
 from typing import Dict
 
-LAUNCHES: Dict[str, int] = {"compact": 0, "aggregate": 0}
+LAUNCHES: Dict[str, int] = {"compact": 0, "aggregate": 0, "sort_block": 0,
+                            "merge_path": 0}
 
 
 def reset_launches() -> None:

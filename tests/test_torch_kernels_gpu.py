@@ -1,6 +1,7 @@
-"""Kernels K1 (stream compaction, csrc/compaction.cu) and K5 (one-pass
-GROUP BY, csrc/aggregate.cu) against their plain torch versions on the
-card. Marked ``gpu``; each test decides in its body whether a
+"""Kernels K1 (stream compaction, csrc/compaction.cu), K5 (one-pass GROUP
+BY, csrc/aggregate.cu), K4 (block sort, csrc/sort_bitonic.cu) and K3
+(merge-path round, csrc/merge_path.cu) against their plain torch versions
+on the card. Marked ``gpu``; each test decides in its body whether a
 card is present and skips with a reason where there is none. Needs no JAX:
 
     python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
@@ -286,3 +287,109 @@ def test_hash_aggregate_on_card_matches_cpu():
                 torch.testing.assert_close(got, want, rtol=1e-9, atol=0)
             else:
                 assert torch.equal(got, want), k
+
+
+# ---------------------------------------------------------------------------
+# K4 (block sort, csrc/sort_bitonic.cu) and K3 (merge-path round,
+# csrc/merge_path.cu) against their plain torch versions
+# ---------------------------------------------------------------------------
+
+def _sort_words(n, k, kind, g, dev):
+    """k comparator words of n rows: uniform 64-bit patterns, heavy ties
+    (values in [0, 3)), or an ascending or descending first word."""
+    if kind == "ties":
+        return torch.randint(0, 3, (k, n), generator=g, device=dev)
+    words = torch.stack([_bits64(n, g, dev) for _ in range(k)])
+    if kind == "sorted":
+        words[0] = torch.arange(n, device=dev)
+    elif kind == "reversed":
+        words[0] = torch.arange(n, 0, -1, device=dev)
+    return words.contiguous()
+
+
+@pytest.mark.parametrize("n,k,kind", [
+    (0, 1, "random"), (1, 1, "random"), (1000, 1, "random"),
+    (2048, 1, "ties"), (4096 + 17, 1, "sorted"), (1_000_037, 1, "random"),
+    (1_000_037, 1, "ties"), (300_007, 1, "reversed"), (100_003, 2, "ties"),
+    (30_011, 4, "ties"), (20_011, 30, "ties"), (65_536, 3, "random")])
+def test_k4_k3_match_plain(n, k, kind):
+    """K4 once and every K3 round, each against its plain version on the
+    same input, bit for bit; 30 words halve the tile twice."""
+    dev = _card()
+    from gandiva_tpu_torch.ops.kernels.merge_path import (
+        merge_round, merge_round_plain, merge_sort, num_rounds)
+    from gandiva_tpu_torch.ops.kernels.sort_bitonic import (
+        DEFAULT_W_LOG2, block_sort, block_sort_plain, tile_log2)
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(n + k)
+    words = _sort_words(n, k, kind, g, dev)
+    w_log2 = tile_log2(k)
+    assert (w_log2 < DEFAULT_W_LOG2) == (k == 30)
+    reset_launches()
+    idx, cur = block_sort(words, w_log2)
+    torch.cuda.synchronize()
+    assert LAUNCHES["sort_block"] == (1 if n else 0)
+    widx, wcur = block_sort_plain(words, w_log2)
+    assert torch.equal(idx, widx) and torch.equal(cur, wcur)
+    rounds = num_rounds(n, w_log2)
+    for r in range(rounds):
+        run = 1 << (w_log2 + r)
+        got = merge_round(cur, idx, run)
+        torch.cuda.synchronize()
+        want = merge_round_plain(cur, idx, run)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        cur, idx = got
+    assert LAUNCHES["merge_path"] == rounds
+    perm, sorted_words = merge_sort(list(words))
+    assert torch.equal(perm, idx) and torch.equal(sorted_words, cur)
+    assert torch.equal(perm.long().sort().values, torch.arange(n, device=dev))
+
+
+def test_sort_cuda_entries_refuse_cpu_tensors():
+    from gandiva_tpu_torch.ops.kernels.merge_path import merge_round_cuda
+    from gandiva_tpu_torch.ops.kernels.sort_bitonic import block_sort_cuda
+
+    words = torch.zeros((1, 8), dtype=torch.int64)
+    with pytest.raises(ValueError, match="CUDA"):
+        block_sort_cuda(words, 11)
+    with pytest.raises(ValueError, match="CUDA"):
+        merge_round_cuda(words, torch.zeros(8, dtype=torch.int32), 2048)
+
+
+def test_sort_columns_on_card_matches_cpu():
+    """A nullable int64 key (nulls first), a descending float64 key with
+    -0.0, NaN and ±inf, and two payloads: the card's sort_columns (K4 once,
+    K3 every round) against the same call on the CPU."""
+    dev = _card()
+    import numpy as np
+
+    from gandiva_tpu_torch.ops import SortKey, sort_columns
+    from gandiva_tpu_torch.ops.kernels.merge_path import num_rounds
+    from gandiva_tpu_torch.ops.kernels.sort_bitonic import tile_log2
+
+    rng = np.random.default_rng(9)
+    n = 200_003
+    a = rng.integers(-50, 50, n)
+    f = rng.integers(-4, 4, n) / 2.0
+    f[rng.random(n) < 0.05] = np.nan
+    f[rng.random(n) < 0.05] = -0.0
+    f[rng.random(n) < 0.02] = np.inf
+    f[rng.random(n) < 0.02] = -np.inf
+    cols = {"a": a, "valid": rng.random(n) >= 0.1, "f": f,
+            "p": rng.integers(0, 10**9, n), "q": rng.random(n) < 0.5}
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        t = {name: torch.from_numpy(v).to(d) for name, v in cols.items()}
+        reset_launches()
+        out[d.type] = sort_columns(
+            [SortKey(t["a"], t["valid"]), SortKey(t["f"], ascending=False)],
+            [t["p"], t["q"]])
+        if d.type == "cuda":
+            w_log2 = tile_log2(4)
+            assert LAUNCHES["sort_block"] == 1
+            assert LAUNCHES["merge_path"] == num_rounds(n, w_log2)
+    (gp, gk, gv), (cp, ck, cv) = out["cuda"], out["cpu"]
+    assert torch.equal(gp.cpu(), cp)
+    for got, want in zip(gk + gv, ck + cv):
+        assert torch.equal(_bits(got.cpu()), _bits(want))

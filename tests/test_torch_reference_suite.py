@@ -7,10 +7,14 @@ reference test files stay as they are. Tests of features the port does not
 have yet (strings, decimals, profiling, the jit flag's internals) are left
 out and named in ROADMAP.md.
 
-The aggregate tests hand the port the reference's (JAX) arrays: the
-stand-ins for ``gandiva_tpu.ops.hash_aggregate`` and ``.groupby`` below turn
-them into CPU tensors through ``np.asarray`` and the results into numpy
-arrays; the port itself takes torch tensors only.
+The aggregate and sort tests hand the port the reference's (JAX) arrays:
+the stand-ins for ``gandiva_tpu.ops.hash_aggregate``, ``.groupby``,
+``.sort`` and ``.kernels.merge_path`` below turn them into CPU tensors
+through ``np.asarray`` and the results into numpy arrays; the port itself
+takes torch tensors only. ``test_sort_bitonic`` runs only its
+``sort_columns`` case: its other tests test ``bitonic_sort_u32`` and
+``operands_to_limbs``, which the port leaves out (ROADMAP.md), so its
+stand-in names them only to raise.
 """
 import functools
 import importlib
@@ -71,6 +75,18 @@ CASES = (
         {"backend": backend, "dtype": dtype})
        for backend in ("xla", "pallas_interpret")
        for dtype in (np.uint8, np.uint32, np.uint64)]
+    + [("test_sort", name, {}) for name in (
+        "test_normalize_preserves_order", "test_sort_multi_column",
+        "test_sort_padding_goes_last")]
+    + [("test_sort", "test_sort_vs_arrow",
+        {"ascending": a, "nulls_first": f})
+       for a in (True, False) for f in (True, False)]
+    + [("test_sort_bitonic", "test_sort_columns_denormalize_roundtrip", {})]
+    + [("test_merge_path", "test_two_limb_with_carry", {"n": n})
+       for n in (100, 1024, 3000, 5000, 16385)]
+    + [("test_merge_path", name, {}) for name in (
+        "test_stability_heavy_ties", "test_single_limb_sorted_and_reversed",
+        "test_multiple_carries_64bit_payload")]
 )
 
 
@@ -129,10 +145,87 @@ def _groupby_shim() -> types.ModuleType:
     return mod
 
 
+_UNSIGNED = {1: np.uint8, 2: np.uint16, 4: np.uint32, 8: np.uint64}
+
+
+def _sort_shim() -> types.ModuleType:
+    port = gt.ops.sort
+    mod = types.ModuleType("gandiva_tpu.ops.sort")
+
+    def keys_(keys):
+        return [port.SortKey(_tensor(k.values), _tensor(k.validity),
+                             k.ascending, k.nulls_first) for k in keys]
+
+    def normalize_key(values, ascending=True):
+        """The unsigned lanes as numpy's unsigned dtype of their width (the
+        port holds them as the bits of the signed type)."""
+        u = np.asarray(port.normalize_key(_tensor(values), ascending))
+        return u.view(_UNSIGNED[u.itemsize])
+
+    def sort_permutation(keys, length=None):
+        return np.asarray(port.sort_permutation(keys_(keys), length))
+
+    def sort_columns(keys, payload=(), length=None):
+        perm, sk, sp = port.sort_columns(
+            keys_(keys), [_tensor(p) for p in payload], length)
+        return (np.asarray(perm), [x.numpy() for x in sk],
+                [x.numpy() for x in sp])
+
+    mod.SortKey = port.SortKey
+    mod.normalize_key, mod.sort_permutation, mod.sort_columns = \
+        normalize_key, sort_permutation, sort_columns
+    return mod
+
+
+def _merge_path_shim() -> types.ModuleType:
+    kernels = importlib.import_module(
+        "gandiva_tpu_torch.ops.kernels.merge_path")
+    mod = types.ModuleType("gandiva_tpu.ops.kernels.merge_path")
+
+    def merge_sort_u32(limbs, carry=(), w_log2=16, interpret=False):
+        """The reference's uint32 comparator limbs packed two to a 64-bit
+        word (most significant first; an odd last limb alone, zero-extended,
+        which keeps the lexicographic order), sorted by the port's
+        ``merge_sort`` at the same tile; the sorted limbs unpacked from the
+        sorted words, and the carries (payload limbs) gathered by the
+        permutation, as the port gathers payloads."""
+        limbs = [np.asarray(x).astype(np.uint64) for x in limbs]
+        words = [(hi << np.uint64(32)) | lo
+                 for hi, lo in zip(limbs[0::2], limbs[1::2])]
+        if len(limbs) % 2:
+            words.append(limbs[-1])
+        perm, sorted_words = kernels.merge_sort(
+            [torch.from_numpy(w.view(np.int64)) for w in words],
+            w_log2=w_log2)
+        perm = perm.numpy()
+        sorted_limbs = []
+        for j, w in enumerate(sorted_words.numpy().view(np.uint64)):
+            if 2 * j + 1 < len(limbs):
+                sorted_limbs.append((w >> np.uint64(32)).astype(np.uint32))
+            sorted_limbs.append(w.astype(np.uint32))
+        return perm, sorted_limbs, [np.asarray(c)[perm] for c in carry]
+
+    mod.merge_sort_u32 = merge_sort_u32
+    return mod
+
+
+def _sort_bitonic_shim() -> types.ModuleType:
+    mod = types.ModuleType("gandiva_tpu.ops.kernels.sort_bitonic")
+
+    def not_ported(*args, **kwargs):
+        raise NotImplementedError("bitonic_sort_u32 and operands_to_limbs "
+                                  "are not ported (ROADMAP.md)")
+
+    mod.bitonic_sort_u32 = mod.operands_to_limbs = not_ported
+    return mod
+
+
 _AGG = _aggregate_shim()
 _GROUPBY = _groupby_shim()
+_SORT = _sort_shim()
+_MERGE_PATH = _merge_path_shim()
 _OPS = types.ModuleType("gandiva_tpu.ops")
-_OPS.hash_aggregate, _OPS.groupby = _AGG, _GROUPBY
+_OPS.hash_aggregate, _OPS.groupby, _OPS.sort = _AGG, _GROUPBY, _SORT
 
 _STAND_INS = {
     "gandiva_tpu": _port_on_cpu(),
@@ -144,6 +237,9 @@ _STAND_INS = {
     "gandiva_tpu.ops": _OPS,
     "gandiva_tpu.ops.hash_aggregate": _AGG,
     "gandiva_tpu.ops.groupby": _GROUPBY,
+    "gandiva_tpu.ops.sort": _SORT,
+    "gandiva_tpu.ops.kernels.merge_path": _MERGE_PATH,
+    "gandiva_tpu.ops.kernels.sort_bitonic": _sort_bitonic_shim(),
 }
 
 
@@ -183,7 +279,9 @@ def test_reference_case_on_port(stem, name, kwargs):
     ns = _module(stem)
     for alias, stand_in in (("g", _STAND_INS["gandiva_tpu"]),
                             ("hash_aggregate", _AGG.hash_aggregate),
-                            ("group_ids", _GROUPBY.group_ids)):
+                            ("group_ids", _GROUPBY.group_ids),
+                            ("sort_permutation", _SORT.sort_permutation),
+                            ("merge_sort_u32", _MERGE_PATH.merge_sort_u32)):
         assert alias not in ns or ns[alias] is stand_in, alias
     with _port_as_reference():
         ns[name](**kwargs)
