@@ -56,7 +56,35 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                 again with 10% null keys nulls first: rows/s (best of 3), K4
                 and K3 launches, peak device memory, device time by kernel;
                 perm held against the plain merge sort, sorted columns against
-                keys[perm]; then a ragged multi-key sort against pyarrow.
+                keys[perm]; then a ragged multi-key sort against pyarrow;
+ 13. K2       — the single-pass look-back compaction against its plain
+                version on the card, bit-exact on [:count], and against K1:
+                64Mi rows with the flagship payloads at five densities, the
+                ragged 1,000,037 rows with four payloads and with ten (two
+                launches), n = 0, n = 1,000, 2^28 rows at density 0.5, and
+                20 calls back to back before any is checked;
+ 14. K2 times — K2, K1, K2's plain version and nonzero + index_select
+                at 64Mi rows (density 0.474, flagship payloads) and at the
+                cold-residue mask and int64 key payload of one configs[3]
+                probe chunk, beside the least time the card's memory allows;
+ 15. join     — ops.join(probe, build, 100_000_000, "inner") as bench.py's
+                configs[3] join runs it (Zipf(1.3) probe keys % 1,048,576
+                made on the card, build arange(1,048,576)), then with
+                build_unique=True: rows/s (best of 3), launches, outputs
+                checked exactly (count == n, probe_idx == arange(n),
+                build_idx == the probe keys);
+ 16. join_stream — the full configs[3]: 16 chunks of 64,000,000 probe rows
+                made on the card from the seed and the chunk index against
+                build arange(10,000,000), each reduced to a checksum: rows/s
+                (best of 2), every chunk's checksum against
+                n + Σ iota + Σ keys, K2/K4/K3 launches, host syncs of one
+                probe_chunk, peak and own device memory, device time by
+                kernel for one call (torch.profiler);
+ 17. join vs Arrow — 4,194,341 Zipf probe rows (the hot path) × 1,000,003
+                build rows, 10% null keys on both sides: all six join types
+                and a two-key join_multi against pyarrow.acero's hashjoin,
+                row for row after sorting the pairs, and the hot path's
+                (start, len) against the dense path's.
 Then one {"kernels": [...]} line, and last {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -66,6 +94,7 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -83,6 +112,19 @@ AGG_GROUPS = 64
 AGG_RTOL = 1e-9                  # f64 sums: ~1.56M atomic addends a group
 N_SORT = 100_000_000             # bench.py's configs[2] (bench.py:101-122)
 I64_MIN = -(1 << 63)
+N_HUGE = 1 << 28                 # 65,536 tiles: many more than are resident
+BACK_TO_BACK = 20
+N_JOIN = 100_000_000             # bench.py's configs[3] join (bench.py:236)
+JOIN_BUILD = 1 << 20             # bench.py's BENCH_BUILD_ROWS default
+N_JOIN_FULL = 1_024_000_000      # bench.py's join_full (bench.py:249-252)
+JOIN_FULL_BUILD = 10_000_000
+JOIN_CHUNKS = 16                 # bench.py's BENCH_JOIN_CHUNKS default
+N_ARROW_PROBE = 4_194_341        # ≥ 2^22: the hot-key probe runs
+N_ARROW_BUILD = 1_000_003
+ARROW_KEYS = 500_000
+JOIN_HOWS = ("inner", "left", "right", "full", "semi", "anti")
+ACERO = {"inner": "inner", "left": "left outer", "right": "right outer",
+         "full": "full outer", "semi": "left semi", "anti": "left anti"}
 
 
 def log(*a):
@@ -128,6 +170,15 @@ def hold(got, want, what: str) -> float:
             err = max(err, float((g[:c].double() - w[:c].double())
                                  .abs().max()))
     return err
+
+
+def compaction_bytes(rows: int, survivors: int, width: int) -> int:
+    """The least bytes a stable compaction moves: the 1 B mask of every row
+    read once, and per survivor its payloads (``width`` bytes in all) read
+    once, its 4 B index and its payloads written once. K1 and K2 load a
+    payload element only where its mask bit is set, so the rows that drop
+    cost them no payload bytes either."""
+    return rows + survivors * (4 + 2 * width)
 
 
 def time_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -259,6 +310,29 @@ def sort_rounds_against_plain(words, what: str, every_round: bool = True
     return err
 
 
+def zipf_keys(n: int, n_build: int, g: torch.Generator) -> torch.Tensor:
+    """bench.py's configs[3] probe keys: Zipf(1.3) by the inverse transform
+    floor(U^(-1/0.3)), U uniform in [1e-5, 1), modulo the build size."""
+    u = torch.rand(n, generator=g, device=g.device) * (1.0 - 1e-5) + 1e-5
+    return u.pow(-1.0 / 0.3).to(torch.int64) % n_build
+
+
+def pair_codes(probe_idx, build_idx, nb: int) -> np.ndarray:
+    """(probe, build) pairs, -1 for a missing side, as sorted int64 codes."""
+    p = np.asarray(probe_idx, dtype=np.int64) + 1
+    b = np.asarray(build_idx, dtype=np.int64) + 1
+    return np.sort(p * (nb + 2) + b)
+
+
+def acero_pairs(pt, bt, keys, how: str, nb: int) -> np.ndarray:
+    """pyarrow.acero's hashjoin of the two tables, as ``pair_codes``."""
+    res = pt.join(bt, keys=keys, join_type=ACERO[how], coalesce_keys=False)
+    p = res.column("pv").fill_null(-1).to_numpy()
+    b = res.column("bv").fill_null(-1).to_numpy() \
+        if how not in ("semi", "anti") else np.full(len(p), -1)
+    return pair_codes(p, b, nb)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -365,9 +439,7 @@ def main() -> int:
     plain_ms = time_ms(lambda: compact_columns_plain(mask, pay), iters=20)
     library_ms = time_ms(library, iters=20)
     kernel_ms2 = time_ms(lambda: compact_columns_cuda(mask, pay), iters=50)
-    # least bytes: each input read once (mask 1 + f64 8 + bool 1 per row),
-    # each output written once (index 4 + f64 8 + bool 1 per survivor)
-    nbytes = N_BIG * (1 + 8 + 1) + survivors * (4 + 8 + 1)
+    nbytes = compaction_bytes(N_BIG, survivors, 8 + 1)
     bound_ms = nbytes / bw * 1e3
     log(f"n={N_BIG} survivors={survivors} bytes={nbytes}")
     log(f"kernel_ms={kernel_ms:.4f} (again {kernel_ms2:.4f}) "
@@ -455,6 +527,8 @@ def main() -> int:
     del cols, got, want, mask, payload
 
     main_launches = arrow_launches + stream_launches
+    k1_by_path = {"configs[0] Arrow entry point": arrow_launches,
+                  "configs[0] flagship_stream": stream_launches}
     if main_launches == 0:
         raise AssertionError("the main path never launched K1")
     log(json.dumps({"main_path": {
@@ -873,13 +947,349 @@ def main() -> int:
         "sort_columns_ms": op_ms, "library_ms": op_library_ms,
         "operator_bound_ms": op_bound_ms}}))
 
+    # -- 13. K2 against plain --------------------------------------------
+    phase("K2 against its plain version and K1")
+    from gandiva_tpu_torch.ops import hash_join as hj
+    from gandiva_tpu_torch.ops.compaction import compact_fragnet
+    from gandiva_tpu_torch.ops.kernels import compaction_fragnet as k2
+
+    def hold_k2(mask, cols, what):
+        """K2 against its plain version and against K1, bit for bit on
+        [:count]; returns the largest absolute payload difference."""
+        got = k2.compact_fragnet_cuda(mask, cols)
+        torch.cuda.synchronize()
+        err = hold(got, k2.compact_fragnet_plain(mask, cols), what)
+        hold(got, compact_columns_cuda(mask, cols), f"{what} (K1)")
+        torch.cuda.synchronize()
+        return err, int(got[2])
+
+    g.manual_seed(17)
+    u = torch.rand(N_BIG, generator=g, device=dev)
+    f64 = torch.rand(N_BIG, generator=g, dtype=torch.float64, device=dev)
+    vb = torch.rand(N_BIG, generator=g, device=dev) < 0.5
+    k2_err = 0.0
+    for d in DENSITIES:
+        err, c = hold_k2(u < d, [f64, vb], f"K2 n={N_BIG} density={d}")
+        k2_err = max(k2_err, err)
+        log(f"n={N_BIG} density={d}: count={c} matches plain and K1")
+    mask_r = torch.rand(N_RAGGED, generator=g, device=dev) < 0.43
+    ragged = [torch.randint(-10**12, 10**12, (N_RAGGED,), generator=g,
+                            dtype=torch.int64, device=dev),
+              torch.rand(N_RAGGED, generator=g, device=dev),
+              torch.randint(-2**31, 2**31 - 1, (N_RAGGED,), generator=g,
+                            dtype=torch.int32, device=dev),
+              torch.rand(N_RAGGED, generator=g, device=dev) < 0.5]
+    many = ragged + [c.flip(0) for c in ragged] + ragged[:2]
+    for label, cols in (("4 payloads", ragged), ("10 payloads", many)):
+        before = LAUNCHES["compact_fragnet"]
+        err, c = hold_k2(mask_r, cols, f"K2 ragged {label}")
+        k2_err = max(k2_err, err)
+        launched = LAUNCHES["compact_fragnet"] - before
+        if launched != -(-len(cols) // MAX_PAYLOADS):
+            raise AssertionError(f"K2 {label}: {launched} launches")
+        log(f"ragged n={N_RAGGED} {label}: count={c} matches plain and K1 "
+            f"({launched} launches)")
+    for n in (0, 1000):
+        hold_k2(mask_r[:n], [c[:n] for c in ragged], f"K2 n={n}")
+        log(f"n={n}: matches plain and K1")
+    del u, f64, vb
+    huge = torch.rand(N_HUGE, generator=g, device=dev) < 0.5
+    hold_k2(huge, [], f"K2 n={N_HUGE}")
+    log(f"n={N_HUGE} (65,536 tiles) density 0.5: matches plain and K1")
+    del huge
+    # back to back, nothing checked until all have run: the status words
+    # of one call must not leak into the next
+    masks = [torch.rand(N_RAGGED, generator=g, device=dev) < (k + 1) / 21
+             for k in range(BACK_TO_BACK)]
+    runs = [k2.compact_fragnet_cuda(m, ragged[:2]) for m in masks]
+    torch.cuda.synchronize()
+    for k, (m, got) in enumerate(zip(masks, runs)):
+        k2_err = max(k2_err, hold(got, k2.compact_fragnet_plain(
+            m, ragged[:2]), f"K2 back-to-back call {k}"))
+    log(f"{BACK_TO_BACK} back-to-back calls at n={N_RAGGED}: each matches "
+        "plain")
+    del masks, runs, ragged, many, mask_r
+
+    # -- 14. K2 times ----------------------------------------------------
+    phase("K2 times")
+
+    def compaction_times(mask, pay, iters):
+        """K2, K1, K2's plain version and nonzero + index_select on the
+        same inputs (CUDA events), and the byte bound of
+        ``compaction_bytes``."""
+        def library():
+            sel = torch.nonzero(mask).flatten()
+            return [p.index_select(0, sel) for p in pay]
+
+        t = {"k2_ms": time_ms(lambda: k2.compact_fragnet_cuda(mask, pay),
+                              iters=iters),
+             "k1_ms": time_ms(lambda: compact_columns_cuda(mask, pay),
+                              iters=iters),
+             "plain_ms": time_ms(lambda: k2.compact_fragnet_plain(mask, pay),
+                                 iters=max(iters // 5, 2)),
+             "library_ms": time_ms(library, iters=max(iters // 5, 2)),
+             "k2_ms_again": time_ms(lambda: k2.compact_fragnet_cuda(
+                 mask, pay), iters=iters)}
+        survivors = int(mask.sum())
+        width = sum(p.element_size() for p in pay)
+        t["rows"], t["survivors"] = mask.shape[0], survivors
+        t["bytes"] = compaction_bytes(mask.shape[0], survivors, width)
+        t["bound_ms"] = t["bytes"] / bw * 1e3
+        log(json.dumps(t))
+        return t
+
+    g.manual_seed(7)
+    u = torch.rand(N_BIG, generator=g, device=dev)
+    f64 = torch.rand(N_BIG, generator=g, dtype=torch.float64, device=dev)
+    vb = torch.rand(N_BIG, generator=g, device=dev) < 0.5
+    k2_flagship = compaction_times(u < FLAGSHIP_DENSITY, [f64, vb], 50)
+    log(f"flagship shape: K2 {k2_flagship['k2_ms']:.4f} ms, K1 "
+        f"{k2_flagship['k1_ms']:.4f} ms, bound "
+        f"{k2_flagship['bound_ms']:.4f} ms")
+    del u, f64, vb
+
+    # the two residue compactions of one configs[3] probe chunk's hot-key
+    # probe, on the inputs the probe gives them: the cold rows with their
+    # int64 key, then the rows round 1 leaves unresolved with their next
+    # slot and key
+    n_chunk = N_JOIN_FULL // JOIN_CHUNKS
+    full_build = torch.arange(JOIN_FULL_BUILD, device=dev)
+    jt_full = hj.build_join_table(full_build, how="inner")
+
+    def chunk_fn(i):
+        gi = torch.Generator(device=dev)
+        gi.manual_seed(1000 + i)
+        return zipf_keys(n_chunk, JOIN_FULL_BUILD, gi)
+
+    keys0 = chunk_fn(0)
+    kv = torch.ones(n_chunk, dtype=torch.bool, device=dev)
+    residues = []
+
+    def recording(mask, payload=()):
+        residues.append((mask, list(payload)))
+        return compact_fragnet(mask, payload)
+
+    hj.compact_fragnet = recording
+    try:
+        hj._probe_ranges_hot(jt_full.table, JOIN_FULL_BUILD,
+                             hj.normalize_key(keys0), kv, 128)
+    finally:
+        hj.compact_fragnet = compact_fragnet
+    if [len(cols) for _, cols in residues] != [1, 2]:
+        raise AssertionError("the hot-key probe did not compact its two "
+                             "residues")
+    for (mask, cols), what in zip(residues, ("cold residue", "tier 2")):
+        k2_err = max(k2_err, hold(k2.compact_fragnet_cuda(mask, cols),
+                                  k2.compact_fragnet_plain(mask, cols),
+                                  f"K2 configs[3] chunk 0 {what}"))
+        log(f"configs[3] chunk 0 {what} ({mask.shape[0]} rows, "
+            f"{[c.dtype for c in cols]}): K2 matches plain")
+    cold, (pk64,) = residues[0]
+    del residues
+    k2_cold = compaction_times(cold, [pk64], 20)
+    log(f"configs[3] chunk 0 cold residue: {k2_cold['survivors']} of "
+        f"{n_chunk} rows; K2 {k2_cold['k2_ms']:.4f} ms, K1 "
+        f"{k2_cold['k1_ms']:.4f} ms, plain {k2_cold['plain_ms']:.4f} ms, "
+        f"nonzero + index_select {k2_cold['library_ms']:.4f} ms, bound "
+        f"{k2_cold['bound_ms']:.4f} ms -> "
+        f"{k2_cold['bound_ms'] / k2_cold['k2_ms']:.1%} of the bound")
+    del cold, pk64, kv
+
+    # -- 15. the configs[3] join, resident -------------------------------
+    phase("main path: join (configs[3], resident)")
+    g.manual_seed(3)
+    probe = zipf_keys(N_JOIN, JOIN_BUILD, g)
+    build = torch.arange(JOIN_BUILD, device=dev)
+    iota = torch.arange(N_JOIN, dtype=torch.int32, device=dev)
+    join_launches = {"compact_fragnet": 0, "sort_block": 0, "merge_path": 0}
+    join_report = {}
+    for unique in (False, True):
+        def join_path(unique=unique):
+            return gt.ops.join(probe, build, N_JOIN, "inner",
+                               build_unique=unique)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        reset_launches()
+        res = join_path()                                 # warm-up
+        torch.cuda.synchronize()
+        walls = []
+        for _ in range(3):
+            t = time.perf_counter()
+            res = join_path()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+        launched = {k: LAUNCHES[k] for k in join_launches}
+        peak = torch.cuda.max_memory_allocated()
+        if min(launched.values()) == 0:
+            raise AssertionError(f"join (build_unique={unique}): launches "
+                                 f"{launched}")
+        for k in join_launches:
+            join_launches[k] += launched[k]
+        if not (int(res.count) == N_JOIN and not bool(res.overflow)
+                and torch.equal(res.probe_idx, iota)
+                and torch.equal(res.build_idx.long(), probe)):
+            raise AssertionError(f"join (build_unique={unique}): outputs "
+                                 "differ from the identity")
+        rows_s = N_JOIN / min(walls)
+        log(f"build_unique={unique}: n={N_JOIN} walls_s="
+            f"{[round(w, 6) for w in walls]} rows/s={rows_s:.6g} launches "
+            f"{launched} in 4 calls; max_memory_allocated={peak} (the "
+            f"path's own {peak - resident}); count == n, probe_idx == "
+            "arange(n), build_idx == keys")
+        join_report[f"build_unique={unique}"] = {
+            "rows_per_s": rows_s, "walls_s": walls,
+            "max_memory_allocated": peak, "resident_before": resident,
+            "launches": launched}
+    diag = hj.probe_diagnostics(hj.build_join_table(build), probe)
+    log(f"probe_diagnostics: { {k: int(v) for k, v in diag.items()} }")
+    del res, probe, build, iota
+
+    # -- 16. the full configs[3], streaming ------------------------------
+    phase("main path: join_stream (configs[3] full, 1,024,000,000 rows)")
+
+    def consume(res):
+        return (res.count.to(torch.int64)
+                + res.probe_idx.to(torch.int64).sum()
+                + res.build_idx.to(torch.int64).sum())
+
+    stream = gt.ops.join_stream(full_build, JOIN_CHUNKS, chunk_fn=chunk_fn,
+                                capacity=n_chunk, how="inner",
+                                consume=consume)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    reset_launches()
+    outs, ovf = stream()                                  # warm-up
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(2):
+        t = time.perf_counter()
+        outs, ovf = stream()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+    join_stream_launches = {k: LAUNCHES[k] for k in join_launches}
+    peak = torch.cuda.max_memory_allocated()
+    if min(join_stream_launches.values()) == 0:
+        raise AssertionError(f"join_stream: launches {join_stream_launches}")
+    full_rows_s = JOIN_CHUNKS * n_chunk / min(walls)
+    if bool(ovf):
+        raise AssertionError("join_stream overflowed")
+    for i in range(JOIN_CHUNKS):
+        want = n_chunk + n_chunk * (n_chunk - 1) // 2 + int(chunk_fn(i).sum())
+        if int(outs[i]) != want:
+            raise AssertionError(f"chunk {i}: checksum {int(outs[i])} != "
+                                 f"{want}")
+    log(f"{JOIN_CHUNKS} chunks × {n_chunk} rows against "
+        f"{JOIN_FULL_BUILD} build rows: walls_s="
+        f"{[round(w, 6) for w in walls]} rows/s={full_rows_s:.6g} launches "
+        f"{join_stream_launches} in 3 calls; max_memory_allocated={peak} (the "
+        f"path's own {peak - resident}); every chunk's checksum equals "
+        "n + Σ iota + Σ keys")
+    # host syncs of one probe_chunk (one per walk round and per decision)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            hj.probe_chunk(jt_full, keys0, n_chunk, "inner")
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    diag = {k: int(v) for k, v in hj.probe_diagnostics(jt_full,
+                                                       keys0).items()}
+    log(f"one probe_chunk of {n_chunk} rows: {syncs} host syncs; "
+        f"probe_diagnostics {diag}")
+    stream_busy = profile_call(stream)
+    del jt_full, keys0, outs
+    log(json.dumps({"join_path": {
+        "resident": join_report, "rows": N_JOIN, "build_rows": JOIN_BUILD,
+        "stream_rows_per_s": full_rows_s, "stream_walls_s": walls,
+        "stream_rows": JOIN_CHUNKS * n_chunk,
+        "stream_build_rows": JOIN_FULL_BUILD,
+        "stream_max_memory_allocated": peak,
+        "stream_resident_before": resident,
+        "stream_device_busy_share": stream_busy,
+        "stream_launches": join_stream_launches,
+        "syncs_per_probe_chunk": syncs, "chunk_diagnostics": diag,
+        "resident_launches": join_launches, "k2_flagship": k2_flagship,
+        "k2_cold_residue": k2_cold}}))
+
+    # -- 17. the join against Arrow --------------------------------------
+    phase("join against pyarrow.acero")
+    g.manual_seed(19)
+    n, nb = N_ARROW_PROBE, N_ARROW_BUILD
+    probe = zipf_keys(n, ARROW_KEYS, g)
+    build = torch.randint(0, ARROW_KEYS, (nb,), generator=g, device=dev)
+    pv = torch.rand(n, generator=g, device=dev) >= 0.1
+    bv = torch.rand(nb, generator=g, device=dev) >= 0.1
+    p2 = torch.randint(0, 4, (n,), generator=g, device=dev)
+    b2 = torch.randint(0, 4, (nb,), generator=g, device=dev)
+    host = {k: v.cpu().numpy() for k, v in dict(
+        probe=probe, build=build, pv=pv, bv=bv, p2=p2, b2=b2).items()}
+    pc_ = np.bincount(host["probe"][host["pv"]], minlength=ARROW_KEYS)
+    bc_ = np.bincount(host["build"][host["bv"]], minlength=ARROW_KEYS)
+    cap = int((pc_ * bc_).sum()) + n + nb
+    pt = pa.table({"k": pa.array(host["probe"], mask=~host["pv"]),
+                   "k2": host["p2"], "pv": np.arange(n)})
+    bt = pa.table({"k": pa.array(host["build"], mask=~host["bv"]),
+                   "k2": host["b2"], "bv": np.arange(nb)})
+    acero_launches = {k: 0 for k in join_launches}
+    for how in JOIN_HOWS:
+        reset_launches()
+        res = gt.ops.join(probe, build, cap, how, probe_valid=pv,
+                          build_valid=bv)
+        c = int(res.count)
+        for k in acero_launches:
+            acero_launches[k] += LAUNCHES[k]
+        if bool(res.overflow):
+            raise AssertionError(f"{how}: overflow at capacity {cap}")
+        got = pair_codes(res.probe_idx[:c].cpu().numpy(),
+                         res.build_idx[:c].cpu().numpy(), nb)
+        if not np.array_equal(got, acero_pairs(pt, bt, "k", how, nb)):
+            raise AssertionError(f"{how}: pairs differ from acero")
+        log(f"{how}: {c} rows equal to pyarrow.acero's hashjoin")
+    for how in ("inner", "full"):
+        res = gt.ops.join_multi([probe, p2], [build, b2], cap, how,
+                                probe_valids=[pv, None],
+                                build_valids=[bv, None])
+        c = int(res.count)
+        got = pair_codes(res.probe_idx[:c].cpu().numpy(),
+                         res.build_idx[:c].cpu().numpy(), nb)
+        if bool(res.overflow) or not np.array_equal(
+                got, acero_pairs(pt, bt, ["k", "k2"], how, nb)):
+            raise AssertionError(f"join_multi {how}: differs from acero")
+        log(f"join_multi {how} on two keys: {c} rows equal to acero")
+    jt = hj.build_join_table(build, build_valid=bv)
+    pk = hj.normalize_key(probe)
+    dense = hj._probe_ranges_dense(jt.table, nb, pk, pv)
+    hot = hj._probe_ranges_hot(jt.table, nb, pk, pv, 128)
+    if not (torch.equal(dense[0][pv], hot[0][pv])
+            and torch.equal(dense[1][pv], hot[1][pv])):
+        raise AssertionError("hot path (start, len) != dense path")
+    log(f"hot path (start, len) equal to the dense path's on the valid "
+        f"rows; hot {int(hot[2]['hot_rows'])} rows, dense residue "
+        f"{int(dense[2]['residue_rows'])}")
+    if min(acero_launches.values()) == 0:
+        raise AssertionError(f"join vs Arrow: launches {acero_launches}")
+    del probe, build, pv, bv, p2, b2, host, pt, bt, jt, dense, hot, res
+
     # -- the kernels line, then the last line ----------------------------
+    # each path's own count, read just after it ran; ``launches`` is the
+    # count of the path that brought the kernel in
+    def by_path(name):
+        return {"configs[2] sort_columns": sort_launches[name],
+                "configs[3] join": join_launches[name],
+                "configs[3] join_stream": join_stream_launches[name]}
+
     log(json.dumps({"kernels": [{
         "name": "compact",
         "route": "cuda",
         "source": "gandiva_tpu_torch/csrc/compaction.cu",
         "replaces": "gandiva_tpu/ops/kernels/compaction_pallas.py:45",
         "launches": main_launches,
+        "launches_by_path": k1_by_path,
         "matches_plain": True,
         "max_abs_err": max_err,
         "ms": kernel_ms,
@@ -888,11 +1298,28 @@ def main() -> int:
         "bound_by": "bytes",
         "library_ms": library_ms,
     }, {
+        "name": "compact_fragnet",
+        "route": "cuda",
+        "source": "gandiva_tpu_torch/csrc/compaction_fragnet.cu",
+        "replaces": "gandiva_tpu/ops/kernels/compaction_pallas.py:190",
+        "launches": join_stream_launches["compact_fragnet"],
+        "launches_by_path": {
+            "configs[3] join": join_launches["compact_fragnet"],
+            "configs[3] join_stream": join_stream_launches["compact_fragnet"]},
+        "matches_plain": True,
+        "max_abs_err": k2_err,
+        "ms": k2_cold["k2_ms"],
+        "plain_ms": k2_cold["plain_ms"],
+        "bound_ms": k2_cold["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": k2_cold["library_ms"],
+    }, {
         "name": "aggregate",
         "route": "cuda",
         "source": "gandiva_tpu_torch/csrc/aggregate.cu",
         "replaces": "gandiva_tpu/ops/kernels/agg_pallas.py:147",
         "launches": agg_launches,
+        "launches_by_path": {"configs[1] hash_aggregate": agg_launches},
         "matches_plain": True,
         "max_abs_err": k5_err,
         "ms": k5_ms,
@@ -906,6 +1333,7 @@ def main() -> int:
         "source": "gandiva_tpu_torch/csrc/sort_bitonic.cu",
         "replaces": "gandiva_tpu/ops/kernels/sort_bitonic.py:69",
         "launches": sort_launches["sort_block"],
+        "launches_by_path": by_path("sort_block"),
         "matches_plain": True,
         "max_abs_err": sort_err,
         "ms": k4_ms,
@@ -919,6 +1347,7 @@ def main() -> int:
         "source": "gandiva_tpu_torch/csrc/merge_path.cu",
         "replaces": "gandiva_tpu/ops/kernels/merge_path.py:153",
         "launches": sort_launches["merge_path"],
+        "launches_by_path": by_path("merge_path"),
         "matches_plain": True,
         "max_abs_err": sort_err,
         "ms": k3_ms,

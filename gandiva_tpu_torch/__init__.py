@@ -4,9 +4,9 @@ CUDA for an NVIDIA H100.
 The same public API as gandiva_tpu (TreeExprBuilder, make_projector,
 make_filter, make_filter_project, SelectionVector, Configuration(Builder),
 get_registered_function_signatures, ops.*), evaluated eagerly with torch,
-with the stream compaction, the one-pass GROUP BY, the block sort and the
-merge-path round as hand-written CUDA kernels (ops/kernels). Imports
-neither JAX nor gandiva_tpu.
+with the stream compaction (two designs), the one-pass GROUP BY, the block
+sort and the merge-path round as hand-written CUDA kernels (ops/kernels).
+Imports neither JAX nor gandiva_tpu.
 
 Entry points run on the card by default (``device="cuda"``) and raise when
 there is none; pass ``device="cpu"`` to run on the CPU, where each kernel's
@@ -15,8 +15,11 @@ plain torch version stands in for it.
 Ported so far: the expression front end, the numeric and cast registry, the
 decomposer, Projector / Filter / FilterProject and the flagship entry points;
 the hash aggregate with its group-id assignment, hashes and key
-normalization, and the sort (ops, utils). Strings, decimals, datetime
-functions, plans, I/O, join and distribution follow in later slices.
+normalization, the sort, and the hash join (``ops.join``, ``join_multi``,
+``join_stream``, ``build_join_table``, ``probe_chunk``, ``gather_payload``,
+``probe_diagnostics``, ``JoinResult``, ``JoinTable``; ops, utils). Strings,
+decimals, datetime functions, plans, I/O and distribution follow in later
+slices.
 """
 from __future__ import annotations
 

@@ -26,7 +26,8 @@
 //      per-(iteration, warp) counts in shared memory in row order, and each
 //      survivor writes its row index and every payload to
 //      tile_offset + rank. Survivors of one warp-step land on consecutive
-//      output slots, so the stores coalesce.
+//      output slots, so the stores coalesce. The ballots, the scan and the
+//      moves are compaction_tile.cuh's, shared with K2.
 // 64-bit payloads move as 64-bit words; the TPU kernel's 32-bit limb
 // splitting, butterfly routing and aligned windows have no counterpart here.
 // The ragged tail is masked by the row < n guard.
@@ -34,24 +35,9 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "compaction_tile.cuh"
+
 namespace {
-
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kIters = 16;
-constexpr int kTile = kThreads * kIters;  // rows per CTA
-constexpr int kSlots = kIters * kWarps;   // 32-row groups per tile
-constexpr int kMaxPayloads = 8;
-constexpr unsigned kFull = 0xffffffffu;
-
-static_assert(kSlots == 4 * 32, "the shared-memory scan gives each lane 4 slots");
-
-struct Payloads {
-  const void* in[kMaxPayloads];
-  void* out[kMaxPayloads];
-  int width[kMaxPayloads];  // bytes per element: 1, 2, 4 or 8
-  int count;
-};
 
 __global__ void __launch_bounds__(kThreads)
 count_kernel(const uint8_t* __restrict__ mask, long long n,
@@ -75,102 +61,6 @@ count_kernel(const uint8_t* __restrict__ mask, long long n,
     for (int w = 0; w < kWarps; ++w) sum += warp_total[w];
     block_counts[blockIdx.x] = sum;
   }
-}
-
-// Moves one payload column's survivors of this thread: all kIters loads are
-// issued before any store, so each thread keeps them in flight together
-// (copying element by element through untyped pointers serialises them).
-template <typename T>
-__device__ __forceinline__ void move_column(const void* in_, void* out_,
-                                            const unsigned (&ballot)[kIters],
-                                            const int (&dst)[kIters],
-                                            long long base, int lane) {
-  const T* __restrict__ in = static_cast<const T*>(in_);
-  T* __restrict__ out = static_cast<T*>(out_);
-  T v[kIters];
-#pragma unroll
-  for (int j = 0; j < kIters; ++j) {
-    if ((ballot[j] >> lane) & 1u) v[j] = in[base + j * kThreads + threadIdx.x];
-  }
-#pragma unroll
-  for (int j = 0; j < kIters; ++j) {
-    if ((ballot[j] >> lane) & 1u) out[dst[j]] = v[j];
-  }
-}
-
-// At most 128 registers, so two CTAs share an SM: uncapped, the kIters
-// loads held in flight per thread take 149 registers and one CTA per SM
-// (0.68 ms at the flagship shape on an H100 SXM, against 0.48 ms capped;
-// a cap of three CTAs spills and takes 0.80 ms — PERF.md).
-__global__ void __launch_bounds__(kThreads, 2)
-scatter_kernel(const uint8_t* __restrict__ mask, long long n,
-               const int32_t* __restrict__ block_offsets,
-               int32_t* __restrict__ idx_out, Payloads p) {
-  // slot s = j * kWarps + warp covers rows base + 32 * s .. + 31, so slot
-  // order is row order
-  __shared__ int slot_offset[kSlots];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const long long base = static_cast<long long>(blockIdx.x) * kTile;
-
-  unsigned ballot[kIters];
-#pragma unroll
-  for (int j = 0; j < kIters; ++j) {
-    const long long row = base + j * kThreads + threadIdx.x;
-    const bool keep = row < n && mask[row] != 0;
-    ballot[j] = __ballot_sync(kFull, keep);
-    if (lane == 0) slot_offset[j * kWarps + warp] = __popc(ballot[j]);
-  }
-  __syncthreads();
-
-  // exclusive scan of the kSlots counts, by warp 0: 4 slots per lane
-  if (warp == 0) {
-    int v[4];
-    int local = 0;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      v[k] = slot_offset[lane * 4 + k];
-      local += v[k];
-    }
-    int incl = local;
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const int up = __shfl_up_sync(kFull, incl, d);
-      if (lane >= d) incl += up;
-    }
-    int run = incl - local;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      slot_offset[lane * 4 + k] = run;
-      run += v[k];
-    }
-  }
-  __syncthreads();
-
-  // n < 2^31, so every destination fits an int
-  const int tile_offset = block_offsets[blockIdx.x];
-  const unsigned below = (1u << lane) - 1u;
-  int dst[kIters];
-#pragma unroll
-  for (int j = 0; j < kIters; ++j) {
-    dst[j] = tile_offset + slot_offset[j * kWarps + warp] +
-             __popc(ballot[j] & below);
-    if (idx_out != nullptr && ((ballot[j] >> lane) & 1u)) {
-      idx_out[dst[j]] = static_cast<int32_t>(base + j * kThreads + threadIdx.x);
-    }
-  }
-  for (int k = 0; k < p.count; ++k) {
-    switch (p.width[k]) {
-      case 8: move_column<uint64_t>(p.in[k], p.out[k], ballot, dst, base, lane); break;
-      case 4: move_column<uint32_t>(p.in[k], p.out[k], ballot, dst, base, lane); break;
-      case 2: move_column<uint16_t>(p.in[k], p.out[k], ballot, dst, base, lane); break;
-      default: move_column<uint8_t>(p.in[k], p.out[k], ballot, dst, base, lane); break;
-    }
-  }
-}
-
-inline unsigned num_tiles(long long n) {
-  return static_cast<unsigned>((n + kTile - 1) / kTile);
 }
 
 }  // namespace
@@ -204,15 +94,9 @@ int gt_compact_scatter(const void* mask, long long n,
                        int num_payloads, const void* const* ins,
                        void* const* outs, const int* widths, void* stream) {
   if (n <= 0) return 0;
-  if (num_payloads < 0 || num_payloads > kMaxPayloads) {
+  Payloads p;
+  if (!make_payloads(num_payloads, ins, outs, widths, &p)) {
     return static_cast<int>(cudaErrorInvalidValue);
-  }
-  Payloads p{};
-  p.count = num_payloads;
-  for (int k = 0; k < num_payloads; ++k) {
-    p.in[k] = ins[k];
-    p.out[k] = outs[k];
-    p.width[k] = widths[k];
   }
   scatter_kernel<<<num_tiles(n), kThreads, 0,
                    static_cast<cudaStream_t>(stream)>>>(

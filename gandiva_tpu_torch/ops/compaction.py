@@ -10,6 +10,9 @@ survivors packed to the front in row order, meaningful on ``[:count]``,
   CUDA kernel for tensors on a card, its plain version for CPU tensors;
 - ``compact_mask`` / ``compact_values``: the same, for indices only / one
   column;
+- ``compact_fragnet``: kernel K2 (ops/kernels/compaction_fragnet.py), the
+  single-pass look-back compaction, with the same contract; the join's
+  residue compactions take it;
 - ``compact_sort``: a stable sort on the 1-bit drop key carrying the indices
   and payloads — the reference's portable formulation, kept as an
   independent check (its tail holds the dropped rows, permuted).
@@ -21,12 +24,20 @@ from typing import Sequence
 import torch
 
 from .kernels.compaction import compact_columns
+from .kernels.compaction_fragnet import compact_fragnet_columns
 
 
 def compact_best(mask, payload: Sequence = ()):
     """Returns (indices, count, packed payloads) — the reference's
     compact_best contract, on kernel K1."""
     idx, cols, count = compact_columns(mask, list(payload))
+    return idx, count, cols
+
+
+def compact_fragnet(mask, payload: Sequence = ()):
+    """Returns (indices, count, packed payloads) — ``compact_best``'s
+    contract, on kernel K2."""
+    idx, cols, count = compact_fragnet_columns(mask, list(payload))
     return idx, count, cols
 
 

@@ -81,6 +81,19 @@ def _validate(mask: torch.Tensor, columns: Sequence[torch.Tensor]) -> None:
                              "bytes wide")
 
 
+def payload_group(columns: Sequence[torch.Tensor],
+                  outs: Sequence[torch.Tensor], group: range) -> list:
+    """One launch's payload arguments: ctypes arrays of the group's input
+    and output pointers and element widths, as void pointers."""
+    ins = (ctypes.c_void_p * MAX_PAYLOADS)(
+        *[columns[i].data_ptr() for i in group])
+    outp = (ctypes.c_void_p * MAX_PAYLOADS)(*[outs[i].data_ptr()
+                                              for i in group])
+    widths = (ctypes.c_int * MAX_PAYLOADS)(
+        *[columns[i].element_size() for i in group])
+    return [ctypes.cast(a, ctypes.c_void_p) for a in (ins, outp, widths)]
+
+
 def compact_columns_cuda(mask: torch.Tensor, columns: Sequence[torch.Tensor]
                          ) -> Tuple[torch.Tensor, List[torch.Tensor],
                                     torch.Tensor]:
@@ -109,18 +122,10 @@ def compact_columns_cuda(mask: torch.Tensor, columns: Sequence[torch.Tensor]
         # offsets; the first group (which may be empty) writes the indices
         for g in range(0, max(len(columns), 1), MAX_PAYLOADS):
             group = range(g, min(g + MAX_PAYLOADS, len(columns)))
-            ins = (ctypes.c_void_p * MAX_PAYLOADS)(
-                *[columns[i].data_ptr() for i in group])
-            outp = (ctypes.c_void_p * MAX_PAYLOADS)(
-                *[outs[i].data_ptr() for i in group])
-            widths = (ctypes.c_int * MAX_PAYLOADS)(
-                *[columns[i].element_size() for i in group])
             _check(lib, lib.gt_compact_scatter(
                 mask.data_ptr(), n, offsets.data_ptr(),
                 indices.data_ptr() if g == 0 else None, len(group),
-                ctypes.cast(ins, ctypes.c_void_p),
-                ctypes.cast(outp, ctypes.c_void_p),
-                ctypes.cast(widths, ctypes.c_void_p), stream),
+                *payload_group(columns, outs, group), stream),
                 "gt_compact_scatter")
             LAUNCHES["compact"] += 1
     return indices, outs, inclusive[-1]

@@ -1,6 +1,8 @@
-"""The port's compaction (kernel K1's plain version, which CPU tensors take)
-against gandiva_tpu's compact_sort and its Pallas compact_columns, run in
-interpret mode as tests/test_compaction_pallas.py runs it."""
+"""The port's compactions on the CPU (the plain versions that CPU tensors
+take): kernel K1's against gandiva_tpu's compact_sort and its Pallas
+compact_columns, and kernel K2's against the Pallas
+compact_pallas_u32_fragnet and against K1's, the Pallas kernels run in
+interpret mode as tests/test_compaction_pallas.py runs them."""
 import numpy as np
 import pytest
 import torch
@@ -14,6 +16,8 @@ from gandiva_tpu_torch.ops import compaction as t_comp
 from gandiva_tpu_torch.ops.kernels import LAUNCHES, reset_launches
 from gandiva_tpu_torch.ops.kernels.compaction import (compact_columns,
                                                       compact_columns_cuda)
+from gandiva_tpu_torch.ops.kernels.compaction_fragnet import (
+    compact_fragnet_columns, compact_fragnet_cuda)
 
 
 @pytest.fixture
@@ -166,3 +170,79 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
         cols = [torch.zeros(n, dtype=torch.complex128)]
     with pytest.raises(ValueError):
         compact_columns(mask, cols)
+
+
+# ---------------------------------------------------------------------------
+# K2 (single-pass look-back compaction): its plain version, which CPU
+# tensors take
+# ---------------------------------------------------------------------------
+
+def _fragnet(mask, payload):
+    idx, count, cols = t_comp.compact_fragnet(
+        torch.from_numpy(mask), [torch.from_numpy(p) for p in payload])
+    return idx.numpy(), int(count), [c.numpy() for c in cols]
+
+
+@pytest.mark.parametrize("density", [0.0, 0.03, 0.5, 0.97, 1.0])
+def test_compact_fragnet_matches_pallas_fragnet(interpret_mode, density):
+    """Three uint32 payloads at 4 · BLOCK rows, as the reference's own test
+    drives its fragment-network kernel."""
+    rng = np.random.default_rng(int(density * 77) + 1)
+    n = 4 * cp.BLOCK
+    mask = rng.random(n) < density
+    pay = [rng.integers(0, 2**32, n, dtype=np.uint32) for _ in range(3)]
+    ref, ref_count = cp.compact_pallas_u32_fragnet(
+        jnp.asarray(mask), [jnp.asarray(p).view(jnp.int32) for p in pay])
+    idx, count, cols = _fragnet(mask, pay)
+    assert count == int(ref_count) == int(mask.sum())
+    np.testing.assert_array_equal(idx[:count], np.nonzero(mask)[0])
+    for got, want, p in zip(cols, ref, pay):
+        assert got.dtype == np.uint32
+        np.testing.assert_array_equal(got[:count],
+                                      np.asarray(want).view(np.uint32)[:count])
+        np.testing.assert_array_equal(got[:count], p[mask])
+        assert not got[count:].any()       # zero past count
+    assert not idx[count:].any()
+
+
+def test_compact_fragnet_matches_pallas_fragnet_small_blocks(interpret_mode):
+    rng = np.random.default_rng(5)
+    rows = 32
+    n = 3 * rows * 128
+    mask = rng.random(n) < 0.21
+    pay = rng.integers(0, 2**31, n, dtype=np.int32)
+    (ref,), ref_count = cp.compact_pallas_u32_fragnet(
+        jnp.asarray(mask), [jnp.asarray(pay)], rows_per_block=rows)
+    idx, count, (got,) = _fragnet(mask, [pay])
+    assert count == int(ref_count)
+    np.testing.assert_array_equal(got[:count], np.asarray(ref)[:count])
+
+
+@pytest.mark.parametrize("n,density", [(0, 0.5), (1, 1.0), (4095, 0.5),
+                                       (5000, 0.3), (8192, 0.97),
+                                       (12289, 0.0), (12289, 1.0)])
+def test_compact_fragnet_matches_k1(n, density):
+    """K2's plain version against K1's on int64, float64 and bool payloads,
+    ragged n and n = 0; ten payloads as well."""
+    mask, payload = _inputs(n, density, n + 1)
+    got = _fragnet(mask, payload)
+    _same_prefix(got, *_port_k1(mask, payload))
+    mask, payload = _many_inputs(n, density, n + 2)
+    _same_prefix(_fragnet(mask, payload), *_port_k1(mask, payload))
+
+
+def _port_k1(mask, payload):
+    idx, count, cols = _port(mask, payload)
+    return idx.astype(np.uint32), count, cols
+
+
+def test_compact_fragnet_takes_plain_version_only_on_cpu():
+    reset_launches()
+    mask = torch.ones(64, dtype=torch.bool)
+    compact_fragnet_columns(mask, [torch.zeros(64)])
+    assert LAUNCHES["compact_fragnet"] == 0
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        compact_fragnet_cuda(mask, [])
+    with pytest.raises(ValueError, match="device"):
+        t_comp.compact_fragnet(torch.ones(64, dtype=torch.bool,
+                                          device="meta"))

@@ -1,8 +1,10 @@
-"""Kernels K1 (stream compaction, csrc/compaction.cu), K5 (one-pass GROUP
-BY, csrc/aggregate.cu), K4 (block sort, csrc/sort_bitonic.cu) and K3
+"""Kernels K1 (stream compaction, csrc/compaction.cu), K2 (single-pass
+look-back compaction, csrc/compaction_fragnet.cu), K5 (one-pass GROUP BY,
+csrc/aggregate.cu), K4 (block sort, csrc/sort_bitonic.cu) and K3
 (merge-path round, csrc/merge_path.cu) against their plain torch versions
-on the card. Marked ``gpu``; each test decides in its body whether a
-card is present and skips with a reason where there is none. Needs no JAX:
+on the card, and the join on the card against the same join on the CPU.
+Marked ``gpu``; each test decides in its body whether a card is present
+and skips with a reason where there is none. Needs no JAX:
 
     python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
 """
@@ -52,6 +54,76 @@ def test_k1_matches_plain(n, density):
     assert torch.equal(idx[:c], widx[:c])
     for got, want in zip(packed, wpacked):
         assert torch.equal(_bits(got[:c]), _bits(want[:c]))
+
+
+def _payloads(n, g, dev):
+    return [torch.randint(-2**62, 2**62, (n,), generator=g, device=dev),
+            torch.rand(n, generator=g, dtype=torch.float64, device=dev),
+            torch.rand(n, generator=g, device=dev),
+            torch.randint(-2**15, 2**15, (n,), generator=g, device=dev
+                          ).to(torch.int16),
+            torch.rand(n, generator=g, device=dev) < 0.5]
+
+
+def _same_compaction(got, want):
+    (idx, packed, count), (widx, wpacked, wcount) = got, want
+    c = int(wcount)
+    assert int(count) == c
+    assert torch.equal(idx[:c], widx[:c])
+    assert len(packed) == len(wpacked)
+    for a, b in zip(packed, wpacked):
+        assert a.dtype == b.dtype
+        assert torch.equal(_bits(a[:c]), _bits(b[:c]))
+
+
+@pytest.mark.parametrize("n,density", [
+    (0, 0.5), (1, 1.0), (1000, 0.5), (4096, 0.0), (4096, 1.0), (8192, 0.43),
+    (3 * 4096 + 17, 0.97), (1_000_037, 0.5), (1 << 22, 0.02),
+    (33 * 4096 * 32, 0.5)])
+def test_k2_matches_plain_and_k1(n, density):
+    """K2 (one launch) against its plain version and against K1, bit for
+    bit on [:count]; the last case has more tiles than one look-back
+    window holds many times over."""
+    dev = _card()
+    from gandiva_tpu_torch.ops.kernels.compaction_fragnet import (
+        compact_fragnet_columns, compact_fragnet_plain)
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(n + 3)
+    mask = torch.rand(n, generator=g, device=dev) < density
+    cols = _payloads(n, g, dev)
+    reset_launches()
+    got = compact_fragnet_columns(mask, cols)
+    torch.cuda.synchronize()
+    assert LAUNCHES["compact_fragnet"] == (1 if n else 0)
+    _same_compaction(got, compact_fragnet_plain(mask, cols))
+    _same_compaction(got, compact_columns(mask, cols))
+
+
+def test_k2_many_payloads_and_back_to_back_calls():
+    """Ten payloads (the single pass, then one scatter-only launch over the
+    recorded tile offsets), and 20 calls in a row on new masks, each held
+    against the plain version: no state survives from one call to the
+    next."""
+    dev = _card()
+    from gandiva_tpu_torch.ops.kernels.compaction_fragnet import (
+        compact_fragnet_columns, compact_fragnet_plain)
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(12)
+    n = 1_000_037
+    base = _payloads(n, g, dev)
+    cols = base + [c.flip(0) for c in base]
+    mask = torch.rand(n, generator=g, device=dev) < 0.43
+    reset_launches()
+    got = compact_fragnet_columns(mask, cols)
+    torch.cuda.synchronize()
+    assert LAUNCHES["compact_fragnet"] == 2
+    _same_compaction(got, compact_fragnet_plain(mask, cols))
+    for k in range(20):
+        mask = torch.rand(n, generator=g, device=dev) < (k + 1) / 21
+        got = compact_fragnet_columns(mask, base[:2])
+        _same_compaction(got, compact_fragnet_plain(mask, base[:2]))
 
 
 def test_flagship_plan_launches_k1():
@@ -393,3 +465,117 @@ def test_sort_columns_on_card_matches_cpu():
     assert torch.equal(gp.cpu(), cp)
     for got, want in zip(gk + gv, ck + cv):
         assert torch.equal(_bits(got.cpu()), _bits(want))
+
+
+# ---------------------------------------------------------------------------
+# The join (slice E) on the card: K4 and K3 sort the build side, K2 compacts
+# the probe's residues; the same join on the CPU takes their plain versions
+# ---------------------------------------------------------------------------
+
+def _join_both(fn, arrays):
+    """``fn`` on CUDA copies of ``arrays`` and on CPU copies: (card result
+    on the host, CPU result, the card run's launches)."""
+    dev = _card()
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        reset_launches()
+        res = fn(*[torch.from_numpy(a).to(d) if a is not None else None
+                   for a in arrays])
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+            launched = dict(LAUNCHES)
+        out[d.type] = res
+    return out["cuda"], out["cpu"], launched
+
+
+def _same_join(got, want):
+    c = int(want.count)
+    assert int(got.count) == c and bool(got.overflow) == bool(want.overflow)
+    assert torch.equal(got.probe_idx[:c].cpu(), want.probe_idx[:c])
+    assert torch.equal(got.build_idx[:c].cpu(), want.build_idx[:c])
+
+
+@pytest.mark.parametrize("how", ["inner", "left", "right", "full", "semi",
+                                 "anti"])
+def test_join_on_card_matches_cpu(how):
+    """The dense probe: 100,003 probe rows × 30,011 build rows with
+    duplicates and 10% null keys on both sides."""
+    import numpy as np
+
+    from gandiva_tpu_torch.ops import join
+
+    rng = np.random.default_rng(3)
+    n, nb = 100_003, 30_011
+    arrays = [rng.integers(0, 40_000, n), rng.integers(0, 50_000, nb),
+              rng.random(n) >= 0.1, rng.random(nb) >= 0.1]
+    got, want, launched = _join_both(
+        lambda p, b, pv, bv: join(p, b, 400_000, how, probe_valid=pv,
+                                  build_valid=bv), arrays)
+    _same_join(got, want)
+    assert launched["compact_fragnet"] >= 1
+    assert launched["sort_block"] == 2 and launched["merge_path"] >= 2
+
+
+def test_join_hot_path_on_card_matches_cpu():
+    """The hot-key probe (≥ 2^22 rows): Zipf(1.3) probe keys, so the cold
+    rows and their second tier go through K2."""
+    import numpy as np
+
+    from gandiva_tpu_torch.ops import join
+
+    rng = np.random.default_rng(4)
+    n, nb = (1 << 22) + 37, 200_003
+    arrays = [(rng.zipf(1.3, n) % 100_000).astype(np.int64),
+              rng.integers(0, 100_000, nb)]
+    got, want, launched = _join_both(
+        lambda p, b: join(p, b, 16 * n, "inner"), arrays)
+    _same_join(got, want)
+    assert launched["compact_fragnet"] == 2
+
+
+@pytest.mark.parametrize("dups", [0, 5_000])
+def test_hash_probe_unique_on_card_matches_cpu(dups):
+    """Build keys whose home slots collide (200,003 keys in a table of
+    4× their count claim the same slot in a round many times over), with
+    and without duplicate keys: the claim rounds must settle every slot on
+    one whole build row, so the card equals the CPU, flag included."""
+    import numpy as np
+
+    from gandiva_tpu_torch.ops.hash_join import _hash_probe_unique
+
+    rng = np.random.default_rng(6)
+    nb = 200_003
+    build = rng.choice(1 << 40, nb, replace=False)
+    build[rng.integers(0, nb, dups)] = build[rng.integers(0, nb, dups)]
+    probe = np.concatenate([build, rng.integers(0, 1 << 40, 100_000)])
+    arrays = [probe, build, rng.random(probe.size) >= 0.1,
+              rng.random(nb) >= 0.05]
+    got, want, _ = _join_both(_hash_probe_unique, arrays)
+    assert bool(got[2]) == bool(want[2]) == (dups > 0)
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+
+
+def test_join_multi_and_stream_on_card_match_cpu():
+    import numpy as np
+
+    from gandiva_tpu_torch.ops import join_multi, join_stream
+
+    rng = np.random.default_rng(5)
+    n, nb = 50_000, 5_000
+    arrays = [rng.integers(0, 500, n), rng.integers(0, 4, n),
+              rng.integers(0, 600, nb), rng.integers(0, 4, nb)]
+    for how in ("inner", "full"):
+        got, want, _ = _join_both(
+            lambda p1, p2, b1, b2: join_multi([p1, p2], [b1, b2], 1 << 20,
+                                              how), arrays)
+        _same_join(got, want)
+    chunks = rng.integers(0, 800, (3, n))
+    got, want, launched = _join_both(
+        lambda c, b: join_stream(b, 3, probe_stacked=c, capacity=8 * n)(),
+        [chunks, arrays[2]])
+    assert not bool(got[1]) and not bool(want[1])
+    for i in range(3):
+        _same_join(type(want[0])(*(f[i] for f in got[0])),
+                   type(want[0])(*(f[i] for f in want[0])))
+    assert launched["compact_fragnet"] >= 3

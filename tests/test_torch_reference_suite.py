@@ -7,11 +7,13 @@ reference test files stay as they are. Tests of features the port does not
 have yet (strings, decimals, profiling, the jit flag's internals) are left
 out and named in ROADMAP.md.
 
-The aggregate and sort tests hand the port the reference's (JAX) arrays:
-the stand-ins for ``gandiva_tpu.ops.hash_aggregate``, ``.groupby``,
-``.sort`` and ``.kernels.merge_path`` below turn them into CPU tensors
-through ``np.asarray`` and the results into numpy arrays; the port itself
-takes torch tensors only. ``test_sort_bitonic`` runs only its
+The aggregate, sort and join tests hand the port the reference's (JAX)
+arrays: the stand-ins for ``gandiva_tpu.ops.hash_aggregate``, ``.groupby``,
+``.sort``, ``.hash_join`` and ``.kernels.merge_path`` below turn them into
+CPU tensors through ``np.asarray`` and the results into numpy arrays; the
+port itself takes torch tensors only. ``test_join``'s two ``join_stream``
+tests ``jax.jit`` the reference's stream and are left out (ROADMAP.md);
+``tests/test_torch_join.py`` holds the port's stream instead. ``test_sort_bitonic`` runs only its
 ``sort_columns`` case: its other tests test ``bitonic_sort_u32`` and
 ``operands_to_limbs``, which the port leaves out (ROADMAP.md), so its
 stand-in names them only to raise.
@@ -87,6 +89,21 @@ CASES = (
     + [("test_merge_path", name, {}) for name in (
         "test_stability_heavy_ties", "test_single_limb_sorted_and_reversed",
         "test_multiple_carries_64bit_payload")]
+    + [("test_join", "test_join_small_with_duplicates", {"how": how})
+       for how in ("inner", "left", "right", "full", "semi", "anti")]
+    + [("test_join", "test_join_nulls_never_match", {"how": how})
+       for how in ("inner", "left", "semi", "anti", "full")]
+    + [("test_join", name, {}) for name in (
+        "test_join_random_differential", "test_join_skewed_zipf",
+        "test_join_overflow_flag", "test_gather_payload")]
+    + [("test_join", "test_join_multi_key", {"how": how})
+       for how in ("inner", "left", "right", "full", "semi", "anti")]
+    + [("test_join", "test_join_heavy_duplicate_runs", {})]
+    + [("test_join", "test_join_unique_build_fast_path", {"how": how})
+       for how in ("inner", "left", "semi", "anti")]
+    + [("test_join", "test_join_unique_build_detects_duplicates", {})]
+    + [("test_join", "test_probe_ranges_hot_matches_dense", {"dist": dist})
+       for dist in ("zipf", "uniform", "allsame")]
 )
 
 
@@ -106,6 +123,12 @@ def _port_on_cpu() -> types.ModuleType:
 
 def _tensor(x):
     return None if x is None else torch.from_numpy(np.array(np.asarray(x)))
+
+
+def _key(x):
+    """A key column as a CPU tensor, unsigned lanes as their signed bits
+    (as the port holds normalized keys)."""
+    return None if x is None else gt.utils.ints.signed_view(_tensor(x))
 
 
 def _numpy(x):
@@ -165,6 +188,13 @@ def _sort_shim() -> types.ModuleType:
     def sort_permutation(keys, length=None):
         return np.asarray(port.sort_permutation(keys_(keys), length))
 
+    def _sort_full(keys, length, carries=()):
+        """The reference's 3-tuple: (perm, sorted norms as numpy's unsigned
+        dtype of their width, no carries)."""
+        perm, norms = port._sort_full(keys_(keys), length)
+        return np.asarray(perm), [
+            np.asarray(x).view(_UNSIGNED[x.element_size()]) for x in norms], ()
+
     def sort_columns(keys, payload=(), length=None):
         perm, sk, sp = port.sort_columns(
             keys_(keys), [_tensor(p) for p in payload], length)
@@ -174,6 +204,60 @@ def _sort_shim() -> types.ModuleType:
     mod.SortKey = port.SortKey
     mod.normalize_key, mod.sort_permutation, mod.sort_columns = \
         normalize_key, sort_permutation, sort_columns
+    mod._sort_full = _sort_full
+    return mod
+
+
+def _hash_join_shim() -> types.ModuleType:
+    port = gt.ops.hash_join
+    mod = types.ModuleType("gandiva_tpu.ops.hash_join")
+
+    def result(res):
+        return port.JoinResult(*(np.asarray(f) for f in res))
+
+    def join(probe_keys, build_keys, capacity, how="inner", **kw):
+        return result(port.join(
+            _key(probe_keys), _key(build_keys), capacity, how,
+            **{k: v if isinstance(v, (bool, int)) else _tensor(v)
+               for k, v in kw.items()}))
+
+    def join_multi(probe_keys_list, build_keys_list, capacity, how="inner",
+                   **kw):
+        return result(port.join_multi(
+            [_key(k) for k in probe_keys_list],
+            [_key(k) for k in build_keys_list], capacity, how,
+            **{k: [_tensor(x) for x in v] if isinstance(v, list)
+               else _tensor(v) for k, v in kw.items()}))
+
+    def gather_payload(res, probe_cols=None, build_cols=None):
+        def cols(c):
+            return None if c is None else {
+                k: (_tensor(v), _tensor(m)) for k, (v, m) in c.items()}
+
+        out, row_ok = port.gather_payload(
+            port.JoinResult(*(_tensor(f) for f in res)), cols(probe_cols),
+            cols(build_cols))
+        return ({k: (np.asarray(v), np.asarray(m))
+                 for k, (v, m) in out.items()}, np.asarray(row_ok))
+
+    def _build_ranges_table(sorted_norm, n_valid, perm=None, table_factor=16):
+        return _numpy(port._build_ranges_table(
+            _key(sorted_norm), _tensor(n_valid), _tensor(perm), table_factor))
+
+    def probe_ranges(fn):
+        def run(table, nb, pk_norm, probe_kv, *args):
+            start, ln, diag = fn(_tensor(table), nb, _key(pk_norm),
+                                 _tensor(probe_kv), *args)
+            return (np.asarray(start), np.asarray(ln),
+                    {k: np.asarray(v) for k, v in diag.items()})
+        return run
+
+    mod.JoinResult = port.JoinResult
+    mod.join, mod.join_multi, mod.gather_payload = join, join_multi, \
+        gather_payload
+    mod._build_ranges_table = _build_ranges_table
+    mod._probe_ranges_dense = probe_ranges(port._probe_ranges_dense)
+    mod._probe_ranges_hot = probe_ranges(port._probe_ranges_hot)
     return mod
 
 
@@ -224,8 +308,10 @@ _AGG = _aggregate_shim()
 _GROUPBY = _groupby_shim()
 _SORT = _sort_shim()
 _MERGE_PATH = _merge_path_shim()
+_JOIN = _hash_join_shim()
 _OPS = types.ModuleType("gandiva_tpu.ops")
-_OPS.hash_aggregate, _OPS.groupby, _OPS.sort = _AGG, _GROUPBY, _SORT
+_OPS.hash_aggregate, _OPS.groupby, _OPS.sort, _OPS.hash_join = \
+    _AGG, _GROUPBY, _SORT, _JOIN
 
 _STAND_INS = {
     "gandiva_tpu": _port_on_cpu(),
@@ -238,6 +324,7 @@ _STAND_INS = {
     "gandiva_tpu.ops.hash_aggregate": _AGG,
     "gandiva_tpu.ops.groupby": _GROUPBY,
     "gandiva_tpu.ops.sort": _SORT,
+    "gandiva_tpu.ops.hash_join": _JOIN,
     "gandiva_tpu.ops.kernels.merge_path": _MERGE_PATH,
     "gandiva_tpu.ops.kernels.sort_bitonic": _sort_bitonic_shim(),
 }
@@ -281,7 +368,8 @@ def test_reference_case_on_port(stem, name, kwargs):
                             ("hash_aggregate", _AGG.hash_aggregate),
                             ("group_ids", _GROUPBY.group_ids),
                             ("sort_permutation", _SORT.sort_permutation),
-                            ("merge_sort_u32", _MERGE_PATH.merge_sort_u32)):
+                            ("merge_sort_u32", _MERGE_PATH.merge_sort_u32),
+                            ("join", _JOIN.join)):
         assert alias not in ns or ns[alias] is stand_in, alias
     with _port_as_reference():
         ns[name](**kwargs)
