@@ -39,22 +39,28 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                 100,000,000 rows made on the card: rows/s (best of 3), K5
                 launches, peak device memory, device time by kernel; its
                 groups held against K5's plain version and pyarrow;
- 10. K4, K3   — the block sort and the merge-path round against their plain
-                torch versions on the card, bit for bit: at configs[2]'s
-                shape (100,000,000 int64 keys as bench.py makes them) K4 and
-                the first and last K3 rounds; at a ragged 1,000,037 rows
-                every round, for heavy ties, sorted and reversed input, four
-                words (two nullable keys), 14 words (the tile halves), and
-                at n < W and n = 0;
- 11. sort times — K4, each K3 round, the whole merge_sort, sort_columns,
-                their plain versions and the nearest PyTorch calls
-                (segmented torch.sort for a kernel, torch.sort +
+ 10. K4, K3   — the block sort and the merge-path round (and the round's
+                partition pass) against their plain torch versions on the
+                card, bit for bit: at configs[2]'s shape (100,000,000 int64
+                keys as bench.py makes them) K4 and the first and last K3
+                rounds; at a ragged 1,000,037 rows every round, for heavy
+                ties, sorted and reversed input, all keys equal, four words
+                (two nullable keys), 14 words (the tile halves), and at
+                n = 4W + 1, n < W and n = 0;
+ 11. sort times — the -Xptxas -v lines of K4 and K3; K4 and the whole
+                merge_sort at W = 2^11 .. 2^14 (one word); at the default W,
+                K4, each K3 round and its partition pass, K3's mean round at
+                T = 2^11 .. 2^13 outputs a CTA, the whole merge_sort,
+                sort_columns, their plain versions and the nearest PyTorch
+                calls (segmented torch.sort for a kernel, torch.sort +
                 index_select for the operator) at the configs[2] shape,
-                beside the least time the card's memory allows;
+                beside the least time the card's memory allows
+                (merge_sort's: rows x (20 + R x 24) B);
  12. sort path — ops.sort_columns([SortKey(keys)], [payload]) as bench.py
                 runs configs[2], on 100,000,000 rows made on the card, and
                 again with 10% null keys nulls first: rows/s (best of 3), K4
-                and K3 launches, peak device memory, device time by kernel;
+                launches and K3 rounds (one and R a call, R from each run's
+                tile), peak device memory, device time by kernel;
                 perm held against the plain merge sort, sorted columns against
                 keys[perm]; then a ragged multi-key sort against pyarrow;
  13. K2       — the single-pass look-back compaction against its plain
@@ -181,6 +187,12 @@ def compaction_bytes(rows: int, survivors: int, width: int) -> int:
     return rows + survivors * (4 + 2 * width)
 
 
+def ptxas_lines(text: str):
+    """The compiler's register, shared-memory and spill lines of a build."""
+    return [line.strip() for line in text.splitlines()
+            if "ptxas" in line or "spill" in line or "cached" in line]
+
+
 def time_ms(fn, iters: int, warmup: int = 3) -> float:
     for _ in range(warmup):
         fn()
@@ -301,12 +313,16 @@ def sort_rounds_against_plain(words, what: str, every_round: bool = True
         got = k3.merge_round_cuda(cur, idx, run)
         torch.cuda.synchronize()
         if every_round or r in (0, rounds - 1):
+            if not torch.equal(k3.merge_splits_cuda(cur, run),
+                               k3.merge_splits_plain(cur, run)):
+                raise AssertionError(f"{what} K3 round {r}: partition "
+                                     "differs from the plain version")
             err = max(err, hold_sort(got[::-1], k3.merge_round_plain(
                 cur, idx, run)[::-1], f"{what} K3 round {r}"))
         cur, idx = got
     log(f"{what}: {words.shape[0]} words, n={words.shape[1]}, W=2^{w_log2}: "
         f"K4 and {'every' if every_round else 'the first and last'} of "
-        f"{rounds} K3 rounds match plain")
+        f"{rounds} K3 rounds (and their partition passes) match plain")
     return err
 
 
@@ -370,11 +386,11 @@ def main() -> int:
     # -- 2. build --------------------------------------------------------
     phase("build")
     t = time.perf_counter()
-    for name, text in build.build_all().items():
+    build_logs = build.build_all()
+    for name, text in build_logs.items():
         log(f"-- csrc/{name}.cu")
-        for line in text.splitlines():
-            if "ptxas" in line or "spill" in line or "cached" in line:
-                log("   " + line.strip())
+        for line in ptxas_lines(text):
+            log("   " + line)
     log(f"build {time.perf_counter() - t:.1f}s")
 
     # -- 3. kernel against plain -----------------------------------------
@@ -758,6 +774,9 @@ def main() -> int:
         ("reversed", torch.arange(n, 0, -1, device=dev).unsqueeze(0)),
         ("two nullable keys", two_nullable_keys()),
         ("14 words", torch.randint(0, 2, (14, n), generator=g, device=dev)),
+        ("all equal", torch.full((1, n), 7, dtype=torch.int64, device=dev)),
+        ("n = 4W + 1", torch.randint(-2**62, 2**62, (
+            1, 4 * (1 << k4.DEFAULT_W_LOG2) + 1), generator=g, device=dev)),
         ("n < W", torch.randint(-2**62, 2**62, (1, 1000), generator=g,
                                 device=dev)),
         ("n = 0", torch.empty((1, 0), dtype=torch.int64, device=dev))]
@@ -770,6 +789,21 @@ def main() -> int:
 
     # -- 11. sort times --------------------------------------------------
     phase("sort times")
+    for name in ("sort_bitonic", "merge_path"):
+        log(f"-Xptxas -v, csrc/{name}.cu:")
+        for line in ptxas_lines(build_logs[name]):
+            log("   " + line)
+    # the tile sweep, one word: K4 and the whole merge_sort at each W
+    w_sweep = {}
+    for wl in range(11, k4.MAX_W_LOG2 + 1):
+        w_sweep[wl] = {
+            "k4_ms": time_ms(lambda: k4.block_sort_cuda(words, wl), iters=10),
+            "merge_sort_ms": time_ms(lambda: k3.merge_sort(list(words), wl),
+                                     iters=3, warmup=1),
+            "rounds": k3.num_rounds(N_SORT, wl)}
+        log(f"W=2^{wl}: K4 {w_sweep[wl]['k4_ms']:.4f} ms, merge_sort "
+            f"{w_sweep[wl]['merge_sort_ms']:.4f} ms with "
+            f"{w_sweep[wl]['rounds']} K3 rounds")
     w_log2 = k4.tile_log2(1)
     W = 1 << w_log2
     rounds = k3.num_rounds(N_SORT, w_log2)
@@ -784,30 +818,55 @@ def main() -> int:
         warmup=1)
     k4_ms2 = time_ms(lambda: k4.block_sort_cuda(words, w_log2), iters=10)
     del padded
-    idx, cur = k4.block_sort_cuda(words, w_log2)
-    spare = (torch.empty_like(cur), torch.empty_like(idx))
-    round_ms, round_plain_ms, round_library_ms = [], [], []
-    for r in range(rounds):
-        run = W << r
-        round_ms.append(time_ms(lambda: k3.merge_round_cuda(
-            cur, idx, run, out=spare), iters=5))
-        round_plain_ms.append(time_ms(lambda: k3.merge_round_plain(
-            cur, idx, run), iters=1, warmup=1))
-        pairs = -(-N_SORT // (2 * run))
-        padded = torch.cat([cur[0], cur.new_full(
-            (pairs * 2 * run - N_SORT,), -1)]) ^ I64_MIN
-        # one PyTorch call of the same function: a stable sort of each pair
-        round_library_ms.append(time_ms(lambda: torch.sort(
-            padded.view(pairs, 2 * run), dim=1, stable=True), iters=2,
-            warmup=1))
-        del padded
-        merged = k3.merge_round_cuda(cur, idx, run, out=spare)
-        spare = (cur, idx)
-        cur, idx = merged
-    del spare, cur, idx, merged
+    sorted_tiles = k4.block_sort_cuda(words, w_log2)
+
+    def k3_rounds(time_parts: bool):
+        """Each round's time (and, if asked, its partition pass's, its
+        plain version's and its library call's) from K4's output."""
+        idx, cur = sorted_tiles
+        spare = (torch.empty_like(cur), torch.empty_like(idx))
+        times = {"round": [], "partition": [], "plain": [], "library": []}
+        for r in range(rounds):
+            run = W << r
+            times["round"].append(time_ms(lambda: k3.merge_round_cuda(
+                cur, idx, run, out=spare), iters=5))
+            if time_parts:
+                times["partition"].append(time_ms(
+                    lambda: k3.merge_splits_cuda(cur, run), iters=5))
+                times["plain"].append(time_ms(lambda: k3.merge_round_plain(
+                    cur, idx, run), iters=1, warmup=1))
+                pairs = -(-N_SORT // (2 * run))
+                padded = torch.cat([cur[0], cur.new_full(
+                    (pairs * 2 * run - N_SORT,), -1)]) ^ I64_MIN
+                # one PyTorch call of the same function: a stable sort of
+                # each pair
+                times["library"].append(time_ms(lambda: torch.sort(
+                    padded.view(pairs, 2 * run), dim=1, stable=True),
+                    iters=2, warmup=1))
+                del padded
+            merged = k3.merge_round_cuda(cur, idx, run, out=spare)
+            spare = (cur, idx)
+            cur, idx = merged
+        return times
+
+    k3_times = k3_rounds(True)
+    round_ms = k3_times["round"]
     k3_ms = sum(round_ms) / rounds
-    k3_plain_ms = sum(round_plain_ms) / rounds
-    k3_library_ms = sum(round_library_ms) / rounds
+    k3_partition_ms = sum(k3_times["partition"]) / rounds
+    k3_plain_ms = sum(k3_times["plain"]) / rounds
+    k3_library_ms = sum(k3_times["library"]) / rounds
+    # K3's tile: the mean round at T = 2^11 .. 2^13 outputs a CTA
+    t_sweep = {}
+    default_t = k3.MERGE_T_LOG2
+    try:
+        for t in (11, 12, 13):
+            k3.MERGE_T_LOG2 = t
+            t_sweep[t] = sum(k3_rounds(False)["round"]) / rounds
+    finally:
+        k3.MERGE_T_LOG2 = default_t
+    log("K3 mean round by T: " + ", ".join(
+        f"T=2^{t} {ms:.4f} ms" for t, ms in t_sweep.items()))
+    del sorted_tiles
     merge_sort_ms = time_ms(lambda: k3.merge_sort(list(words)), iters=5)
     merge_sort_plain_ms = time_ms(lambda: plain_merge_sort(words, w_log2),
                                   iters=1, warmup=1)
@@ -828,8 +887,9 @@ def main() -> int:
     # sorted key, sorted payload and perm
     k4_bound_ms = N_SORT * (8 + 8 + 4) / bw * 1e3
     k3_bound_ms = N_SORT * 2 * (8 + 4) / bw * 1e3
+    merge_sort_bound_ms = N_SORT * (20 + rounds * 24) / bw * 1e3
     op_bound_ms = N_SORT * (16 + 8 + 8 + 4) / bw * 1e3
-    log(f"n={N_SORT} W={W} rounds={rounds}")
+    log(f"n={N_SORT} W={W} rounds={rounds} K3 T=2^{default_t}")
     log(f"K4 k4_ms={k4_ms:.4f} (again {k4_ms2:.4f}) "
         f"plain_ms={k4_plain_ms:.4f} library_ms={k4_library_ms:.4f} "
         f"bound_ms={k4_bound_ms:.4f} -> {k4_bound_ms / k4_ms:.1%} of the "
@@ -839,10 +899,16 @@ def main() -> int:
         f"library_ms={k3_library_ms:.4f} bound_ms={k3_bound_ms:.4f} -> "
         f"{k3_bound_ms / k3_ms:.1%} of the bound")
     log("K3 by round (ms): " + ", ".join(f"{x:.4f}" for x in round_ms))
-    log(f"merge_sort {merge_sort_ms:.4f} ms (plain {merge_sort_plain_ms:.4f})"
-        f"; sort_columns {op_ms:.4f} ms (again {op_ms2:.4f}); torch.sort + "
-        f"index_select {op_library_ms:.4f} ms; operator bound "
-        f"{op_bound_ms:.4f} ms -> {op_bound_ms / op_ms:.1%}")
+    log("K3 partition pass by round (ms, inside the round's time): "
+        + ", ".join(f"{x:.4f}" for x in k3_times["partition"])
+        + f"; mean {k3_partition_ms:.4f}")
+    log(f"merge_sort {merge_sort_ms:.4f} ms (plain {merge_sort_plain_ms:.4f}"
+        f"; bound {merge_sort_bound_ms:.4f} ms, rows x (20 + {rounds} x 24) "
+        f"B -> {merge_sort_bound_ms / merge_sort_ms:.1%})")
+    log(f"sort_columns {op_ms:.4f} ms (again {op_ms2:.4f}); torch.sort + "
+        f"index_select {op_library_ms:.4f} ms ({op_ms / op_library_ms:.3f}x)"
+        f"; operator bound {op_bound_ms:.4f} ms -> "
+        f"{op_bound_ms / op_ms:.1%}")
 
     # -- 12. main path: the configs[2] sort ------------------------------
     phase("main path: sort_columns (configs[2])")
@@ -872,25 +938,30 @@ def main() -> int:
         busy = profile_call(sort_path)
         launched = {k: LAUNCHES[k] for k in sort_launches}
         calls = 2 + runs
-        if launched != {"sort_block": calls, "merge_path": calls * rounds}:
+        words_ = torch.stack(_build_operands(keys, None)[0])
+        tile = k4.tile_log2(words_.shape[0])
+        call_rounds = k3.num_rounds(N_SORT, tile)
+        if launched != {"sort_block": calls,
+                        "merge_path": calls * call_rounds}:
             raise AssertionError(f"{label}: {launched} in {calls} calls, "
-                                 f"expected K4 once and K3 {rounds} times "
-                                 "a call")
+                                 f"expected K4 once and K3 {call_rounds} "
+                                 "rounds a call")
         for k in sort_launches:
             sort_launches[k] += launched[k]
         rows_s = N_SORT / min(walls)
         perm, (sk,), (sp,) = res
-        words_ = torch.stack(_build_operands(keys, None)[0])
-        want = plain_merge_sort(words_, k4.tile_log2(words_.shape[0]))[0]
+        want = plain_merge_sort(words_, tile)[0]
         if not torch.equal(perm, want):
             raise AssertionError(f"{label}: perm differs from the plain "
                                  "merge sort")
         if not (torch.equal(sk, sort_keys.index_select(0, perm))
                 and torch.equal(sp, sort_pay.index_select(0, perm))):
             raise AssertionError(f"{label}: sorted columns != columns[perm]")
+        nwords = words_.shape[0]
         del words_, want, res, perm, sk, sp
         log(f"{label}: n={N_SORT} walls_s={[round(w, 6) for w in walls]} "
             f"rows/s={rows_s:.6g} launches {launched} in {calls} calls "
+            f"(W=2^{tile}, {call_rounds} rounds a call) "
             f"max_memory_allocated={peak} (resident before the first call "
             f"{resident}: the path's own {peak - resident}); perm equal to "
             "the plain merge sort's, sorted key and payload equal to "
@@ -898,7 +969,9 @@ def main() -> int:
         sort_report[label] = {"rows_per_s": rows_s, "walls_s": walls,
                               "max_memory_allocated": peak,
                               "resident_before": resident,
-                              "device_busy_share": busy}
+                              "device_busy_share": busy,
+                              "words": nwords, "tile_log2": tile,
+                              "rounds_per_call": call_rounds}
     del sort_keys, sort_pay, valid, words
 
     # the ragged multi-key sort against pyarrow, copied to the host once
@@ -940,11 +1013,15 @@ def main() -> int:
     del host, table, taken, got
     log(json.dumps({"sort_path": {
         "rows": N_SORT, "runs": sort_report, "rounds_per_call": rounds,
-        "tile_rows": W, "launches": sort_launches,
-        "k4_ms": k4_ms, "k3_round_ms": round_ms,
+        "tile_rows": W, "k3_tile_rows": 1 << default_t,
+        "launches": sort_launches, "k4_ms": k4_ms, "k3_round_ms": round_ms,
+        "k3_partition_ms": k3_times["partition"],
+        "w_sweep": w_sweep, "k3_t_sweep_mean_round_ms": t_sweep,
         "merge_sort_ms": merge_sort_ms,
         "merge_sort_plain_ms": merge_sort_plain_ms,
+        "merge_sort_bound_ms": merge_sort_bound_ms,
         "sort_columns_ms": op_ms, "library_ms": op_library_ms,
+        "sort_columns_over_library": op_ms / op_library_ms,
         "operator_bound_ms": op_bound_ms}}))
 
     # -- 13. K2 against plain --------------------------------------------
@@ -1346,6 +1423,8 @@ def main() -> int:
         "route": "cuda",
         "source": "gandiva_tpu_torch/csrc/merge_path.cu",
         "replaces": "gandiva_tpu/ops/kernels/merge_path.py:153",
+        # a round is two launches, its partition pass and its merge
+        "launches_count": "rounds",
         "launches": sort_launches["merge_path"],
         "launches_by_path": by_path("merge_path"),
         "matches_plain": True,

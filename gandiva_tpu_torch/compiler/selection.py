@@ -74,14 +74,17 @@ class SelectionVector:
         return pa.array(self.to_numpy())
 
     @staticmethod
-    def from_mask(mask, mode: SelectionMode = SelectionMode.UINT32
-                  ) -> "SelectionVector":
-        """Compact a boolean mask into packed indices."""
+    def from_mask(mask, mode: SelectionMode = SelectionMode.UINT32,
+                  capacity: int | None = None) -> "SelectionVector":
+        """Compact a boolean mask into packed indices; with ``capacity``,
+        that many (survivors past it drop, ``count`` stays the full
+        count)."""
         from ..ops.compaction import compact_mask
 
         if mode is SelectionMode.UINT16 and mask.shape[0] > (1 << 16):
             raise ValueError(
                 "selection mode UINT16 cannot address masks over 65536 "
                 f"rows (got {mask.shape[0]})")
-        idx, count = compact_mask(mask)
-        return SelectionVector(idx.to(mode_index_dtype(mode)), count, mode)
+        idx, count = compact_mask(mask, capacity=capacity,
+                                  index_dtype=mode_index_dtype(mode))
+        return SelectionVector(idx, count, mode)

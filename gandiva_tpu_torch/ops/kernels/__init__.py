@@ -7,7 +7,8 @@ one per scatter launch: one per call for up to eight payload columns. K2
 for a later group of eight payloads: one per call for up to eight. K5
 counts one per launch of its three-kernel sequence: one per call for up to
 four value columns. K4 (``sort_block``) counts one per sort; K3
-(``merge_path``) one per merge round, ⌈log2 ⌈n / W⌉⌉ of them per sort.
+(``merge_path``) one per merge round, ⌈log2 ⌈n / W⌉⌉ of them per sort,
+each round two launches (its partition pass and its merge).
 """
 from typing import Dict
 

@@ -3,8 +3,9 @@ the merge sort that drives it over the block sort (K4).
 
 Replaces ``gandiva_tpu/ops/kernels/merge_path.py::_merge_kernel`` (reached
 through ``_merge_round`` there) and the split search the reference runs
-between rounds outside the kernel (``_diag_search``, ``_round_meta``): K3
-finds each CTA's split on the merge path itself. Source:
+between rounds outside the kernel (``_diag_search``, ``_round_meta``): a
+round is two launches, a partition pass that finds where every tile of T
+outputs starts on the merge path, and the merge. Source:
 ``csrc/merge_path.cu``, built by ``build.py`` and bound with ctypes.
 
 Contract of a round: ``words`` [k, n] int64 (comparator words, most
@@ -15,8 +16,9 @@ short; a last run with no partner is copied through.
 
 Bound: bytes. A round reads and writes 8k + 4 B a row each way: at BASELINE
 configs[2] (one word, n = 100,000,000) 2.4 GB, about 0.72 ms at an H100
-SXM's 3.35 TB/s. The design (each CTA merges T outputs of one pair from
-shared memory) is described in the source.
+SXM's 3.35 TB/s. The design (the partition pass, then each CTA copies its
+segments into shared memory asynchronously and merges T outputs) is
+described in the source.
 
 ``merge_sort`` runs the block sort once, then rounds r = 0, 1, …
 while W · 2^r < n, between two ping-pong buffers. The number of rounds
@@ -27,6 +29,8 @@ stay 64-bit words, and callers gather payloads once by the permutation.
 ``merge_round`` launches the kernel for CUDA tensors and takes
 ``merge_round_plain`` only for CPU tensors; there is no fallback from one
 to the other, and no size threshold hands the card's sort to ``torch.sort``.
+``LAUNCHES["merge_path"]`` counts rounds: one per ``merge_round`` call,
+whose two launches it does not count apart.
 """
 from __future__ import annotations
 
@@ -42,18 +46,31 @@ from .sort_bitonic import (DEFAULT_W_LOG2, MIN_W_LOG2, SMEM_BYTES,
 
 Pair = Tuple[torch.Tensor, torch.Tensor]
 
+MERGE_T_LOG2 = 12           # T = 4096 outputs a K3 CTA, at most
+MERGE_ITEMS = 8             # outputs a K3 thread merges
 
-def merge_tile_log2(num_words: int, w_log2: int) -> int:
-    """log2 of the outputs one K3 CTA produces: at most the block sort's
-    tile (so they lie in one pair), halved until their words, indices and
-    slots, T · (8 · words + 8) bytes, stay below one block's shared
-    memory (K3 also holds 16 static bytes)."""
-    t = w_log2
-    while t >= MIN_W_LOG2 and (1 << t) * (8 * num_words + 8) >= SMEM_BYTES:
+
+def merge_smem(num_words: int, t_log2: int) -> int:
+    """K3's shared memory for a tile of T outputs: the first words (T rows
+    and one slack row), the other words, the indices, and the output map
+    (4 B a slot: every output and one pad slot every ``MERGE_ITEMS``, and
+    one more)."""
+    t = 1 << t_log2
+    return 8 * (t + 1) + 8 * (num_words - 1) * t + 4 * t \
+        + 4 * (t + t // MERGE_ITEMS + 1)
+
+
+def merge_tile_log2(num_words: int, run_log2: int) -> int:
+    """log2 of the outputs one K3 CTA produces: ``MERGE_T_LOG2``, at most
+    the run (so T divides it and a tile lies in one pair), halved until a
+    tile fits one block's shared memory (``merge_smem``)."""
+    t = min(run_log2, MERGE_T_LOG2)
+    while t >= MIN_W_LOG2 and merge_smem(num_words, t) > SMEM_BYTES:
         t -= 1
     if t < MIN_W_LOG2:
-        raise ValueError(f"{num_words} sort words or runs of 2^{w_log2} rows "
-                         f"do not fit a merge tile of {1 << MIN_W_LOG2} rows")
+        raise ValueError(f"{num_words} sort words or runs of 2^{run_log2} "
+                         f"rows do not fit a merge tile of "
+                         f"{1 << MIN_W_LOG2} rows")
     return t
 
 
@@ -65,11 +82,13 @@ def num_rounds(n: int, w_log2: int) -> int:
     return r
 
 
-def _validate(words: torch.Tensor, idx: torch.Tensor, run: int) -> None:
+def _validate(words: torch.Tensor, idx: Optional[torch.Tensor],
+              run: int) -> None:
     validate_words(words, MIN_W_LOG2)
     n = words.shape[1]
-    if idx.dtype != torch.int32 or idx.shape != (n,) \
-            or not idx.is_contiguous() or idx.device != words.device:
+    if idx is not None and (
+            idx.dtype != torch.int32 or idx.shape != (n,)
+            or not idx.is_contiguous() or idx.device != words.device):
         raise ValueError("idx must be a contiguous int32 tensor of n rows on "
                          "the words' device")
     if run < 1 or run & (run - 1):
@@ -96,43 +115,101 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("merge_path")
     if not getattr(lib, "_gt_typed", False):
         vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.gt_merge_round.argtypes = [vp, vp, ll, ci, ll, ci, vp, vp, vp]
+        lib.gt_merge_round.argtypes = [vp, vp, ll, ci, ll, ci, vp, vp, vp,
+                                       vp]
         lib.gt_merge_round.restype = ci
+        lib.gt_merge_partition.argtypes = [vp, ll, ci, ll, ci, vp, vp]
+        lib.gt_merge_partition.restype = ci
         lib.gt_merge_path_smem_limit.restype = ci
+        lib.gt_merge_path_items.restype = ci
         lib.gt_merge_path_error_string.argtypes = [ci]
         lib.gt_merge_path_error_string.restype = ctypes.c_char_p
-        if lib.gt_merge_path_smem_limit() != SMEM_BYTES:
-            raise RuntimeError("csrc/merge_path.cu disagrees on SMEM_BYTES")
+        if (lib.gt_merge_path_smem_limit(), lib.gt_merge_path_items()) \
+                != (SMEM_BYTES, MERGE_ITEMS):
+            raise RuntimeError("csrc/merge_path.cu disagrees on SMEM_BYTES "
+                               "or MERGE_ITEMS")
         lib._gt_typed = True
     return lib
 
 
+def _check(lib, code: int, what: str) -> None:
+    if code != 0:
+        raise RuntimeError(
+            f"{what} failed: {lib.gt_merge_path_error_string(code).decode()} "
+            f"({code})")
+
+
+def _splits(words: torch.Tensor, run: int) -> Tuple[int, torch.Tensor]:
+    """K3's tile for ``words`` and ``run``, and a splits buffer of one int32
+    per tile."""
+    k, n = words.shape
+    t_log2 = merge_tile_log2(k, run.bit_length() - 1)
+    return t_log2, torch.empty(-(-n >> t_log2), dtype=torch.int32,
+                               device=words.device)
+
+
 def merge_round_cuda(words: torch.Tensor, idx: torch.Tensor, run: int,
                      out: Optional[Pair] = None) -> Pair:
-    """Launch K3 once on the inputs' card: (merged words, merged idx),
-    written into ``out`` when it is given."""
+    """Launch K3 once (its partition pass and its merge) on the inputs'
+    card: (merged words, merged idx), written into ``out`` when it is
+    given."""
     if words.device.type != "cuda":
         raise ValueError(f"merge_round_cuda takes CUDA tensors, got "
                          f"{words.device}")
     _validate(words, idx, run)
     k, n = words.shape
-    t_log2 = merge_tile_log2(k, min(DEFAULT_W_LOG2, run.bit_length() - 1))
     ow, oi = _outputs(words, idx, out)
     if n == 0:
         return ow, oi
+    t_log2, splits = _splits(words, run)
     lib = _lib()
     dev = words.device
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        code = lib.gt_merge_round(words.data_ptr(), idx.data_ptr(), n, k,
-                                  run, t_log2, ow.data_ptr(), oi.data_ptr(),
-                                  stream)
-        if code != 0:
-            raise RuntimeError(
-                f"gt_merge_round failed: "
-                f"{lib.gt_merge_path_error_string(code).decode()} ({code})")
+        _check(lib, lib.gt_merge_round(
+            words.data_ptr(), idx.data_ptr(), n, k, run, t_log2,
+            splits.data_ptr(), ow.data_ptr(), oi.data_ptr(), stream),
+            "gt_merge_round")
         LAUNCHES["merge_path"] += 1
     return ow, oi
+
+
+def merge_splits_cuda(words: torch.Tensor, run: int) -> torch.Tensor:
+    """K3's partition pass alone on ``words``' card: for each tile of T
+    outputs (``merge_tile_log2``), the number of A rows of its pair's merge
+    before it. Not counted in ``LAUNCHES``: a round counts once."""
+    if words.device.type != "cuda":
+        raise ValueError(f"merge_splits_cuda takes CUDA tensors, got "
+                         f"{words.device}")
+    _validate(words, None, run)
+    t_log2, splits = _splits(words, run)
+    if words.shape[1] == 0:
+        return splits
+    lib = _lib()
+    dev = words.device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _check(lib, lib.gt_merge_partition(
+            words.data_ptr(), words.shape[1], words.shape[0], run, t_log2,
+            splits.data_ptr(), stream), "gt_merge_partition")
+    return splits
+
+
+def merge_splits_plain(words: torch.Tensor, run: int) -> torch.Tensor:
+    """The partition pass's plain torch version: merge each pair by
+    ``segment_sort_plain`` with the positions as the carried column, mark
+    the outputs that come from A, and count them from the pair's start to
+    each tile's start."""
+    _validate(words, None, run)
+    k, n = words.shape
+    t_log2 = merge_tile_log2(k, run.bit_length() - 1)
+    pos = torch.arange(n, dtype=torch.int32, device=words.device)
+    src, _ = segment_sort_plain(words, pos, 2 * run)
+    from_a = (src.long() // run) % 2 == 0
+    before = torch.cumsum(from_a, 0) - from_a.long()  # A rows before each
+    starts = torch.arange(0, n, 1 << t_log2, device=words.device)
+    pair_starts = starts // (2 * run) * (2 * run)
+    return (before[starts] - before[pair_starts]).to(torch.int32)
 
 
 def merge_round_plain(words: torch.Tensor, idx: torch.Tensor, run: int,

@@ -14,8 +14,9 @@ The row index makes the order total, so the result is stable.
 
 Bound: bytes. It must read 8k B a row and write 8k + 4 B a row: at BASELINE
 configs[2] (one word, n = 100,000,000) 2 GB, about 0.60 ms at an H100 SXM's
-3.35 TB/s. The design (one CTA per tile, a bitonic network in shared
-memory) is described in the source.
+3.35 TB/s. The design (one CTA per tile, ``ITEMS`` rows a thread sorted in
+registers, then merge-path levels in shared memory) is described in the
+source.
 
 ``block_sort`` launches the kernel for CUDA tensors and takes
 ``block_sort_plain`` only for CPU tensors; there is no fallback from one to
@@ -33,16 +34,26 @@ import torch
 from . import LAUNCHES, build
 
 SMEM_BYTES = 232_448        # dynamic shared memory one Hopper block may use
-DEFAULT_W_LOG2 = 11         # W = 2048 rows, halved until a tile fits
+ITEMS = 16                  # rows a K4 thread holds in registers
+DEFAULT_W_LOG2 = 13         # W = 8192 rows, halved until a tile fits
 MIN_W_LOG2 = 6
+MAX_W_LOG2 = 14             # ITEMS · 1024 threads
 I64_MIN = -(1 << 63)
 
 
+def tile_smem(num_words: int, w_log2: int) -> int:
+    """K4's shared memory for a tile: words 1 .. k-1 (8 B a row) and the
+    merge buffer's first word and position (12 B a slot: every row, one pad
+    slot every ``ITEMS`` rows and one slack row)."""
+    w = 1 << w_log2
+    return 8 * (num_words - 1) * w + 12 * (w + w // ITEMS + 1)
+
+
 def tile_log2(num_words: int, w_log2: int = DEFAULT_W_LOG2) -> int:
-    """log2 of the tile: ``w_log2`` halved until a tile's words and indices,
-    W · (8 · words + 4) bytes, fit one block's shared memory."""
-    while w_log2 >= MIN_W_LOG2 and (1 << w_log2) * (8 * num_words + 4) \
-            > SMEM_BYTES:
+    """log2 of the tile: ``w_log2`` halved until a tile fits one block's
+    shared memory (``tile_smem``); at most ``MAX_W_LOG2``."""
+    w_log2 = min(w_log2, MAX_W_LOG2)
+    while w_log2 >= MIN_W_LOG2 and tile_smem(num_words, w_log2) > SMEM_BYTES:
         w_log2 -= 1
     if w_log2 < MIN_W_LOG2:
         raise ValueError(f"{num_words} sort words do not fit a tile of "
@@ -56,13 +67,13 @@ def validate_words(words: torch.Tensor, w_log2: int) -> None:
         raise ValueError("words must be a contiguous [k, n] int64 tensor with "
                          f"k >= 1, got {words.dtype} of shape "
                          f"{tuple(words.shape)}")
-    if not MIN_W_LOG2 <= w_log2 <= 16:
-        raise ValueError(f"w_log2 must lie in [{MIN_W_LOG2}, 16], got "
-                         f"{w_log2}")
+    if not MIN_W_LOG2 <= w_log2 <= MAX_W_LOG2:
+        raise ValueError(f"w_log2 must lie in [{MIN_W_LOG2}, {MAX_W_LOG2}], "
+                         f"got {w_log2}")
     if words.shape[1] + (1 << w_log2) >= 1 << 31:
         raise ValueError(f"the sort takes fewer than 2^31 - W rows, got "
                          f"{words.shape[1]}")
-    if (1 << w_log2) * (8 * words.shape[0] + 4) > SMEM_BYTES:
+    if tile_smem(words.shape[0], w_log2) > SMEM_BYTES:
         raise ValueError(f"a tile of 2^{w_log2} rows of {words.shape[0]} "
                          "words does not fit shared memory (tile_log2)")
 
@@ -74,10 +85,13 @@ def _lib() -> ctypes.CDLL:
         lib.gt_block_sort.argtypes = [vp, ll, ci, ci, vp, vp, vp]
         lib.gt_block_sort.restype = ci
         lib.gt_block_sort_smem_limit.restype = ci
+        lib.gt_block_sort_items.restype = ci
         lib.gt_block_sort_error_string.argtypes = [ci]
         lib.gt_block_sort_error_string.restype = ctypes.c_char_p
-        if lib.gt_block_sort_smem_limit() != SMEM_BYTES:
-            raise RuntimeError("csrc/sort_bitonic.cu disagrees on SMEM_BYTES")
+        if (lib.gt_block_sort_smem_limit(), lib.gt_block_sort_items()) \
+                != (SMEM_BYTES, ITEMS):
+            raise RuntimeError("csrc/sort_bitonic.cu disagrees on SMEM_BYTES "
+                               "or ITEMS")
         lib._gt_typed = True
     return lib
 

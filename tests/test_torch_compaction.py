@@ -10,8 +10,10 @@ import torch
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
 
+from gandiva_tpu.compiler import selection as g_sel
 from gandiva_tpu.ops import compaction as g_comp
 from gandiva_tpu.ops.kernels import compaction_pallas as cp
+from gandiva_tpu_torch.compiler import selection as t_sel
 from gandiva_tpu_torch.ops import compaction as t_comp
 from gandiva_tpu_torch.ops.kernels import LAUNCHES, reset_launches
 from gandiva_tpu_torch.ops.kernels.compaction import (compact_columns,
@@ -130,6 +132,103 @@ def test_compact_mask_and_values():
                                           jnp.asarray(payload[1]))
     np.testing.assert_array_equal(packed.numpy()[:c],
                                   np.asarray(ref_packed)[:c])
+
+
+# ---------------------------------------------------------------------------
+# capacity and index_dtype, against the reference
+# ---------------------------------------------------------------------------
+
+_INDEX_DTYPES = ["uint32", "int32", "uint64", "int64", "uint16"]
+
+
+@pytest.mark.parametrize("capacity", [None, 0, 4, 1377, 3000, 3100])
+@pytest.mark.parametrize("index_dtype", _INDEX_DTYPES)
+def test_compact_mask_capacity_and_index_dtype_vs_reference(index_dtype,
+                                                            capacity):
+    """The whole capacity-sized buffer equals the reference's (survivors
+    past capacity dropped, the tail zero) and count stays the full count;
+    indices of an unsigned type come as the signed bits of its width."""
+    mask, _ = _inputs(3000, 0.5, 17)
+    idx, count = t_comp.compact_mask(torch.from_numpy(mask), capacity,
+                                     getattr(torch, index_dtype))
+    ref_idx, ref_count = g_comp.compact_mask(jnp.asarray(mask), capacity,
+                                             getattr(jnp, index_dtype))
+    ref = np.asarray(ref_idx)
+    assert int(count) == int(ref_count) == int(mask.sum())
+    assert idx.dtype == t_comp.index_storage(getattr(torch, index_dtype))
+    assert idx.element_size() == ref.itemsize
+    got = idx.numpy().view(ref.dtype)
+    if capacity is None:
+        c = int(count)
+        np.testing.assert_array_equal(got[:c], ref[:c])
+    else:
+        np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.parametrize("capacity", [0, 5, 700, 1000, 1200])
+@pytest.mark.parametrize("column", [0, 1, 2])
+def test_compact_values_capacity_vs_reference(column, capacity):
+    mask, payload = _inputs(1000, 0.7, 23)
+    values = payload[column]
+    packed, count = t_comp.compact_values(torch.from_numpy(mask),
+                                          torch.from_numpy(values), capacity)
+    ref, ref_count = g_comp.compact_values(jnp.asarray(mask),
+                                           jnp.asarray(values), capacity)
+    assert int(count) == int(ref_count)
+    assert packed.numpy().dtype == values.dtype
+    np.testing.assert_array_equal(packed.numpy(), np.asarray(ref))
+
+
+@pytest.mark.parametrize("capacity", [None, 4, 10, 12])
+@pytest.mark.parametrize("mode", ["UINT16", "UINT32", "UINT64"])
+def test_selection_from_mask_capacity_vs_reference(mode, capacity):
+    """The reference's example: 7 survivors of 10 rows at capacity 4 give
+    indices [0, 2, 3, 5] and count 7."""
+    mask = np.array([1, 0, 1, 1, 0, 1, 1, 0, 1, 1], bool)
+    got = t_sel.SelectionVector.from_mask(
+        torch.from_numpy(mask), t_sel.SelectionMode[mode], capacity)
+    ref = g_sel.SelectionVector.from_mask(
+        jnp.asarray(mask), g_sel.SelectionMode[mode], capacity)
+    assert int(got.count) == int(ref.count) == 7 and len(got) == 7
+    assert got.capacity == ref.capacity
+    assert got.indices.dtype == t_sel.mode_index_dtype(got.mode)
+    np.testing.assert_array_equal(got.to_numpy(), ref.to_numpy())
+    assert got.to_numpy().dtype == ref.to_numpy().dtype
+    if capacity == 4:
+        assert got.indices.tolist() == [0, 2, 3, 5]
+    if capacity is not None:
+        np.testing.assert_array_equal(got.indices.numpy(),
+                                      np.asarray(ref.indices))
+
+
+@pytest.mark.parametrize("index_dtype", _INDEX_DTYPES)
+def test_compact_sort_and_best_index_dtype_vs_reference(index_dtype):
+    mask, payload = _inputs(2000, 0.4, 29)
+    tdt, jdt = getattr(torch, index_dtype), getattr(jnp, index_dtype)
+    idx, count, cols = t_comp.compact_sort(
+        torch.from_numpy(mask), [torch.from_numpy(p) for p in payload], tdt)
+    ref_idx, ref_count, ref_cols = g_comp.compact_sort(
+        jnp.asarray(mask), [jnp.asarray(p) for p in payload], jdt)
+    ref = np.asarray(ref_idx)
+    assert int(count) == int(ref_count)
+    np.testing.assert_array_equal(idx.numpy().view(ref.dtype), ref)
+    for got, want in zip(cols, ref_cols):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    best, count, _ = t_comp.compact_best(torch.from_numpy(mask), (), tdt)
+    c = int(count)
+    assert best.dtype == idx.dtype
+    np.testing.assert_array_equal(best.numpy().view(ref.dtype)[:c], ref[:c])
+    assert t_comp.index_storage(np.dtype(index_dtype)) == best.dtype
+
+
+def test_index_dtype_and_capacity_refuse_what_they_cannot_hold():
+    mask = torch.ones(8, dtype=torch.bool)
+    with pytest.raises(ValueError, match="integer"):
+        t_comp.compact_mask(mask, index_dtype=torch.float32)
+    with pytest.raises(ValueError, match="integer"):
+        t_comp.compact_mask(mask, index_dtype=np.float64)
+    with pytest.raises(ValueError, match="non-negative"):
+        t_comp.compact_mask(mask, capacity=-1)
 
 
 def test_cpu_tensors_take_the_plain_version():

@@ -56,6 +56,33 @@ def test_k1_matches_plain(n, density):
         assert torch.equal(_bits(got[:c]), _bits(want[:c]))
 
 
+@pytest.mark.parametrize("capacity", [0, 1000, 500_000, 1_000_037,
+                                      1_200_000])
+def test_k1_capacity_matches_cpu(capacity):
+    """compact_mask and compact_values with a capacity take K1 on the card
+    and give the CPU's capacity-sized buffers (survivors past capacity
+    dropped, the tail zero) and the full count."""
+    dev = _card()
+    from gandiva_tpu_torch.ops.compaction import compact_mask, compact_values
+
+    n = 1_000_037
+    g = torch.Generator(device=dev)
+    g.manual_seed(capacity + 1)
+    mask = torch.rand(n, generator=g, device=dev) < 0.5
+    vals = torch.rand(n, generator=g, dtype=torch.float64, device=dev)
+    reset_launches()
+    idx, count = compact_mask(mask, capacity)
+    packed, vcount = compact_values(mask, vals, capacity)
+    torch.cuda.synchronize()
+    assert LAUNCHES["compact"] == 2
+    cidx, ccount = compact_mask(mask.cpu(), capacity)
+    cpacked, _ = compact_values(mask.cpu(), vals.cpu(), capacity)
+    assert int(count) == int(vcount) == int(ccount) == int(mask.sum())
+    assert idx.shape == packed.shape == (capacity,)
+    assert torch.equal(idx.cpu(), cidx)
+    assert torch.equal(_bits(packed.cpu()), _bits(cpacked))
+
+
 def _payloads(n, g, dev):
     return [torch.randint(-2**62, 2**62, (n,), generator=g, device=dev),
             torch.rand(n, generator=g, dtype=torch.float64, device=dev),
@@ -368,9 +395,12 @@ def test_hash_aggregate_on_card_matches_cpu():
 
 def _sort_words(n, k, kind, g, dev):
     """k comparator words of n rows: uniform 64-bit patterns, heavy ties
-    (values in [0, 3)), or an ascending or descending first word."""
+    (values in [0, 3)), all equal, or an ascending or descending first
+    word."""
     if kind == "ties":
         return torch.randint(0, 3, (k, n), generator=g, device=dev)
+    if kind == "equal":
+        return torch.full((k, n), 7, dtype=torch.int64, device=dev)
     words = torch.stack([_bits64(n, g, dev) for _ in range(k)])
     if kind == "sorted":
         words[0] = torch.arange(n, device=dev)
@@ -379,25 +409,49 @@ def _sort_words(n, k, kind, g, dev):
     return words.contiguous()
 
 
-@pytest.mark.parametrize("n,k,kind", [
-    (0, 1, "random"), (1, 1, "random"), (1000, 1, "random"),
-    (2048, 1, "ties"), (4096 + 17, 1, "sorted"), (1_000_037, 1, "random"),
-    (1_000_037, 1, "ties"), (300_007, 1, "reversed"), (100_003, 2, "ties"),
-    (30_011, 4, "ties"), (20_011, 30, "ties"), (65_536, 3, "random")])
-def test_k4_k3_match_plain(n, k, kind):
+_W = 1 << 13   # the default tile of one word
+
+
+@pytest.mark.parametrize("n,k,kind,w_log2", [
+    (0, 1, "random", None), (1, 1, "random", None), (1000, 1, "random", None),
+    (2048, 1, "ties", None), (4096 + 17, 1, "sorted", None),
+    (1_000_037, 1, "random", None), (1_000_037, 1, "ties", None),
+    (300_007, 1, "reversed", None), (100_003, 2, "ties", None),
+    (30_011, 4, "ties", None), (20_011, 30, "ties", None),
+    (65_536, 3, "random", None),
+    # n = W 2^r - 1, W 2^r and W 2^r + 1 at the default tile
+    (4 * _W - 1, 1, "random", None), (4 * _W, 1, "random", None),
+    (4 * _W + 1, 1, "random", None),
+    # all keys equal: every split sits on A's ties
+    (4 * _W + 3, 1, "equal", None), (3 * _W + 5, 2, "equal", None),
+    # the last pair's B run short, round after round
+    (5 * _W + 100, 1, "random", None), (9 * _W + 1, 2, "random", None),
+    # two and three words, the tile halved for three, and for two words
+    # when 2^14 rows are asked
+    (4 * _W + 1, 2, "random", None), (3 * _W + 11, 3, "ties", None),
+    (5 * _W + 3, 2, "random", 14),
+    # each tile of the sweep
+    (100_003, 1, "random", 11), (100_003, 1, "random", 12),
+    (100_003, 1, "ties", 13), (100_003, 1, "random", 14),
+    (3 * (1 << 14) + 7, 1, "ties", 14)])
+def test_k4_k3_match_plain(n, k, kind, w_log2):
     """K4 once and every K3 round, each against its plain version on the
-    same input, bit for bit; 30 words halve the tile twice."""
+    same input, bit for bit, and each round's partition pass against its
+    plain version; many words halve the tile. Random keys put segment
+    starts on odd rows, so the asynchronous copies are not 16-B aligned."""
     dev = _card()
     from gandiva_tpu_torch.ops.kernels.merge_path import (
-        merge_round, merge_round_plain, merge_sort, num_rounds)
+        merge_round, merge_round_plain, merge_sort, merge_splits_cuda,
+        merge_splits_plain, num_rounds)
     from gandiva_tpu_torch.ops.kernels.sort_bitonic import (
         DEFAULT_W_LOG2, block_sort, block_sort_plain, tile_log2)
 
     g = torch.Generator(device=dev)
     g.manual_seed(n + k)
     words = _sort_words(n, k, kind, g, dev)
-    w_log2 = tile_log2(k)
-    assert (w_log2 < DEFAULT_W_LOG2) == (k == 30)
+    asked = DEFAULT_W_LOG2 if w_log2 is None else w_log2
+    w_log2 = tile_log2(k, asked)
+    assert w_log2 <= asked - 2 or k != 30      # 30 words halve it twice
     reset_launches()
     idx, cur = block_sort(words, w_log2)
     torch.cuda.synchronize()
@@ -405,21 +459,29 @@ def test_k4_k3_match_plain(n, k, kind):
     widx, wcur = block_sort_plain(words, w_log2)
     assert torch.equal(idx, widx) and torch.equal(cur, wcur)
     rounds = num_rounds(n, w_log2)
+    odd = False
     for r in range(rounds):
         run = 1 << (w_log2 + r)
+        splits = merge_splits_cuda(cur, run)
+        torch.cuda.synchronize()
+        assert torch.equal(splits, merge_splits_plain(cur, run))
+        odd = odd or bool((splits % 2 == 1).any())
         got = merge_round(cur, idx, run)
         torch.cuda.synchronize()
         want = merge_round_plain(cur, idx, run)
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
         cur, idx = got
     assert LAUNCHES["merge_path"] == rounds
-    perm, sorted_words = merge_sort(list(words))
+    if kind == "random" and rounds:
+        assert odd
+    perm, sorted_words = merge_sort(list(words), w_log2)
     assert torch.equal(perm, idx) and torch.equal(sorted_words, cur)
     assert torch.equal(perm.long().sort().values, torch.arange(n, device=dev))
 
 
 def test_sort_cuda_entries_refuse_cpu_tensors():
-    from gandiva_tpu_torch.ops.kernels.merge_path import merge_round_cuda
+    from gandiva_tpu_torch.ops.kernels.merge_path import (merge_round_cuda,
+                                                          merge_splits_cuda)
     from gandiva_tpu_torch.ops.kernels.sort_bitonic import block_sort_cuda
 
     words = torch.zeros((1, 8), dtype=torch.int64)
@@ -427,6 +489,8 @@ def test_sort_cuda_entries_refuse_cpu_tensors():
         block_sort_cuda(words, 11)
     with pytest.raises(ValueError, match="CUDA"):
         merge_round_cuda(words, torch.zeros(8, dtype=torch.int32), 2048)
+    with pytest.raises(ValueError, match="CUDA"):
+        merge_splits_cuda(words, 2048)
 
 
 def test_sort_columns_on_card_matches_cpu():

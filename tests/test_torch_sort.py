@@ -124,14 +124,20 @@ def test_block_sort_plain_ragged_tile_and_tiny():
 
 
 def test_tile_halves_with_many_words():
-    assert t_sb.tile_log2(1) == t_sb.DEFAULT_W_LOG2 == 11
-    assert t_sb.tile_log2(13) == 11          # 2048 · 108 B fit 227 KB
+    assert t_sb.tile_log2(1) == t_sb.DEFAULT_W_LOG2 == 13
+    assert t_sb.tile_log2(2) == 13           # 8192 · 8 + 12 · 8705 B fit 227 KB
+    assert t_sb.tile_log2(3) == 12
+    assert t_sb.tile_log2(13) == 11          # 2048 · 96 + 12 · 2177 B fit
     assert t_sb.tile_log2(14) == 10
     assert t_sb.tile_log2(30) == 9
     assert t_sb.tile_log2(3, 10) == 10
+    assert t_sb.tile_log2(1, 16) == t_sb.MAX_W_LOG2 == 14
+    # K3's tile: MERGE_T_LOG2 outputs, at most the run, halved until it fits
+    assert t_mp.merge_tile_log2(1, 13) == t_mp.MERGE_T_LOG2 == 12
+    assert t_mp.merge_tile_log2(1, 8) == 8
     assert t_mp.merge_tile_log2(13, 11) == 11
-    assert t_sb.tile_log2(56) == 9           # 512 · 452 B fit
-    assert t_mp.merge_tile_log2(56, 9) == 8  # K3 holds 4 B more a row
+    assert t_sb.tile_log2(56) == 9           # 512 · 440 + 12 · 545 B fit
+    assert t_mp.merge_tile_log2(56, 9) == 8  # K3 holds 16 B a row more
     with pytest.raises(ValueError):
         t_sb.tile_log2(10_000)
 
@@ -216,6 +222,65 @@ def test_merge_sort_takes_word_lists_and_empty_input():
     assert got.shape == (1, 0)
     assert [t_mp.num_rounds(n, 11) for n in (0, 1, 2048, 2049, 100_000_000)
             ] == [0, 0, 0, 1, 16]
+
+
+# One round at the largest tile, with a short B run; every tile of the sweep
+# against the reference at its own 1024-row tile
+_SWEEP_N = (1 << 14) + 2003
+
+
+@pytest.fixture(scope="module", params=["random", "ties", "multi-word"])
+def swept(request):
+    """One input of ``_SWEEP_N`` rows and the reference's merge_sort_u32
+    result on it: uniform words, heavy ties, or two words whose first is
+    heavily tied."""
+    rng = np.random.default_rng(_SWEEP_N + len(request.param))
+    if request.param == "multi-word":
+        words = _words(_SWEEP_N, 2, "random", rng)
+        words[0] = rng.integers(0, 3, _SWEEP_N).astype(np.uint64)
+    else:
+        words = _words(_SWEEP_N, 1, request.param, rng)
+    perm, sorted_limbs, _ = j_mp.merge_sort_u32(
+        [jnp.asarray(x) for x in _u32_limbs(words)], w_log2=W_LOG2,
+        interpret=True)
+    return words, np.asarray(perm), _from_u32(sorted_limbs, _SWEEP_N)
+
+
+@pytest.mark.parametrize("w_log2", [6, 10, 13, 14])
+def test_merge_sort_tile_does_not_change_the_sort(swept, w_log2):
+    """A stable sort has one result: the port's merge_sort at every tile
+    of the card's sweep (and the smallest) equals the reference's."""
+    words, perm, sorted_words = swept
+    got_perm, got = t_mp.merge_sort(list(_t(words)), w_log2=w_log2)
+    np.testing.assert_array_equal(got_perm.numpy(), perm)
+    np.testing.assert_array_equal(_u(got), sorted_words)
+
+
+@pytest.mark.parametrize("kind,k,run_log2", [
+    ("random", 1, 6), ("ties", 1, 7), ("ties", 2, 6), ("random", 2, 8),
+    ("sorted", 1, 6)])
+def test_merge_splits_plain_vs_searchsorted(kind, k, run_log2):
+    """K3's partition pass, plain: at each tile start, the number of A rows
+    among the pair's outputs before it, against numpy's searchsorted form
+    of the merge path (A[i] lands at i + #(B < A[i]); A wins ties). The
+    rows are ranked first, so one integer orders like their words."""
+    n = 5000
+    run = 1 << run_log2
+    words = _words(n, k, kind, np.random.default_rng(n + k + run_log2))
+    _, cur = t_sb.block_sort_plain(_t(words), run_log2)
+    got = t_mp.merge_splits_plain(cur, run).numpy()
+    rank = np.unique(_u(cur).T, axis=0, return_inverse=True)[1].ravel()
+    tile = 1 << t_mp.merge_tile_log2(k, run_log2)
+    want = []
+    for start in range(0, n, tile):
+        pair = start // (2 * run) * (2 * run)
+        a = rank[pair:min(pair + run, n)]
+        b = rank[pair + run:min(pair + 2 * run, n)]
+        lands = np.arange(len(a)) + np.searchsorted(b, a, side="left")
+        want.append(int((lands < start - pair).sum()))
+    assert got.dtype == np.int32 and len(got) == -(-n // tile)
+    np.testing.assert_array_equal(got, want)
+    assert (got > 0).any()
 
 
 # ---------------------------------------------------------------------------
@@ -362,7 +427,7 @@ def test_sort_multi_key_mixed_dtypes_vs_reference():
 
 
 def test_sort_many_keys_halve_the_tile_vs_reference():
-    """13 nullable keys are 26 words: the tile halves from 2048 to 1024."""
+    """13 nullable keys are 26 words: the tile halves from 8192 to 1024."""
     rng = np.random.default_rng(10)
     n = 2100
     keys = [(rng.integers(0, 2, n).astype(np.int8), rng.random(n) >= 0.3,
