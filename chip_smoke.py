@@ -29,16 +29,28 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                 rows with 10% null keys and values over int8, int32, uint32,
                 uint64, f32 and f64 columns (two launches), at 64 and 1024
                 groups, past 1024 distinct keys (overflow), count_all only,
-                and the keys int64::min/max and 0; bit-exact apart from f64
-                sums (rtol 1e-9: atomics add in a varying order);
+                and the keys int64::min/max and 0; then one group (the
+                private variant), 1024 distinct keys with one column and
+                with 4 (with and without null keys) and 2 keys at gcap 1024
+                (the shared variant, which the kernel picks at gcap 1024);
+                bit-exact apart from f64 sums (rtol 1e-9: atomics add in a
+                varying order);
   8. K5 times — K5, its plain version and the nearest PyTorch calls
                 (torch.unique + index_add_ + scatter_reduce_) at the
                 configs[1] shape, beside the least time the card's memory
-                allows;
+                allows, with its time by work per row (count_all only, sum
+                only, min/max only); 1024 groups x 4 distinct columns beside
+                its own bound; the atomic and match instructions of every K5 kernel
+                in the built library's SASS (cuobjdump);
   9. agg path — ops.hash_aggregate(...) as bench.py runs configs[1], on
                 100,000,000 rows made on the card: rows/s (best of 3), K5
-                launches, peak device memory, device time by kernel; its
-                groups held against K5's plain version and pyarrow;
+                launches, peak device memory, device time by kernel, and a
+                call's host clock split into before K5's wrapper, inside it,
+                the decode and the wait for the device; its groups held
+                against K5's plain version and pyarrow; then (9b) the
+                generic group-by (max_groups 4096, 3000 keys, 10,000,000
+                rows: group_ids and segment_reduce, no K5) against pyarrow's
+                group_by, with its rows/s;
  10. K4, K3   — the block sort and the merge-path round (and the round's
                 partition pass) against their plain torch versions on the
                 card, bit for bit: at configs[2]'s shape (100,000,000 int64
@@ -65,14 +77,19 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                 keys[perm]; then a ragged multi-key sort against pyarrow;
  13. K2       — the single-pass look-back compaction against its plain
                 version on the card, bit-exact on [:count], and against K1:
-                64Mi rows with the flagship payloads at five densities, the
-                ragged 1,000,037 rows with four payloads and with ten (two
-                launches), n = 0, n = 1,000, 2^28 rows at density 0.5, and
-                20 calls back to back before any is checked;
+                64Mi rows with the flagship payloads at five densities (0 and
+                1 among them), the ragged 1,000,037 rows with four payloads
+                and with ten (two launches), n = 0, 1, 1,000 and 5 tiles
+                less one row, the mask and payloads as views at offsets 1
+                and 3 (not 16-B aligned), 2^28 rows at density 0.5, and 20
+                calls back to back before any is checked;
  14. K2 times — K2, K1, K2's plain version and nonzero + index_select
                 at 64Mi rows (density 0.474, flagship payloads) and at the
                 cold-residue mask and int64 key payload of one configs[3]
-                probe chunk, beside the least time the card's memory allows;
+                probe chunk, beside the least time the card's memory allows,
+                and K2 built with three staging budgets (8, 16 and 48 bytes
+                a row; 16 is the one the port launches), each held against
+                the plain version first;
  15. join     — ops.join(probe, build, 100_000_000, "inner") as bench.py's
                 configs[3] join runs it (Zipf(1.3) probe keys % 1,048,576
                 made on the card, build arange(1,048,576)), then with
@@ -116,9 +133,12 @@ ARROW_ROWS = 1_000_000
 N_AGG = 100_000_000              # bench.py's configs[1] rows (bench.py:88-93)
 AGG_GROUPS = 64
 AGG_RTOL = 1e-9                  # f64 sums: ~1.56M atomic addends a group
+N_GENERIC = 10_000_000           # the generic group-by's hold (3000 keys)
 N_SORT = 100_000_000             # bench.py's configs[2] (bench.py:101-122)
 I64_MIN = -(1 << 63)
 N_HUGE = 1 << 28                 # 65,536 tiles: many more than are resident
+# K2 built with other staging budgets, timed beside the default (16 B)
+K2_VARIANTS = (("K2_STAGE_ROW_BYTES=8",), ("K2_STAGE_ROW_BYTES=48",))
 BACK_TO_BACK = 20
 N_JOIN = 100_000_000             # bench.py's configs[3] join (bench.py:236)
 JOIN_BUILD = 1 << 20             # bench.py's BENCH_BUILD_ROWS default
@@ -191,6 +211,40 @@ def ptxas_lines(text: str):
     """The compiler's register, shared-memory and spill lines of a build."""
     return [line.strip() for line in text.splitlines()
             if "ptxas" in line or "spill" in line or "cached" in line]
+
+
+def sass_atomics(lib) -> dict:
+    """Per kernel of a built library, its atomic, match and barrier
+    instructions as ``cuobjdump -sass`` lists them (a 64-bit shared-memory
+    atomic that the card lacks shows as an ATOMS.CAST.SPIN compare-and-swap
+    loop); printed, and None where the toolkit has no cuobjdump."""
+    import re
+    from gandiva_tpu_torch.ops.kernels import build
+
+    tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        log("cuobjdump not found: SASS not read")
+        return None
+    text = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            k = re.search(r"(accumulate|finish|init)_kernelI?L?i?(\d*)E?L?b?"
+                          r"(\d?)", m.group(1))
+            fn = (f"{k.group(1)}<{k.group(2)},{k.group(3)}>" if k and
+                  k.group(2) else k.group(1) if k else m.group(1)[-40:])
+            continue
+        m = re.search(r"\b((?:ATOMS|ATOMG|ATOM|RED|MATCH|REDUX)\.[A-Z0-9.]+"
+                      r"|MEMBAR\.[A-Z.]+)", line)
+        if m and fn:
+            counts.setdefault(fn, {})
+            counts[fn][m.group(1)] = counts[fn].get(m.group(1), 0) + 1
+    for fn, c in counts.items():
+        log(f"SASS {fn}: " + ", ".join(f"{k} x{v}" for k, v in
+                                       sorted(c.items())))
+    return counts
 
 
 def time_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -386,9 +440,11 @@ def main() -> int:
     # -- 2. build --------------------------------------------------------
     phase("build")
     t = time.perf_counter()
-    build_logs = build.build_all()
+    build_logs = build.build_all(variants=[
+        ("compaction_fragnet", d) for d in K2_VARIANTS])
     for name, text in build_logs.items():
-        log(f"-- csrc/{name}.cu")
+        source, _, defines = name.partition(" ")
+        log(f"-- csrc/{source}.cu {defines}")
         for line in ptxas_lines(text):
             log("   " + line)
     log(f"build {time.perf_counter() - t:.1f}s")
@@ -622,7 +678,38 @@ def main() -> int:
             "matches plain")
     if not bool(got.overflow) and int(got.count) != 5:
         raise AssertionError("the extreme keys did not form 5 groups")
-    del got, want, cols, cases, code, u
+    # the redesign's shapes: one group (every lane of a warp-step its peer:
+    # the pointer-jumping path) on the private variant, and the shapes at
+    # gcap 1024 on the shared one: 1024 distinct keys with one column (a few
+    # copies) and with 4 (one copy), and 2 keys (pointer jumping)
+    k1024 = torch.randperm(n, generator=g, device=dev) % 1024 * 13 - 99
+    variants = [
+        ("one group", torch.full((n,), -42, dtype=torch.int64, device=dev),
+         code, cols[:4], 8),
+        ("1024 keys x 1 column", k1024, None, cols[5:], 1024),
+        ("1024 keys x 4 columns", k1024, None, cols[2:], 1024),
+        ("1024 keys x 4 columns, 10% null keys", k1024, code, cols[:4],
+         1024),
+        ("2 keys at gcap 1024", k1024 % 2, code, cols[4:], 1024)]
+    k5_variants = {}
+    for label, keys, code_, cols_, max_groups in variants:
+        got = k5.aggregate_cuda(keys, code_, cols_, max_groups)
+        torch.cuda.synchronize()
+        want = k5.aggregate_plain(keys, code_, cols_, max_groups)
+        torch.cuda.synchronize()
+        k5_err = max(k5_err, hold_k5(got, want, [c.kind for c in cols_],
+                                     label))
+        copies, private = k5.accumulator_copies(
+            k5.capacity_for(max_groups), min(len(cols_), k5.MAX_VALUES))
+        k5_variants[label] = {"copies": copies, "private": private}
+        log(f"{label} (n={keys.shape[0]}, max_groups {max_groups}): "
+            f"{int(got.count)} groups, {copies} accumulator copies a CTA "
+            f"({'private' if private else 'shared'} variant), "
+            "matches plain")
+    if not k5_variants["one group"]["private"] or any(
+            v["private"] for k, v in k5_variants.items() if k != "one group"):
+        raise AssertionError(f"K5 variants: {k5_variants}")
+    del got, want, cols, cases, code, u, k1024, variants, keys
 
     # -- 8. K5 times -----------------------------------------------------
     phase("K5 times")
@@ -668,8 +755,31 @@ def main() -> int:
         f"{k5_i64_ms:.4f}) plain_ms={k5_plain_ms:.4f} "
         f"library_ms={k5_library_ms:.4f} bound_ms={k5_bound_ms:.4f} -> "
         f"{k5_bound_ms / k5_ms:.1%} of the bound")
-    log("K5 by atomics per row: " + ", ".join(
+    log("K5 by work per row: " + ", ".join(
         f"{label} {ms:.4f} ms" for label, ms in k5_parts.items()))
+    # the largest shape the contract allows: 1024 groups, 4 distinct columns
+    # (the shared variant), each input read once and the outputs written once
+    k5_wide = {"rows": N_AGG, "groups": 1024, "columns": 4}
+    wide_keys = torch.randint(0, 1024, (N_AGG,), generator=g, device=dev)
+    wide_cols = [_kernel_column(agg_f64, None, True, True),
+                 _kernel_column(agg_i64, None, True, True),
+                 _kernel_column(torch.rand(N_AGG, generator=g,
+                                           dtype=torch.float64, device=dev),
+                                None, True, True),
+                 _kernel_column(torch.randint(-1000, 1000, (N_AGG,),
+                                              generator=g, device=dev),
+                                None, True, True)]
+    k5_wide["ms"] = time_ms(lambda: k5.aggregate_cuda(
+        wide_keys, None, wide_cols, 1024), iters=5)
+    k5_wide["copies"] = k5.accumulator_copies(1024, 4)[0]
+    k5_wide["bytes"] = N_AGG * (8 + 4 * 8) + 8 * (1024 + 2 + 1026 * (1 + 4 * 4))
+    k5_wide["bound_ms"] = k5_wide["bytes"] / bw * 1e3
+    del wide_keys, wide_cols
+    log(f"1024 groups x 4 columns: {k5_wide['ms']:.4f} ms "
+        f"({k5_wide['copies']} accumulator copy a CTA), bound "
+        f"{k5_wide['bound_ms']:.4f} ms -> "
+        f"{k5_wide['bound_ms'] / k5_wide['ms']:.1%} of the bound")
+    k5_sass = sass_atomics(build.library_path("aggregate"))
 
     # -- 9. main path: the configs[1] aggregate --------------------------
     phase("main path: hash_aggregate (configs[1])")
@@ -701,6 +811,41 @@ def main() -> int:
     if agg_launches != 1 + runs:
         raise AssertionError("hash_aggregate did not launch K5 once a call")
     agg_busy = profile_call(agg_path)
+    # where one call's wall goes on the host: before K5's wrapper, inside it
+    # (the ctypes call and its three launches), the decode after it, and
+    # the wait for the device (median of 7 calls)
+    # (hash_aggregate calls K5's wrapper through the module k5 names)
+    marks = {}
+    real_aggregate = k5.aggregate
+
+    def timed_aggregate(*a, **k):
+        marks["in"] = time.perf_counter()
+        out = real_aggregate(*a, **k)
+        marks["out"] = time.perf_counter()
+        return out
+
+    parts = {"before_k5_ms": [], "k5_wrapper_ms": [], "decode_ms": [],
+             "device_wait_ms": [], "wall_ms": []}
+    k5.aggregate = timed_aggregate
+    try:
+        for _ in range(7):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            agg_path()
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            for key, ms in (("before_k5_ms", marks["in"] - t0),
+                            ("k5_wrapper_ms", marks["out"] - marks["in"]),
+                            ("decode_ms", t1 - marks["out"]),
+                            ("device_wait_ms", t2 - t1),
+                            ("wall_ms", t2 - t0)):
+                parts[key].append(ms * 1e3)
+    finally:
+        k5.aggregate = real_aggregate
+    agg_host = {k: sorted(v)[len(v) // 2] for k, v in parts.items()}
+    log("configs[1] call, host clock (median of 7): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in agg_host.items()))
 
     # its groups against K5's plain version on the same columns
     cnt = int(res["group_count"])
@@ -736,12 +881,64 @@ def main() -> int:
     log(f"{cnt} groups equal to K5's plain version and to pyarrow "
         f"group_by (sums within rtol {AGG_RTOL})")
     del host, oracle, res, want, agg_keys, agg_f64, agg_i64
+
+    # -- 9b. the generic group-by (past 1024 groups: no K5) --------------
+    phase("hash_aggregate, generic path (10M rows, 3000 keys, max_groups "
+          "4096)")
+    gen_keys = torch.randint(0, 3000, (N_GENERIC,), generator=g,
+                             device=dev) * 1_000_003 - 7
+    gen_vals = torch.randn(N_GENERIC, generator=g, dtype=torch.float64,
+                           device=dev)
+
+    def generic_path():
+        return gt.ops.hash_aggregate(gen_keys, aggs,
+                                     {"v": (gen_vals, None)}, max_groups=4096)
+
+    reset_launches()
+    gen = generic_path()                                  # warm-up
+    torch.cuda.synchronize()
+    gen_walls = []
+    for _ in range(runs):
+        t = time.perf_counter()
+        gen = generic_path()
+        torch.cuda.synchronize()
+        gen_walls.append(time.perf_counter() - t)
+    if LAUNCHES["aggregate"] != 0:
+        raise AssertionError("the generic group-by launched K5")
+    gen_rows_s = N_GENERIC / min(gen_walls)
+    cnt = int(gen["group_count"])
+    order = torch.argsort(gen["keys"][:cnt])
+    got_np = {k: v[:cnt][order].cpu().numpy() for k, v in gen.items()
+              if v.dim()}
+    oracle = pa.table({"k": gen_keys.cpu().numpy(),
+                       "v": gen_vals.cpu().numpy()}).group_by("k").aggregate(
+        [("v", "sum"), ("v", "count"), ("v", "min"), ("v", "max")]
+    ).sort_by("k")
+    if cnt != oracle.num_rows or bool(gen["overflow"]):
+        raise AssertionError(f"generic group-by: {cnt} groups, pyarrow "
+                             f"{oracle.num_rows}")
+    for col, key in (("k", "keys"), ("v_count", "agg:v:count"),
+                     ("v_min", "agg:v:min"), ("v_max", "agg:v:max")):
+        if not np.array_equal(oracle.column(col).to_numpy(), got_np[key]):
+            raise AssertionError(f"generic group-by: {key} != pyarrow {col}")
+    np.testing.assert_allclose(got_np["agg:v:sum"],
+                               oracle.column("v_sum").to_numpy(),
+                               rtol=AGG_RTOL)
+    log(f"n={N_GENERIC}: {cnt} groups equal to pyarrow group_by (sums "
+        f"within rtol {AGG_RTOL}); walls_s="
+        f"{[round(w, 6) for w in gen_walls]} rows/s={gen_rows_s:.6g}, no K5 "
+        "launch")
+    del gen, gen_keys, gen_vals, oracle, got_np
     log(json.dumps({"agg_path": {
         "rows_per_s": agg_rows_s, "walls_s": agg_walls, "rows": N_AGG,
         "groups": AGG_GROUPS, "max_memory_allocated": agg_peak,
         "resident_before": resident,
         "device_busy_share": agg_busy, "k5_launches": agg_launches,
-        "k5_ms_int64_values": k5_i64_ms, "k5_ms_parts": k5_parts}}))
+        "host_clock_ms": agg_host, "k5_ms_int64_values": k5_i64_ms,
+        "k5_ms_parts": k5_parts, "k5_wide": k5_wide,
+        "k5_variants": k5_variants, "k5_sass": k5_sass,
+        "generic_rows_per_s": gen_rows_s, "generic_walls_s": gen_walls,
+        "generic_rows": N_GENERIC, "generic_groups": cnt}}))
 
     # -- 10. K4 and K3 against plain -------------------------------------
     phase("K4 and K3 against their plain versions")
@@ -1066,9 +1263,18 @@ def main() -> int:
             raise AssertionError(f"K2 {label}: {launched} launches")
         log(f"ragged n={N_RAGGED} {label}: count={c} matches plain and K1 "
             f"({launched} launches)")
-    for n in (0, 1000):
+    for n in (0, 1, 1000, 4096 * 5 - 1):
         hold_k2(mask_r[:n], [c[:n] for c in ragged], f"K2 n={n}")
         log(f"n={n}: matches plain and K1")
+    # views at an offset: the mask and the 1- and 4-byte payloads are not
+    # 16-B aligned (byte loads and survivor-by-survivor staging), and the
+    # 8-byte payload is only 8-B aligned
+    for off in (1, 3):
+        err, c = hold_k2(mask_r[off:], [col[off:] for col in ragged],
+                         f"K2 views at offset {off}")
+        k2_err = max(k2_err, err)
+        log(f"views at offset {off} (mask and payloads not 16-B aligned): "
+            f"count={c} matches plain and K1")
     del u, f64, vb
     huge = torch.rand(N_HUGE, generator=g, device=dev) < 0.5
     hold_k2(huge, [], f"K2 n={N_HUGE}")
@@ -1112,6 +1318,15 @@ def main() -> int:
         t["rows"], t["survivors"] = mask.shape[0], survivors
         t["bytes"] = compaction_bytes(mask.shape[0], survivors, width)
         t["bound_ms"] = t["bytes"] / bw * 1e3
+        # the staging sweep: K2 built with other budgets of bytes a row a
+        # group may take, each held against the plain version first
+        t["k2_sweep_ms"] = {"16 B (default)": t["k2_ms"]}
+        want = k2.compact_fragnet_plain(mask, pay)
+        for defines in K2_VARIANTS:
+            hold(k2.launch(mask, pay, defines), want, f"K2 {defines[0]}")
+            t["k2_sweep_ms"][f"{defines[0].split('=')[1]} B"] = time_ms(
+                lambda d=defines: k2.launch(mask, pay, d), iters=iters)
+        del want
         log(json.dumps(t))
         return t
 

@@ -14,26 +14,44 @@
 //
 // Bound: bytes. Each row is read once (8 B key, 8 B per value column, 1 B
 // per code or validity mask); the outputs are a few KB. The design keeps
-// that one read coalesced and moves the per-row work into shared memory:
+// that one read coalesced and in flight, and keeps the per-row work off
+// contended shared-memory atomics (every 64-bit shared atomic on sm_90 is a
+// compare-and-swap loop, ATOMS.CAST.SPIN.64 in the SASS):
 //   1. init_kernel sets the global scratch (group table, accumulators) to
 //      its identities.
 //   2. accumulate_kernel: every CTA owns a shared-memory hash table (a key
 //      and a separate state word per slot, so no key value is a sentinel:
-//      0 empty, -1 being claimed, -2 dead, idx + 1 ready) that maps a key to
-//      a dense CTA-local index, and accumulators per index, updated with
-//      shared-memory atomics (64-bit add for counts and integer sums, f64
-//      add for float sums, signed 64-bit min/max of an order-preserving key
-//      for min/max). CTAs walk the rows with a grid stride; blocks run in
-//      no order, so nothing carries over between them. At its end each CTA
-//      merges its groups into one global table of the same form with
-//      global atomics.
+//      0 empty, -1 being claimed, -2 dead, idx + 1 ready; up to
+//      kTableFactor slots a group) that maps a key to a dense CTA-local
+//      index. A warp takes 32 x kRowsPerLane rows a step (rows lane,
+//      lane + 32, ...: each load coalesced) and issues every load of the
+//      next step (keys, codes, values, validity) before this step's first
+//      probe, so two steps of loads are in flight. A probe
+//      that finds its key reads the slot's state with an acquire load and
+//      takes no fence; only an insert fences. The accumulators live in
+//      copies in shared memory, one per warp where 16 fit (the private
+//      variant), else as many as fit, each shared by a group of warps (the
+//      shared variant). Both aggregate over the warp first:
+//      __match_any_sync on the resolved group id gives each distinct group
+//      of a warp-step one leader, which adds the popcounts of its peers
+//      (and of the validity ballot) to count_all and count_valid. Sums and
+//      min/max order keys follow in rounds, round k taking the peers of
+//      rank k, so no two lanes of a round touch one word; when a group
+//      repeats more than kMaxRounds times in the step, the peers reduce by
+//      pointer jumping (5 shuffle steps) and the leader writes once. The
+//      private variant writes its warp's copy with plain loads and stores;
+//      the shared one with shared atomics, which then collide only across
+//      warps. CTAs walk the rows with a grid stride; blocks run in no order,
+//      so nothing carries over between them. At its end each CTA sums its
+//      copies and merges its groups into one global table of the same form
+//      with global atomics.
 //   3. finish_kernel (one CTA): each group's rank is the number of smaller
 //      keys; it writes the groups at their ranks, then the null-key row and
 //      identity rows.
 // The TPU kernel's sequential-grid discovery, 16-bit limb sums and f32
-// planes have no counterpart here. Contention on few groups (every warp
-// updates the same few slots) is what keeps this version from its bound;
-// warp-aggregated updates are the known remedy.
+// planes have no counterpart here. configs[1]'s 64 groups and one column
+// take the private variant (43 KB of copies); 1024 groups and 4 columns
+// take the shared one with one 139 KB copy.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -41,14 +59,18 @@
 namespace {
 
 constexpr int kThreads = 512;
+constexpr int kWarps = kThreads / 32;
 constexpr int kFinishThreads = 1024;
 constexpr int kMaxValues = 4;
 constexpr int kMaxGroups = 1024;
-constexpr int kKindInt64 = 0;
+constexpr int kMaxRounds = 4;
+constexpr int kTableFactor = 8;  // a CTA table's slots a group, at most
+constexpr int kSharedBudget = 232448;  // the most a block may have on sm_90
 constexpr int kKindUint64 = 1;
 constexpr int kKindFloat64 = 2;
 constexpr int kWantSum = 1;
 constexpr int kWantMinMax = 2;
+constexpr unsigned kFull = 0xffffffffu;
 constexpr long long kI64Max = 0x7fffffffffffffffLL;
 constexpr long long kI64Min = -kI64Max - 1;
 constexpr long long kNanMinKey = 0x7ff8000000000000LL;  // above +inf
@@ -59,6 +81,12 @@ constexpr int kRowSum = 1;
 constexpr int kRowMin = 2;
 constexpr int kRowMax = 3;
 constexpr int kAccRows = 4;
+
+// Rows a lane takes a warp-step: 2 with no value column, 1 with any; with
+// the next step's loads in flight as well, that is 4 or 2 rows a lane. More
+// rows in registers cost warps an SM and were slower (PERF.md).
+template <int NV>
+constexpr int kRowsPerLane = NV == 0 ? 2 : 1;
 
 struct Values {
   const void* data[kMaxValues];
@@ -85,6 +113,16 @@ __device__ __forceinline__ unsigned mix(long long key, int mask) {
   return static_cast<unsigned>(z ^ (z >> 33)) & static_cast<unsigned>(mask);
 }
 
+// The CTA tables' hash: 32-bit arithmetic only, as it runs once a row; the
+// top bits of a multiplicative hash, after folding the high bits down.
+__device__ __forceinline__ unsigned mix_cta(long long key, int shift) {
+  const unsigned lo = static_cast<unsigned>(key);
+  const unsigned hi = static_cast<unsigned>(static_cast<unsigned long long>(key) >> 32);
+  unsigned h = lo ^ (hi * 0x85ebca6bu);
+  h ^= h >> 16;
+  return (h * 0x9e3779b1u) >> shift;
+}
+
 // Signed order of a float64's bits: -0.0 < +0.0, negative values below.
 __device__ __forceinline__ long long float_order(long long bits) {
   return bits >= 0 ? bits : bits ^ kI64Max;
@@ -107,6 +145,16 @@ __device__ __forceinline__ void order_keys(long long v, int kind,
   }
 }
 
+__device__ __forceinline__ long long add_sum(long long a, long long b,
+                                             int kind) {
+  if (kind == kKindFloat64) {
+    return __double_as_longlong(__longlong_as_double(a) +
+                                __longlong_as_double(b));
+  }
+  return static_cast<long long>(static_cast<unsigned long long>(a) +
+                                static_cast<unsigned long long>(b));
+}
+
 __device__ __forceinline__ int load_volatile(const int* p) {
   return *reinterpret_cast<const volatile int*>(p);
 }
@@ -115,16 +163,22 @@ __device__ __forceinline__ long long load_volatile(const long long* p) {
   return *reinterpret_cast<const volatile long long*>(p);
 }
 
-// Find ``key`` in an open-addressing table, inserting it if absent, and
-// return its dense index, or -1 when the table already holds ``limit``
+// An acquire load at block scope: the key written before the state's
+// release is visible after it, with no fence on the reader's side.
+__device__ __forceinline__ int load_acquire_cta(const int* p) {
+  int v;
+  asm volatile("ld.acquire.cta.b32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// Find ``key`` in the global open-addressing table, inserting it if absent,
+// and return its dense index, or -1 when the table already holds ``limit``
 // keys (or no free slot is left on the probe path): the caller's overflow.
-// ``global`` selects the fence scope. Linear probing without deletion:
-// every thread looking for a key walks the same slots and waits at a slot
-// being claimed, so a key is inserted once.
-template <bool kGlobal>
-__device__ int find_or_insert(long long key, long long* keys, int* state,
-                              int mask, int* dense_count, int limit,
-                              long long* dense_keys) {
+// Linear probing without deletion: every thread looking for a key walks the
+// same slots and waits at a slot being claimed, so a key is inserted once.
+__device__ int find_or_insert_global(long long key, long long* keys,
+                                     int* state, int mask, int* dense_count,
+                                     int limit, long long* dense_keys) {
   unsigned s = mix(key, mask);
   for (int probe = 0; probe <= mask; ++probe) {
     int st = load_volatile(&state[s]);
@@ -137,20 +191,71 @@ __device__ int find_or_insert(long long key, long long* keys, int* state,
           return -1;
         }
         keys[s] = key;
-        if (dense_keys != nullptr) dense_keys[idx] = key;
-        if (kGlobal) __threadfence(); else __threadfence_block();
+        dense_keys[idx] = key;
+        __threadfence();
         atomicExch(&state[s], idx + 1);
         return idx;
       }
     }
     while (st == -1) st = load_volatile(&state[s]);
     if (st > 0) {
-      if (kGlobal) __threadfence(); else __threadfence_block();
+      __threadfence();
       if (load_volatile(&keys[s]) == key) return st - 1;
     }
     s = (s + 1) & static_cast<unsigned>(mask);
   }
   return -1;
+}
+
+// The same over a CTA's shared table: the hit path is one acquire load of
+// the state and one load of the key; the insert path claims the slot with a
+// CAS, writes the key, fences and publishes the state. A lane whose CAS
+// loses reads the state again with an acquire load before the key.
+__device__ __forceinline__ int find_or_insert_cta(long long key,
+                                                  long long* keys, int* state,
+                                                  int mask, int shift,
+                                                  int* dense_count,
+                                                  int limit) {
+  unsigned s = mix_cta(key, shift);
+  for (int probe = 0; probe <= mask; ++probe) {
+    int st = load_acquire_cta(&state[s]);
+    if (st > 0) {
+      if (keys[s] == key) return st - 1;
+    } else if (st == 0 || st == -1) {
+      if (st == 0) {
+        if (atomicCAS(&state[s], 0, -1) == 0) {
+          const int idx = atomicAdd(dense_count, 1);
+          if (idx >= limit) {
+            atomicExch(&state[s], -2);
+            return -1;
+          }
+          keys[s] = key;
+          __threadfence_block();
+          atomicExch(&state[s], idx + 1);
+          return idx;
+        }
+        // another lane claimed the slot: its key is read only after an
+        // acquire load of the state it publishes
+        st = -1;
+      }
+      while (st == -1) st = load_acquire_cta(&state[s]);
+      if (st > 0 && keys[s] == key) return st - 1;
+    }
+    s = (s + 1) & static_cast<unsigned>(mask);
+  }
+  return -1;
+}
+
+// One copy of the accumulators: count_all[g1], then per column its
+// kAccRows rows of g1 words. Accumulator-major, so the leaders of distinct
+// groups touch neighbouring 8-byte words, not one bank pair.
+__host__ __device__ __forceinline__ int copy_words(int g1, int nv) {
+  return g1 * (1 + nv * kAccRows);
+}
+
+__device__ __forceinline__ long long acc_identity(int i, int g1) {
+  const int r = (i / g1 - 1) % kAccRows;  // i / g1 == 0 is count_all
+  return i < g1 ? 0 : r == kRowMin ? kI64Max : r == kRowMax ? kI64Min : 0;
 }
 
 __global__ void init_kernel(Scratch sc, int slots, int gcap, int nv) {
@@ -168,122 +273,272 @@ __global__ void init_kernel(Scratch sc, int slots, int gcap, int nv) {
   }
 }
 
+// Accumulator updates: plain read-modify-write on a warp's own copy, shared
+// atomics on a copy that several warps update.
+template <bool kAtomic>
+__device__ __forceinline__ void acc_count(long long* p, unsigned long long v) {
+  if (kAtomic) {
+    atomicAdd(reinterpret_cast<unsigned long long*>(p), v);
+  } else {
+    *p = static_cast<long long>(static_cast<unsigned long long>(*p) + v);
+  }
+}
+
+template <bool kAtomic>
+__device__ __forceinline__ void acc_sum(long long* p, long long v, int kind) {
+  if (!kAtomic) {
+    *p = add_sum(*p, v, kind);
+  } else if (kind == kKindFloat64) {
+    atomicAdd(reinterpret_cast<double*>(p), __longlong_as_double(v));
+  } else {
+    atomicAdd(reinterpret_cast<unsigned long long*>(p),
+              static_cast<unsigned long long>(v));
+  }
+}
+
+template <bool kAtomic>
+__device__ __forceinline__ void acc_minmax(long long* acc, int g1, int g,
+                                           long long lo, long long hi) {
+  if (kAtomic) {
+    atomicMin(&acc[kRowMin * g1 + g], lo);
+    atomicMax(&acc[kRowMax * g1 + g], hi);
+  } else {
+    acc[kRowMin * g1 + g] = min(acc[kRowMin * g1 + g], lo);
+    acc[kRowMax * g1 + g] = max(acc[kRowMax * g1 + g], hi);
+  }
+}
+
+// One warp-step's rows of one lane: rows row0, row0 + 32, ..., each read
+// once; rows past n read nothing and hold code 0.
+template <int NV, int R>
+struct Rows {
+  long long key[R];
+  int c[R];
+  long long x[NV > 0 ? NV : 1][R];
+  bool ok[NV > 0 ? NV : 1][R];
+};
+
+template <int NV, int R>
+__device__ __forceinline__ void load_rows(Rows<NV, R>& t, long long row0,
+                                          long long n,
+                                          const long long* __restrict__ keys,
+                                          const uint8_t* __restrict__ code,
+                                          const Values& vals) {
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const long long row = row0 + 32LL * r;
+    const bool in = row < n;
+    t.key[r] = in ? keys[row] : 0;
+    t.c[r] = !in ? 0 : code == nullptr ? 1 : code[row];
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      t.x[v][r] = in ? static_cast<const long long*>(vals.data[v])[row] : 0;
+      t.ok[v][r] = in && (vals.valid[v] == nullptr || vals.valid[v][row] != 0);
+    }
+  }
+}
+
+template <int NV, bool kPrivate>
 __global__ void __launch_bounds__(kThreads)
 accumulate_kernel(const long long* __restrict__ keys,
                   const uint8_t* __restrict__ code, long long n, Values vals,
-                  int gcap, int slots, Scratch sc) {
-  // shared layout: 8-byte arrays first
+                  int gcap, int slots, int shift, int gslots, int copies,
+                  Scratch sc) {
+  constexpr int R = kRowsPerLane<NV>;
+  constexpr bool kAtomic = !kPrivate;
   extern __shared__ __align__(16) unsigned char smem[];
   const int g1 = gcap + 1;  // groups and the null-key row
-  const int nv = vals.count;
+  const int words = copy_words(g1, NV);
   long long* s_keys = reinterpret_cast<long long*>(smem);
-  unsigned long long* s_count_all =
-      reinterpret_cast<unsigned long long*>(s_keys + slots);
-  long long* s_acc = reinterpret_cast<long long*>(s_count_all + g1);
-  int* s_state = reinterpret_cast<int*>(s_acc + nv * kAccRows * g1);
+  long long* s_copies = s_keys + slots;
+  int* s_state = reinterpret_cast<int*>(s_copies + copies * words);
   int* s_meta = s_state + slots;  // dense count, overflow
   const int mask = slots - 1;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
 
-  for (int i = threadIdx.x; i < slots; i += blockDim.x) s_state[i] = 0;
-  for (int i = threadIdx.x; i < g1; i += blockDim.x) s_count_all[i] = 0;
-  for (int i = threadIdx.x; i < nv * kAccRows * g1; i += blockDim.x) {
-    const int r = (i / g1) % kAccRows;
-    s_acc[i] = r == kRowMin ? kI64Max : r == kRowMax ? kI64Min : 0;
+  for (int i = threadIdx.x; i < slots; i += kThreads) s_state[i] = 0;
+  for (int i = threadIdx.x; i < copies * words; i += kThreads) {
+    s_copies[i] = acc_identity(i % words, g1);
   }
   if (threadIdx.x < 2) s_meta[threadIdx.x] = 0;
   __syncthreads();
 
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long row = static_cast<long long>(blockIdx.x) * blockDim.x +
-                       threadIdx.x;
-       row < n; row += stride) {
-    const int c = code == nullptr ? 1 : code[row];
-    if (c == 0) continue;
-    int g = gcap;
-    if (c == 1) {
-      g = find_or_insert<false>(keys[row], s_keys, s_state, mask, &s_meta[0],
-                                gcap, nullptr);
-      if (g < 0) {
-        s_meta[1] = 1;
-        continue;
-      }
-    }
-    atomicAdd(&s_count_all[g], 1ULL);
-    // unrolled, so the parameter arrays are indexed by constants
+  long long* mine = s_copies + (warp % copies) * words;
+  const unsigned below = (1u << lane) - 1u;
+  const unsigned above = ~((2u << lane) - 1u);  // lane 31: 2u << 31 == 0
+  const long long step_rows = 32LL * R;
+  const long long warps_total = static_cast<long long>(gridDim.x) * kWarps;
+  // the next step's loads are issued before this step's probes
+  long long chunk = static_cast<long long>(blockIdx.x) * kWarps + warp;
+  Rows<NV, R> cur;
+  load_rows(cur, chunk * step_rows + lane, n, keys, code, vals);
+  for (; chunk * step_rows < n; chunk += warps_total) {
+    Rows<NV, R> nxt;
+    load_rows(nxt, (chunk + warps_total) * step_rows + lane, n, keys, code,
+              vals);
+    const long long (&key)[R] = cur.key;
+    const int (&c)[R] = cur.c;
+    const long long (&x)[NV > 0 ? NV : 1][R] = cur.x;
+    const bool (&ok)[NV > 0 ? NV : 1][R] = cur.ok;
 #pragma unroll
-    for (int v = 0; v < kMaxValues; ++v) {
-      if (v >= nv) break;
-      if (vals.valid[v] != nullptr && vals.valid[v][row] == 0) continue;
-      long long* acc = s_acc + v * kAccRows * g1;
-      const long long x = static_cast<const long long*>(vals.data[v])[row];
-      if (vals.valid[v] != nullptr) {
-        atomicAdd(reinterpret_cast<unsigned long long*>(
-                      &acc[kRowCountValid * g1 + g]), 1ULL);
+    for (int r = 0; r < R; ++r) {
+      int g = -1;
+      if (c[r] == 1) {
+        g = find_or_insert_cta(key[r], s_keys, s_state, mask, shift,
+                               &s_meta[0], gcap);
+        if (g < 0) s_meta[1] = 1;
+      } else if (c[r] == 2) {
+        g = gcap;
       }
-      if (vals.flags[v] & kWantSum) {
-        if (vals.kind[v] == kKindFloat64) {
-          atomicAdd(reinterpret_cast<double*>(&acc[kRowSum * g1 + g]),
-                    __longlong_as_double(x));
-        } else {
-          atomicAdd(reinterpret_cast<unsigned long long*>(
-                        &acc[kRowSum * g1 + g]),
-                    static_cast<unsigned long long>(x));
+      // one leader per distinct group of the warp-step; count_all and
+      // count_valid are popcounts of its peers
+      const unsigned peers = __match_any_sync(kFull, g);
+      const int mult = g >= 0 ? __popc(peers) : 0;
+      const int most = __reduce_max_sync(kFull, static_cast<unsigned>(mult));
+      if (most == 0) continue;
+      const bool leader = g >= 0 && (peers & below) == 0;
+      if (leader) acc_count<kAtomic>(&mine[g], mult);
+#pragma unroll
+      for (int v = 0; v < NV; ++v) {
+        const unsigned vb = __ballot_sync(kFull, ok[v][r]);
+        if (leader && vals.valid[v] != nullptr) {
+          acc_count<kAtomic>(&mine[g1 * (1 + v * kAccRows + kRowCountValid) + g],
+                             __popc(peers & vb));
         }
       }
-      if (vals.flags[v] & kWantMinMax) {
-        long long kmin, kmax;
-        order_keys(x, vals.kind[v], &kmin, &kmax);
-        atomicMin(&acc[kRowMin * g1 + g], kmin);
-        atomicMax(&acc[kRowMax * g1 + g], kmax);
+      if (NV > 0 && most <= kMaxRounds) {
+        // round k: the peers of rank k, one a group, so no two lanes of a
+        // round write one word
+        const int rank = __popc(peers & below);
+        for (int k = 0; k < most; ++k) {
+          if (g >= 0 && rank == k) {
+#pragma unroll
+            for (int v = 0; v < NV; ++v) {
+              if (!ok[v][r]) continue;
+              long long* acc = mine + g1 * (1 + v * kAccRows);
+              if (vals.flags[v] & kWantSum) {
+                acc_sum<kAtomic>(&acc[kRowSum * g1 + g], x[v][r],
+                                 vals.kind[v]);
+              }
+              if (vals.flags[v] & kWantMinMax) {
+                long long kmin, kmax;
+                order_keys(x[v][r], vals.kind[v], &kmin, &kmax);
+                acc_minmax<kAtomic>(acc, g1, g, kmin, kmax);
+              }
+            }
+          }
+          if (kPrivate) __syncwarp();
+        }
+      } else if (NV > 0) {
+        // a group repeats more than kMaxRounds times: reduce over the peers
+        // by pointer jumping; after 5 steps each lane holds its own and
+        // every later peer's values, and the leader writes them
+        long long sum[NV > 0 ? NV : 1], lo[NV > 0 ? NV : 1],
+            hi[NV > 0 ? NV : 1];
+#pragma unroll
+        for (int v = 0; v < NV; ++v) {
+          order_keys(x[v][r], vals.kind[v], &lo[v], &hi[v]);
+          sum[v] = ok[v][r] ? x[v][r] : 0;  // 0 is +0.0's bits
+          if (!ok[v][r]) {
+            lo[v] = kI64Max;
+            hi[v] = kI64Min;
+          }
+        }
+        int next = (peers & above) ? __ffs(peers & above) - 1 : 32;
+#pragma unroll
+        for (int step = 0; step < 5; ++step) {
+          const int src = next & 31;
+#pragma unroll
+          for (int v = 0; v < NV; ++v) {
+            const long long os = __shfl_sync(kFull, sum[v], src);
+            const long long ol = __shfl_sync(kFull, lo[v], src);
+            const long long oh = __shfl_sync(kFull, hi[v], src);
+            if (next < 32) {
+              sum[v] = add_sum(sum[v], os, vals.kind[v]);
+              lo[v] = min(lo[v], ol);
+              hi[v] = max(hi[v], oh);
+            }
+          }
+          const int nn = __shfl_sync(kFull, next, src);
+          if (next < 32) next = nn;
+        }
+        if (leader) {
+#pragma unroll
+          for (int v = 0; v < NV; ++v) {
+            long long* acc = mine + g1 * (1 + v * kAccRows);
+            if (vals.flags[v] & kWantSum) {
+              acc_sum<kAtomic>(&acc[kRowSum * g1 + g], sum[v], vals.kind[v]);
+            }
+            if (vals.flags[v] & kWantMinMax) {
+              acc_minmax<kAtomic>(acc, g1, g, lo[v], hi[v]);
+            }
+          }
+        }
       }
+      if (kPrivate) __syncwarp();  // this step's stores before the next's
     }
+    cur = nxt;
   }
   __syncthreads();
 
-  // merge this CTA's groups into the global table
+  // sum the copies, then merge this CTA's groups into the global table
   if (threadIdx.x == 0 && s_meta[1] != 0) atomicExch(&sc.counters[1], 1);
   const int rows = gcap + 2;
-  for (int s = threadIdx.x; s <= slots; s += blockDim.x) {
+  for (int s = threadIdx.x; s <= slots; s += kThreads) {
     int b, g;
     if (s == slots) {  // the null-key row
-      if (s_count_all[gcap] == 0) continue;
       b = g = gcap;
+      unsigned long long any = 0;
+      for (int k = 0; k < copies; ++k) any |= s_copies[k * words + gcap];
+      if (any == 0) continue;
     } else {
       const int st = s_state[s];
       if (st <= 0) continue;
       b = st - 1;
-      g = find_or_insert<true>(s_keys[s], sc.table_keys, sc.table_state,
-                               slots - 1, &sc.counters[0], gcap,
-                               sc.dense_keys);
+      g = find_or_insert_global(s_keys[s], sc.table_keys, sc.table_state,
+                                gslots - 1, &sc.counters[0], gcap,
+                                sc.dense_keys);
       if (g < 0) {
         atomicExch(&sc.counters[1], 1);
         continue;
       }
     }
-    atomicAdd(&sc.count_all[g], s_count_all[b]);
+    unsigned long long all = 0;
+    for (int k = 0; k < copies; ++k) {
+      all += static_cast<unsigned long long>(s_copies[k * words + b]);
+    }
+    atomicAdd(&sc.count_all[g], all);
 #pragma unroll
-    for (int v = 0; v < kMaxValues; ++v) {
-      if (v >= nv) break;
-      const long long* acc = s_acc + v * kAccRows * g1;
+    for (int v = 0; v < NV; ++v) {
+      long long cv = 0, sum = 0;
+      long long lo = kI64Max, hi = kI64Min;
+      for (int k = 0; k < copies; ++k) {
+        const long long* acc = s_copies + k * words + g1 * (1 + v * kAccRows);
+        cv += acc[kRowCountValid * g1 + b];
+        sum = add_sum(sum, acc[kRowSum * g1 + b], vals.kind[v]);
+        lo = min(lo, acc[kRowMin * g1 + b]);
+        hi = max(hi, acc[kRowMax * g1 + b]);
+      }
       long long* gacc = sc.acc + v * kAccRows * rows;
       if (vals.valid[v] != nullptr) {
         atomicAdd(reinterpret_cast<unsigned long long*>(
                       &gacc[kRowCountValid * rows + g]),
-                  static_cast<unsigned long long>(acc[kRowCountValid * g1 + b]));
+                  static_cast<unsigned long long>(cv));
       }
       if (vals.flags[v] & kWantSum) {
         if (vals.kind[v] == kKindFloat64) {
           atomicAdd(reinterpret_cast<double*>(&gacc[kRowSum * rows + g]),
-                    __longlong_as_double(acc[kRowSum * g1 + b]));
+                    __longlong_as_double(sum));
         } else {
           atomicAdd(reinterpret_cast<unsigned long long*>(
                         &gacc[kRowSum * rows + g]),
-                    static_cast<unsigned long long>(acc[kRowSum * g1 + b]));
+                    static_cast<unsigned long long>(sum));
         }
       }
       if (vals.flags[v] & kWantMinMax) {
-        atomicMin(&gacc[kRowMin * rows + g], acc[kRowMin * g1 + b]);
-        atomicMax(&gacc[kRowMax * rows + g], acc[kRowMax * g1 + b]);
+        atomicMin(&gacc[kRowMin * rows + g], lo);
+        atomicMax(&gacc[kRowMax * rows + g], hi);
       }
     }
   }
@@ -369,12 +624,105 @@ size_t scratch_layout(int gcap, int nv, size_t off[6]) {
   return b;
 }
 
-size_t shared_bytes(int gcap, int nv) {
-  const size_t g1 = static_cast<size_t>(gcap) + 1;
-  const size_t slots = table_slots(gcap);
-  return slots * sizeof(long long) + g1 * sizeof(unsigned long long) +
-         static_cast<size_t>(nv) * kAccRows * g1 * sizeof(long long) +
-         slots * sizeof(int) + 2 * sizeof(int);
+// Shared bytes of accumulate_kernel with a CTA table of ``slots`` and
+// ``copies`` accumulator copies.
+size_t shared_bytes(int gcap, int nv, int copies, int slots) {
+  return static_cast<size_t>(slots) * (sizeof(long long) + sizeof(int)) +
+         static_cast<size_t>(copies) * copy_words(gcap + 1, nv) *
+             sizeof(long long) +
+         2 * sizeof(int);
+}
+
+// A CTA's table: kTableFactor slots a group, so a probe seldom walks,
+// halved (down to the global table's 2 a group) until it fits beside the
+// copies.
+int cta_slots(int gcap, int nv, int copies) {
+  int slots = 16;
+  while (slots < kTableFactor * gcap) slots <<= 1;
+  while (slots > table_slots(gcap) &&
+         shared_bytes(gcap, nv, copies, slots) >
+             static_cast<size_t>(kSharedBudget)) {
+    slots >>= 1;
+  }
+  return slots;
+}
+
+// One copy per warp where they fit the budget beside the smallest table
+// (the private variant), else as many as fit, shared by groups of warps.
+int copies_for(int gcap, int nv) {
+  int copies = kWarps;
+  while (copies > 1 && shared_bytes(gcap, nv, copies, table_slots(gcap)) >
+                           static_cast<size_t>(kSharedBudget)) {
+    --copies;
+  }
+  return copies;
+}
+
+using KernelFn = void (*)(const long long*, const uint8_t*, long long, Values,
+                          int, int, int, int, int, Scratch);
+
+template <int NV>
+KernelFn pick(bool priv) {
+  return priv ? accumulate_kernel<NV, true> : accumulate_kernel<NV, false>;
+}
+
+KernelFn kernel_for(int nv, bool priv) {
+  switch (nv) {
+    case 0: return pick<0>(priv);
+    case 1: return pick<1>(priv);
+    case 2: return pick<2>(priv);
+    case 3: return pick<3>(priv);
+    default: return pick<4>(priv);
+  }
+}
+
+int rows_per_lane_of(int nv) {
+  return nv == 0 ? kRowsPerLane<0> : kRowsPerLane<1>;
+}
+
+// The launch shape of one (device, kernel, shared bytes): the SM count
+// times the resident CTAs an SM, queried once and kept, with the kernel's
+// shared-memory limit raised at the same time.
+struct LaunchShape {
+  int device;
+  KernelFn fn;
+  size_t smem;
+  int blocks;  // SMs x CTAs an SM
+};
+LaunchShape g_shapes[64];
+int g_num_shapes = 0;
+
+cudaError_t launch_shape(KernelFn fn, size_t smem, int* blocks) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  for (int i = 0; i < g_num_shapes; ++i) {
+    const LaunchShape& s = g_shapes[i];
+    if (s.device == device && s.fn == fn && s.smem == smem) {
+      *blocks = s.blocks;
+      return cudaSuccess;
+    }
+  }
+  // the largest size any launch of ``fn`` takes, so no entry's launch is
+  // refused for another entry's setting
+  err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kSharedBudget);
+  if (err != cudaSuccess) return err;
+  int sms = 0, per_sm = 0;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    device)) != cudaSuccess) {
+    return err;
+  }
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, fn, kThreads, smem)) != cudaSuccess) {
+    return err;
+  }
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  *blocks = sms * per_sm;
+  if (g_num_shapes < 64) {
+    g_shapes[g_num_shapes++] = LaunchShape{device, fn, smem, *blocks};
+  }
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -394,12 +742,25 @@ long long gt_aggregate_scratch_bytes(int gcap, int num_values) {
   return static_cast<long long>(scratch_layout(gcap, num_values, off));
 }
 
+// A CTA's warps: as many accumulator copies mean the private variant.
+int gt_aggregate_warps() { return kWarps; }
+
+// The accumulator copies a CTA keeps for (gcap, num_values): kWarps means
+// the private variant, fewer the shared one.
+int gt_aggregate_copies(int gcap, int num_values) {
+  if (gcap < 1 || gcap > kMaxGroups || num_values < 0 ||
+      num_values > kMaxValues) {
+    return -1;
+  }
+  return copies_for(gcap, num_values);
+}
+
 // One aggregate over ``num_values`` (≤ kMaxValues) columns. ``code`` may be
 // null (every row is in the table); ``valids[v]`` may be null (no nulls).
 // ``kinds[v]``: 0 int64, 1 uint64, 2 float64; ``flags[v]``: 1 sum, 2 min
-// and max. Outputs: out_keys [gcap], out_meta [2] (count, overflow),
-// out_count_all [gcap + 2], out_acc [num_values][4][gcap + 2] (count_valid,
-// sum bits, min key, max key).
+// and max. Outputs: out_keys [gcap], out_meta [2]
+// (count, overflow), out_count_all [gcap + 2], out_acc
+// [num_values][4][gcap + 2] (count_valid, sum bits, min key, max key).
 int gt_aggregate(const void* keys, const void* code, long long n,
                  int num_values, const void* const* values,
                  const void* const* valids, const int* kinds,
@@ -408,6 +769,12 @@ int gt_aggregate(const void* keys, const void* code, long long n,
                  void* out_count_all, void* out_acc, void* stream_) {
   if (num_values < 0 || num_values > kMaxValues || gcap < 1 ||
       gcap > kMaxGroups || n < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int copies = copies_for(gcap, num_values);
+  const int cslots = cta_slots(gcap, num_values, copies);
+  const size_t smem = shared_bytes(gcap, num_values, copies, cslots);
+  if (smem > static_cast<size_t>(kSharedBudget)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   size_t off[6];
@@ -442,28 +809,20 @@ int gt_aggregate(const void* keys, const void* code, long long n,
   if (err != cudaSuccess) return static_cast<int>(err);
 
   if (n > 0) {
-    const size_t smem = shared_bytes(gcap, num_values);
-    err = cudaFuncSetAttribute(accumulate_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    int device = 0, sms = 0, per_sm = 0;
-    if ((err = cudaGetDevice(&device)) != cudaSuccess) return static_cast<int>(err);
-    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                      device)) != cudaSuccess) {
+    const KernelFn fn = kernel_for(num_values, copies == kWarps);
+    int full = 0;
+    if ((err = launch_shape(fn, smem, &full)) != cudaSuccess) {
       return static_cast<int>(err);
     }
-    if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &per_sm, accumulate_kernel, kThreads, smem)) != cudaSuccess) {
-      return static_cast<int>(err);
-    }
-    if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-    const long long needed = (n + kThreads - 1) / kThreads;
-    const long long full = static_cast<long long>(sms) * per_sm;
+    const long long rows_per_cta =
+        static_cast<long long>(kThreads) *
+        rows_per_lane_of(num_values);
+    const long long needed = (n + rows_per_cta - 1) / rows_per_cta;
     const int blocks = static_cast<int>(needed < full ? needed : full);
-    accumulate_kernel<<<blocks, kThreads, smem, stream>>>(
+    fn<<<blocks, kThreads, smem, stream>>>(
         static_cast<const long long*>(keys),
-        static_cast<const uint8_t*>(code), n, vals, gcap, slots, sc);
+        static_cast<const uint8_t*>(code), n, vals, gcap, cslots,
+        32 - __builtin_ctz(static_cast<unsigned>(cslots)), slots, copies, sc);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }

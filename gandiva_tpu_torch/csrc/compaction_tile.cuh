@@ -2,11 +2,12 @@
 // and K2 (compaction_fragnet.cu), for Hopper, sm_90a.
 //
 // A tile is kTile = kThreads * kIters rows, one CTA. Both kernels take the
-// tile's ballots (one 32-bit word per 32-row slot), rank each survivor
-// inside the tile by an exclusive scan of the slot counts, and move its row
-// index and every payload to tile_offset + rank. They differ only in how a
-// tile learns its offset: K1 from a separate count pass and a scan on the
-// host side, K2 by a decoupled look-back among the tiles themselves.
+// tile's ballots (one 32-bit word per 32-row slot) and rank each survivor
+// inside the tile by an exclusive scan of the slot counts. K1 learns a
+// tile's offset from a separate count pass and a scan on the host side and
+// moves its row index and every payload to tile_offset + rank from
+// registers (scatter_tile); K2 learns it by a decoupled look-back among the
+// tiles and moves the payloads through shared memory (its own code).
 // ``scatter_kernel`` is the offsets-given scatter: K1's second pass, and
 // K2's launch for payload groups after the first.
 

@@ -23,8 +23,11 @@ else, as pyarrow does; -0.0 orders below +0.0.
 
 Bound: bytes. At BASELINE configs[1] (n = 100,000,000, int64 key, one f64
 column, no nulls) it must read 16 B per row, 1.6 GB, about 0.48 ms at an
-H100 SXM's 3.35 TB/s. The design (per-CTA shared-memory tables and
-atomics, a global merge, a ranking pass) is described in the source.
+H100 SXM's 3.35 TB/s. The design (per-CTA shared-memory tables, loads
+issued before the probes, warp-aggregated updates of per-warp accumulator
+copies where one a warp fits shared memory and shared atomics on fewer
+copies where they do not, a global merge, a ranking pass) is described in
+the source; ``accumulator_copies`` says which variant a shape takes.
 
 ``aggregate`` launches the kernel for CUDA tensors (one launch per group of
 ``MAX_VALUES`` columns over the same keys; a query with no value columns
@@ -34,7 +37,7 @@ fallback from one to the other.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional, Sequence
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -157,6 +160,9 @@ def _lib() -> ctypes.CDLL:
         lib.gt_aggregate.restype = ci
         lib.gt_aggregate_scratch_bytes.argtypes = [ci, ci]
         lib.gt_aggregate_scratch_bytes.restype = ll
+        lib.gt_aggregate_copies.argtypes = [ci, ci]
+        lib.gt_aggregate_copies.restype = ci
+        lib.gt_aggregate_warps.restype = ci
         lib.gt_aggregate_max_values.restype = ci
         lib.gt_aggregate_max_groups.restype = ci
         lib.gt_aggregate_error_string.argtypes = [ci]
@@ -167,6 +173,17 @@ def _lib() -> ctypes.CDLL:
                                "MAX_GROUPS")
         lib._gt_typed = True
     return lib
+
+
+def accumulator_copies(gcap: int, ncols: int) -> Tuple[int, bool]:
+    """The accumulator copies a CTA of K5 keeps for a launch of ``ncols``
+    (≤ MAX_VALUES) columns at table capacity ``gcap``, and whether that is
+    one a warp: the private variant (warp-aggregated plain stores), else the
+    shared one (atomics). The kernel library decides, so this needs the
+    card's toolchain."""
+    lib = _lib()
+    copies = lib.gt_aggregate_copies(gcap, ncols)
+    return copies, copies == lib.gt_aggregate_warps()
 
 
 def aggregate_cuda(keys: torch.Tensor, code: Optional[torch.Tensor],

@@ -7,6 +7,8 @@ named by a hash of the source and the flags, so an edited source is rebuilt
 and an unchanged one is reused.
 Nothing is compiled at import: the first launch of a kernel builds it, and
 ``build_all`` builds every source at once, one ``nvcc`` each, in parallel.
+A source may also be built with preprocessor ``defines`` (nvcc's ``-D``)
+into a library of its own, for a measurement of another constant.
 """
 from __future__ import annotations
 
@@ -16,14 +18,14 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_LOADED: Dict[str, ctypes.CDLL] = {}
+_LOADED: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}
 
 
 def sources() -> List[str]:
@@ -41,50 +43,65 @@ def nvcc() -> str:
     return found
 
 
-def library_path(name: str) -> Path:
+def _flags(defines: Sequence[str]) -> List[str]:
+    return NVCC_FLAGS + [f"-D{d}" for d in defines]
+
+
+def library_path(name: str, defines: Sequence[str] = ()) -> Path:
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(_flags(defines)).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def _start(name: str) -> Optional[Tuple[subprocess.Popen, Path]]:
+def _start(name: str, defines: Sequence[str] = ()
+           ) -> Optional[Tuple[subprocess.Popen, Path]]:
     """Start nvcc for ``name`` into a temporary file, unless it is built."""
-    if library_path(name).exists():
+    out = library_path(name, defines)
+    if out.exists():
         return None
-    out = library_path(name)
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [nvcc(), *_flags(defines), "-o", str(tmp), str(CSRC / f"{name}.cu")]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True), tmp
 
 
-def _finish(name: str, started) -> str:
+def _finish(name: str, started, defines: Sequence[str] = ()) -> str:
+    out = library_path(name, defines)
     if started is None:
-        return f"{name}: cached {library_path(name).name}"
+        return f"{name}: cached {out.name}"
     proc, tmp = started
     log, _ = proc.communicate()
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{log}")
-    os.replace(tmp, library_path(name))
+        raise RuntimeError(f"nvcc failed for csrc/{name}.cu "
+                           f"{' '.join(defines)}:\n{log}")
+    os.replace(tmp, out)
     return log
 
 
-def build_all(names: Optional[List[str]] = None) -> Dict[str, str]:
-    """Compile every source (one nvcc each, started together); returns each
-    source's compiler log (the ``-Xptxas -v`` register/spill lines)."""
+def build_all(names: Optional[List[str]] = None,
+              variants: Sequence[Tuple[str, Tuple[str, ...]]] = ()
+              ) -> Dict[str, str]:
+    """Compile every source, and each (source, defines) of ``variants``, one
+    nvcc each, started together; returns each build's compiler log (the
+    ``-Xptxas -v`` register/spill lines), by source name, a variant's with
+    its -D flags after it."""
     names = sources() if names is None else names
-    procs = {n: _start(n) for n in names}
-    return {n: _finish(n, p) for n, p in procs.items()}
+    builds = [(n, ()) for n in names] + [(n, tuple(d)) for n, d in variants]
+    procs = [(n, d, _start(n, d)) for n, d in builds]
+    return {" ".join([n, *(f"-D{x}" for x in d)]): _finish(n, p, d)
+            for n, d, p in procs}
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The kernel library for ``csrc/<name>.cu``, built at first use."""
-    lib = _LOADED.get(name)
+def load(name: str, defines: Sequence[str] = ()) -> ctypes.CDLL:
+    """The kernel library for ``csrc/<name>.cu`` (built with ``defines``),
+    built at first use."""
+    key = (name, tuple(defines))
+    lib = _LOADED.get(key)
     if lib is None:
-        _finish(name, _start(name))
-        lib = ctypes.CDLL(str(library_path(name)))
-        _LOADED[name] = lib
+        _finish(name, _start(name, defines), defines)
+        lib = ctypes.CDLL(str(library_path(name, defines)))
+        _LOADED[key] = lib
     return lib

@@ -18,8 +18,11 @@ survivor); K2 reads the mask once where K1 reads it twice.
 
 The wrapper zeroes the tiles' descriptors and the tile counter with one
 ``torch.zeros`` per call and launches the single pass, which moves up to
-``MAX_PAYLOADS`` payloads. More payloads: the single pass also records each
-tile's offset, and one scatter-only launch per later group reuses them.
+``MAX_PAYLOADS`` payloads. The kernel stages a tile's payloads in shared
+memory, in groups of columns it plans from their widths; the first group's
+loads are in flight during the look-back. More payloads than
+``MAX_PAYLOADS``: the single pass also records each tile's offset, and one
+scatter-only launch per later group reuses them.
 ``compact_fragnet_columns`` launches the kernel for CUDA tensors and takes
 ``compact_fragnet_plain`` only for CPU tensors; there is no fallback from one
 to the other.
@@ -36,8 +39,11 @@ from . import LAUNCHES, build
 from .compaction import MAX_PAYLOADS, _check, _validate, payload_group
 
 
-def _lib() -> ctypes.CDLL:
-    lib = build.load("compaction_fragnet")
+def library(defines: Sequence[str] = ()) -> ctypes.CDLL:
+    """K2's kernel library, built at first use; ``defines`` (``NAME=value``
+    for nvcc's -D) select a build other than the one the wrapper launches,
+    so a measurement can time another staging budget."""
+    lib = build.load("compaction_fragnet", defines)
     if not getattr(lib, "_gt_typed", False):
         vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         lib.gt_fragnet_compact.argtypes = [vp, ll, vp, vp, vp, vp, ci, vp, vp,
@@ -60,6 +66,14 @@ def compact_fragnet_cuda(mask: torch.Tensor, columns: Sequence[torch.Tensor]
                          ) -> Tuple[torch.Tensor, List[torch.Tensor],
                                     torch.Tensor]:
     """Launch K2 on ``mask``'s card: (indices, packed columns, count)."""
+    return launch(mask, columns, ())
+
+
+def launch(mask: torch.Tensor, columns: Sequence[torch.Tensor],
+           defines: Sequence[str]
+           ) -> Tuple[torch.Tensor, List[torch.Tensor], torch.Tensor]:
+    """``compact_fragnet_cuda`` through K2 built with ``defines``
+    (``library``)."""
     if mask.device.type != "cuda":
         raise ValueError(f"compact_fragnet_cuda takes CUDA tensors, got "
                          f"{mask.device}")
@@ -70,7 +84,7 @@ def compact_fragnet_cuda(mask: torch.Tensor, columns: Sequence[torch.Tensor]
     outs = [torch.empty_like(c) for c in columns]
     if n == 0:
         return indices, outs, torch.zeros((), dtype=torch.int32, device=dev)
-    lib = _lib()
+    lib = library(defines)
     tiles = -(-n // lib.gt_fragnet_tile_rows())
     status = torch.zeros(tiles + 1, dtype=torch.int64, device=dev)
     count = torch.empty((), dtype=torch.int32, device=dev)

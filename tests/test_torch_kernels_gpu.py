@@ -153,6 +153,64 @@ def test_k2_many_payloads_and_back_to_back_calls():
         _same_compaction(got, compact_fragnet_plain(mask, base[:2]))
 
 
+@pytest.mark.parametrize("n,density", [
+    (1 << 20, 0.0), (1 << 20, 1.0), (4096 * 5 - 1, 0.3), (1, 0.0)])
+def test_k2_edge_shapes_match_plain_and_k1(n, density):
+    """Density 0 and 1 over many tiles, n one short of a multiple of the
+    tile, n = 1 with nothing kept."""
+    dev = _card()
+    from gandiva_tpu_torch.ops.kernels.compaction_fragnet import (
+        compact_fragnet_columns, compact_fragnet_plain)
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(n + 31)
+    mask = torch.rand(n, generator=g, device=dev) < density
+    cols = _payloads(n, g, dev)
+    got = compact_fragnet_columns(mask, cols)
+    torch.cuda.synchronize()
+    _same_compaction(got, compact_fragnet_plain(mask, cols))
+    _same_compaction(got, compact_columns(mask, cols))
+
+
+@pytest.mark.parametrize("offset", [1, 3, 8])
+def test_k2_unaligned_views_match_plain_and_k1(offset):
+    """A mask and payloads that start ``offset`` elements into their
+    buffers, so neither the mask nor the 1- and 2-byte payloads are 16-B
+    aligned (the kernel's byte-load and element paths); 8 is 16-B aligned
+    for the 2-byte column only."""
+    dev = _card()
+    from gandiva_tpu_torch.ops.kernels.compaction_fragnet import (
+        compact_fragnet_columns, compact_fragnet_plain)
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(offset)
+    n = 1_000_037
+    mask = (torch.rand(n + offset, generator=g, device=dev) < 0.4)[offset:]
+    cols = [c[offset:] for c in _payloads(n + offset, g, dev)]
+    assert mask.data_ptr() % 16 != 0 or offset == 8
+    got = compact_fragnet_columns(mask, cols)
+    torch.cuda.synchronize()
+    _same_compaction(got, compact_fragnet_plain(mask, cols))
+    _same_compaction(got, compact_columns(mask, cols))
+
+
+def test_k2_many_payload_groups_match_plain():
+    """Eight payloads of mixed widths: the kernel stages them in several
+    groups of its shared-memory budget, the first while it looks back."""
+    dev = _card()
+    from gandiva_tpu_torch.ops.kernels import compaction_fragnet as k2
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(16)
+    n = 3 * 4096 * 32 + 5
+    base = _payloads(n, g, dev)
+    cols = base + [c.flip(0) for c in base[:3]]
+    mask = torch.rand(n, generator=g, device=dev) < 0.6
+    got = k2.compact_fragnet_columns(mask, cols)
+    torch.cuda.synchronize()
+    _same_compaction(got, k2.compact_fragnet_plain(mask, cols))
+
+
 def test_flagship_plan_launches_k1():
     dev = _card()
     from gandiva_tpu_torch.entrypoints import flagship_step
@@ -386,6 +444,168 @@ def test_hash_aggregate_on_card_matches_cpu():
                 torch.testing.assert_close(got, want, rtol=1e-9, atol=0)
             else:
                 assert torch.equal(got, want), k
+
+
+def _k5_case(name, g, dev):
+    """(keys, code, columns, max_groups) of the named edge shape."""
+    from gandiva_tpu_torch.ops.hash_aggregate import _kernel_column
+
+    n = 200_003
+    if name == "one group":
+        keys = torch.full((n,), -42, dtype=torch.int64, device=dev)
+        return keys, None, _k5_columns(n, g, dev, True)[:4], 8
+    if name == "1024 groups x 4 columns":
+        keys = torch.randperm(n, generator=g, device=dev) % 1024 * 13 - 99
+        return keys, None, _k5_columns(n, g, dev, True)[2:], 1024
+    if name == "1100 keys at gcap 1024":
+        keys = torch.randint(0, 1100, (n,), generator=g, device=dev)
+        return keys, None, _k5_columns(n, g, dev, False)[:2], 1024
+    if name == "uint64 extremes":
+        pool = torch.tensor([0, 1, -1, -2**63, 2**63 - 1], device=dev)
+        vals = pool[torch.randint(0, 5, (n,), generator=g, device=dev)]
+        keys = torch.randint(0, 3, (n,), generator=g, device=dev)
+        return keys, None, [_kernel_column(vals.view(torch.uint64), None,
+                                           True, True)], 8
+    if name == "NaN and signed zeros":
+        pool = torch.tensor([float("nan"), -0.0, 0.0, float("inf"),
+                             float("-inf"), 1.5], dtype=torch.float64,
+                            device=dev)
+        vals = pool[torch.randint(0, 6, (n,), generator=g, device=dev)]
+        valid = torch.rand(n, generator=g, device=dev) >= 0.3
+        keys = torch.randint(0, 40, (n,), generator=g, device=dev)
+        # group 0 holds only NaN, group 1 only ±0.0
+        vals = torch.where(keys == 0, float("nan"), vals)
+        vals = torch.where(keys == 1, -(torch.rand(n, generator=g,
+                                                   device=dev) < 0.5)
+                           .double() * 0.0, vals)
+        return keys, None, [_kernel_column(vals, valid, True, True)], 64
+    assert name == "gcap 8, codes 0/1/2"
+    keys = torch.randint(-3, 3, (n,), generator=g, device=dev)
+    code = torch.randint(0, 3, (n,), generator=g, device=dev
+                         ).to(torch.uint8)
+    return keys, code, _k5_columns(n, g, dev, True)[3:5], 8
+
+
+@pytest.mark.parametrize("name", [
+    "one group", "1024 groups x 4 columns", "1100 keys at gcap 1024",
+    "uint64 extremes", "NaN and signed zeros", "gcap 8, codes 0/1/2"])
+def test_k5_edge_shapes_match_plain(name):
+    """Each edge shape on the variant the kernel picks for it."""
+    dev = _card()
+    from gandiva_tpu_torch.ops.kernels.aggregate import (aggregate_cuda,
+                                                         aggregate_plain)
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(len(name))
+    keys, code, cols, max_groups = _k5_case(name, g, dev)
+    got = aggregate_cuda(keys, code, cols, max_groups)
+    torch.cuda.synchronize()
+    want = aggregate_plain(keys, code, cols, max_groups)
+    _hold_k5(got, want, [c.kind for c in cols])
+    if name == "1100 keys at gcap 1024":
+        assert bool(got.overflow)
+
+
+@pytest.mark.parametrize("keys_,ncols,max_groups,nulls,private", [
+    (64, 2, 64, False, True),      # configs[1]'s keys: 16 private copies
+    (2, 2, 64, False, True),       # every warp-step: pointer jumping
+    (1024, 1, 1024, False, False),  # a few shared copies
+    (2, 1, 1024, False, False),    # shared copies, pointer jumping
+    (1024, 4, 1024, False, False),  # one shared copy
+    (1024, 4, 1024, True, False)])
+def test_k5_variants_match_plain(keys_, ncols, max_groups, nulls, private):
+    """Both accumulator variants, on the shapes that select them, at
+    2,000,003 rows: ``keys_`` distinct keys (few keys put many peers in a
+    warp-step, so the rounds and the pointer jumping both run), ``ncols``
+    value columns of int64 and float64, 10% null keys where ``nulls``."""
+    dev = _card()
+    from gandiva_tpu_torch.ops.hash_aggregate import _kernel_column
+    from gandiva_tpu_torch.ops.kernels.aggregate import (
+        accumulator_copies, aggregate_cuda, aggregate_plain, capacity_for)
+
+    assert accumulator_copies(capacity_for(max_groups), ncols)[1] == private
+    g = torch.Generator(device=dev)
+    g.manual_seed(keys_ + ncols)
+    n = 2_000_003
+    keys = torch.randint(0, keys_, (n,), generator=g, device=dev) * 7 + 3
+    code = None
+    if nulls:
+        code = torch.where(torch.rand(n, generator=g, device=dev) < 0.1, 2,
+                           1).to(torch.uint8)
+    cols = [_kernel_column(
+        torch.rand(n, generator=g, dtype=torch.float64, device=dev) if v % 2
+        else torch.randint(-1000, 1000, (n,), generator=g, device=dev),
+        None, True, True) for v in range(ncols)]
+    got = aggregate_cuda(keys, code, cols, max_groups)
+    torch.cuda.synchronize()
+    _hold_k5(got, aggregate_plain(keys, code, cols, max_groups),
+             [c.kind for c in cols])
+
+
+def _sorted_groups(res):
+    """A hash_aggregate result's groups on the host, ordered by (null key,
+    key), so results in different group orders compare."""
+    cnt = int(res["group_count"])
+    keys = res["keys"][:cnt].cpu()
+    null = res["key_is_null"][:cnt].cpu()
+    order = sorted(range(cnt), key=lambda i: (bool(null[i]), int(keys[i])))
+    idx = torch.tensor(order, dtype=torch.int64)
+    return {k: (v[:cnt].cpu()[idx] if v.dim() else v.cpu())
+            for k, v in res.items()}
+
+
+@pytest.mark.parametrize("case", ["4096 groups, 3000 keys", "float64 keys",
+                                  "backend xla, 64 groups"])
+def test_generic_group_by_on_card_matches_cpu(case):
+    """hash_aggregate's generic path (group_ids' claim rounds or
+    distinct_small, and segment_reduce's scatters; K5 does not run) on the
+    card against the same call on the CPU, groups compared in key order."""
+    dev = _card()
+    import numpy as np
+
+    from gandiva_tpu_torch.ops import hash_aggregate
+
+    rng = np.random.default_rng(7)
+    n = 300_007
+    max_groups, backend = 64, "auto"
+    if case == "4096 groups, 3000 keys":
+        keys = rng.integers(0, 3000, n) * 1_000_003 - 7
+        max_groups = 4096
+    elif case == "float64 keys":
+        keys = rng.integers(-30, 30, n) / 4.0
+        keys[rng.random(n) < 0.01] = np.nan
+        keys[rng.random(n) < 0.01] = -0.0
+    else:
+        keys = rng.integers(0, 64, n) * 7 + 3
+        backend = "xla"
+    vals = rng.standard_normal(n)
+    ivals = rng.integers(-2**40, 2**40, n)
+    kv = rng.random(n) >= 0.05
+    vv = rng.random(n) >= 0.1
+    aggs = [("v", "sum"), ("v", "count"), ("v", "min"), ("v", "max"),
+            ("v", "mean"), ("i", "sum"), ("i", "min"), ("i", "max"),
+            ("i", "count_all")]
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        reset_launches()
+
+        def t(a):
+            return torch.from_numpy(a).to(d)
+
+        out[d.type] = _sorted_groups(hash_aggregate(
+            t(keys), aggs, {"v": (t(vals), t(vv)), "i": (t(ivals), None)},
+            key_valid=t(kv), max_groups=max_groups, backend=backend))
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+            assert LAUNCHES["aggregate"] == 0
+    got, want = out["cuda"], out["cpu"]
+    assert int(want["group_count"]) > 60 and not bool(want["overflow"])
+    for k, w in want.items():
+        if k.endswith((":sum", ":mean")) and w.dtype.is_floating_point:
+            torch.testing.assert_close(got[k], w, rtol=1e-9, atol=0,
+                                       equal_nan=True)
+        else:
+            assert torch.equal(_bits(got[k]), _bits(w)), k
 
 
 # ---------------------------------------------------------------------------
