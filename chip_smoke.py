@@ -11,9 +11,18 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                 flagship payloads (f64 + bool) at five densities, and a
                 ragged 1,000,037 rows with int64/float32/int32/bool payloads,
                 and again with 10 payloads (more than one scatter launch);
+                the mask and payloads as views at offsets 1, 3 and 8 (also
+                against K2); no payload (Filter.evaluate's indices only) at
+                64Mi rows, 4 tiles +- 1 row and 1,000,037 rows;
   4. times    — K1, its plain version and the nearest PyTorch calls
                 (nonzero + index_select) at 64Mi rows, density 0.474, with
                 CUDA events, beside the least time the card's memory allows;
+                K1 at densities 0.02, 0.474 and 0.97 and with no payload,
+                its count pass and its scatter apart (and torch.cumsum of
+                the tile counts, the scan the scatter does itself), each
+                beside its byte bound and the bytes its mask's survivors
+                touch in 32-byte sectors; K1's -Xptxas -v lines and the
+                scatter's persistent grid;
   5. arrow    — make_filter_project(...).evaluate on the 1M-row Arrow batch
                 of bench_reference/bench_arrow.py, row for row against
                 pyarrow.compute, and Filter + Projector(selection) against
@@ -205,6 +214,24 @@ def compaction_bytes(rows: int, survivors: int, width: int) -> int:
     payload element only where its mask bit is set, so the rows that drop
     cost them no payload bytes either."""
     return rows + survivors * (4 + 2 * width)
+
+
+def sector_bytes(mask: torch.Tensor, widths) -> int:
+    """The bytes a stable compaction moves when the card reads whole 32-byte
+    sectors, computed on the card from ``mask``: every sector of the mask,
+    each payload column's sectors that hold a survivor (columns of
+    ``widths`` bytes, starting on a sector), and the writes, a 4 B index and
+    the payloads a survivor. Printed next to ``compaction_bytes``, never in
+    its place."""
+    n = mask.shape[0]
+    survivors = int(mask.sum())
+    total = -(-n // 32) * 32 + survivors * (4 + sum(widths))
+    for w in widths:
+        rows = 32 // w
+        pad = torch.zeros((-n) % rows, dtype=torch.bool, device=mask.device)
+        touched = torch.cat([mask, pad]).view(-1, rows).any(1)
+        total += int(touched.sum()) * 32
+    return total
 
 
 def ptxas_lines(text: str):
@@ -495,7 +522,29 @@ def main() -> int:
                              "launches")
     log(f"ragged n={N_RAGGED}, {len(many)} payloads: matches plain "
         f"({launched} scatter launches)")
-    del got, want, ragged, many
+    # views at an offset: neither the mask nor the 1- and 2-byte payloads
+    # are 16-B aligned (the scatter's byte and element paths; 8 leaves the
+    # 2-byte column aligned), held against plain and K2
+    from gandiva_tpu_torch.ops.kernels import compaction_fragnet as k2
+    for off in (1, 3, 8):
+        mask_v = mask_r[off:]
+        views = [c[off:] for c in ragged]
+        got = compact_columns_cuda(mask_v, views)
+        torch.cuda.synchronize()
+        max_err = max(max_err, hold(got, compact_columns_plain(mask_v, views),
+                                    f"K1 views at offset {off}"))
+        hold(got, k2.compact_fragnet_cuda(mask_v, views),
+             f"K1 views at offset {off} (K2)")
+        log(f"views at offset {off}: count={int(got[2])} matches plain and "
+            "K2")
+    # no payload: Filter.evaluate's indices only
+    for n in (N_BIG, 4 * 4096 - 1, 4 * 4096, 4 * 4096 + 1, N_RAGGED):
+        m = u[:n] < FLAGSHIP_DENSITY
+        got = compact_columns_cuda(m, [])
+        torch.cuda.synchronize()
+        hold(got, compact_columns_plain(m, []), f"K1 indices only n={n}")
+        log(f"indices only n={n}: count={int(got[2])} matches plain")
+    del got, want, ragged, many, mask_v, views, m
 
     # -- 4. kernel times -------------------------------------------------
     phase("K1 times")
@@ -518,7 +567,43 @@ def main() -> int:
         f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
         f"bound_ms={bound_ms:.4f} at {bw / 1e12:.2f} TB/s "
         f"-> {bound_ms / kernel_ms:.1%} of the bound")
-    del u, f64, vb, mask, pay
+    from gandiva_tpu_torch.ops.kernels import compaction as k1
+    log("K1's build (-Xptxas -v):")
+    for line in ptxas_lines(build_logs["compaction"]):
+        log("   " + line)
+    k1_shapes = {}
+    for what, d, cols in (("density 0.02", 0.02, pay),
+                          ("density 0.474", FLAGSHIP_DENSITY, pay),
+                          ("density 0.97", 0.97, pay),
+                          ("indices only, density 0.474", FLAGSHIP_DENSITY,
+                           [])):
+        m = u < d
+        counts = k1.tile_counts(m)
+        widths = [c.element_size() for c in cols]
+        kept = int(m.sum())
+        grid, stages, smem = k1.scatter_shape(cols)
+        r = {"survivors": kept,
+             "ms": time_ms(lambda: compact_columns_cuda(m, cols), iters=50),
+             "count_ms": time_ms(lambda: k1.tile_counts(m), iters=50),
+             "scatter_ms": time_ms(lambda: k1.scatter(m, counts, cols),
+                                   iters=50),
+             "cumsum_ms": time_ms(lambda: torch.cumsum(
+                 counts, 0, dtype=torch.int32), iters=50),
+             "bytes": compaction_bytes(N_BIG, kept, sum(widths)),
+             "sector_bytes": sector_bytes(m, widths)}
+        r.update({"bound_ms": r["bytes"] / bw * 1e3,
+                  "sector_bytes_ms": r["sector_bytes"] / bw * 1e3,
+                  "scatter_grid": grid, "scatter_stages": stages,
+                  "scatter_smem": smem})
+        k1_shapes[what] = r
+        log(f"K1 {what}: {r['ms']:.4f} ms (count pass {r['count_ms']:.4f}, "
+            f"scatter {r['scatter_ms']:.4f}; a torch.cumsum of the counts "
+            f"would add {r['cumsum_ms']:.4f}); bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_ms'] / r['ms']:.1%}), sector bytes "
+            f"{r['sector_bytes_ms']:.4f} ms; scatter grid {grid} CTAs, "
+            f"{stages} stages, {smem} B of shared memory")
+    log(json.dumps({"k1_shapes": k1_shapes}))
+    del u, f64, vb, mask, pay, m, counts
 
     # -- 5. main path, Arrow entry point ---------------------------------
     phase("main path: Arrow entry point")

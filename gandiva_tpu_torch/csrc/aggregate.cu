@@ -54,6 +54,8 @@
 // take the shared one with one 139 KB copy.
 
 #include <cstdint>
+#include <mutex>
+
 #include <cuda_runtime.h>
 
 namespace {
@@ -682,7 +684,8 @@ int rows_per_lane_of(int nv) {
 
 // The launch shape of one (device, kernel, shared bytes): the SM count
 // times the resident CTAs an SM, queried once and kept, with the kernel's
-// shared-memory limit raised at the same time.
+// shared-memory limit raised at the same time; the lock keeps two host
+// threads from filling the cache at once.
 struct LaunchShape {
   int device;
   KernelFn fn;
@@ -691,11 +694,13 @@ struct LaunchShape {
 };
 LaunchShape g_shapes[64];
 int g_num_shapes = 0;
+std::mutex g_shapes_lock;
 
 cudaError_t launch_shape(KernelFn fn, size_t smem, int* blocks) {
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
+  const std::lock_guard<std::mutex> hold(g_shapes_lock);
   for (int i = 0; i < g_num_shapes; ++i) {
     const LaunchShape& s = g_shapes[i];
     if (s.device == device && s.fn == fn && s.smem == smem) {

@@ -17,9 +17,9 @@
 // reads the mask twice (a count pass, then the scatter); K2 reads it once,
 // which is what a single pass buys.
 //
-// Design: one CTA per tile of kTile = 4096 rows, 256 threads, in one launch,
-// with K1's tile layout (compaction_tile.cuh): thread t of warp w holds rows
-// j * 256 + t of the tile, j < 16, as one ballot word a 32-row slot. The
+// Design: one CTA per tile of kTile = 4096 rows, 256 threads, in one launch:
+// thread t of warp w holds rows j * 256 + t of the tile, j < 16, as one
+// ballot word a 32-row slot. The
 // look-back is a wait, so the tile's payload reads are put in flight
 // before it:
 //   1. Tile order: thread 0 takes the CTA's tile id from an atomic counter
@@ -41,8 +41,8 @@
 //      survivor by survivor where the tile is ragged or the column less
 //      aligned. Nothing waits on these copies until step 6, and they hold
 //      no registers.
-//   4. Local scan: warp 0 scans the slot counts in shared memory (K1's
-//      scan), which also gives the tile's total.
+//   4. Local scan: warp 0 scans the slot counts in shared memory, which
+//      also gives the tile's total.
 //   5. Look back: warp 0 publishes the tile's aggregate as one 64-bit
 //      descriptor (status in the high word, value in the low word) with
 //      atomicExch; it reads the 32 descriptors
@@ -67,9 +67,9 @@
 // The caller zeroes ``status`` (one word per tile plus the counter) before
 // every launch, so no state survives from one call to the next.
 // With more than kMaxPayloads payloads, the first launch also records each
-// tile's exclusive prefix in ``tile_offsets``; the later groups use the
-// offsets-given scatter of compaction_tile.cuh (K1's) over them, with no
-// second look-back.
+// tile's survivor count in ``tile_counts``; the later groups use the
+// offsets-given scatter of compaction_tile.cuh (K1's second pass) over
+// them, with no second look-back.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -94,34 +94,53 @@ constexpr unsigned long long kStatusAggregate = 1ull;
 constexpr unsigned long long kStatusPrefix = 2ull;
 
 
-// Which payload columns are staged together: group g holds columns
-// [end[g - 1], end[g]), each column's tile at ``offset[k]`` bytes into the
-// staging buffer.
-struct StagePlan {
-  int groups;
-  int stage_bytes;  // the widest group's tiles
-  int end[kMaxPayloads];
-  int offset[kMaxPayloads];
-};
+constexpr int kSlots = kIters * kWarps;  // 32-row groups per tile
+static_assert(kSlots == 4 * 32,
+              "the shared-memory scan gives each lane 4 slots");
 
-// Consecutive columns, each tile aligned to its element width, at most
-// kStageRowBytes a row per group; any one column fits a group alone.
-StagePlan plan_stages(const Payloads& p) {
-  StagePlan plan{};
-  int used = 0;
-  for (int k = 0; k < p.count; ++k) {
-    const int w = p.width[k];
-    int at = (used + w - 1) / w * w;
-    if (k > 0 && at + w > kStageRowBytes) {
-      plan.end[plan.groups++] = k;
-      at = 0;
-    }
-    plan.offset[k] = at * kTile;
-    used = at + w;
-    if (used * kTile > plan.stage_bytes) plan.stage_bytes = used * kTile;
+// This thread's ballots over the tile at ``base``: ballot[j] covers rows
+// base + j * kThreads + 32 * warp + (0..31). Lane 0 of each warp writes the
+// survivor count of slot s = j * kWarps + warp, so slot order is row order.
+__device__ __forceinline__ void tile_ballots(const uint8_t* __restrict__ mask,
+                                             long long n, long long base,
+                                             unsigned (&ballot)[kIters],
+                                             int* slot_offset) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int j = 0; j < kIters; ++j) {
+    const long long row = base + j * kThreads + threadIdx.x;
+    const bool keep = row < n && mask[row] != 0;
+    ballot[j] = __ballot_sync(kFull, keep);
+    if (lane == 0) slot_offset[j * kWarps + warp] = __popc(ballot[j]);
   }
-  if (p.count > 0) plan.end[plan.groups++] = p.count;
-  return plan;
+}
+
+// Called by warp 0 alone: replaces the kSlots counts by their exclusive
+// scan, 4 slots per lane, and returns the tile's survivor count to every
+// lane.
+__device__ __forceinline__ int scan_slots(int* slot_offset) {
+  const int lane = threadIdx.x & 31;
+  int v[4];
+  int local = 0;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    v[k] = slot_offset[lane * 4 + k];
+    local += v[k];
+  }
+  int incl = local;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int up = __shfl_up_sync(kFull, incl, d);
+    if (lane >= d) incl += up;
+  }
+  int run = incl - local;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    slot_offset[lane * 4 + k] = run;
+    run += v[k];
+  }
+  return __shfl_sync(kFull, incl, 31);
 }
 
 __device__ __forceinline__ unsigned long long descriptor(
@@ -181,27 +200,6 @@ __device__ __forceinline__ int look_back(unsigned long long* status,
     publish(&status[tile], descriptor(kStatusPrefix, exclusive + total));
   }
   return exclusive;
-}
-
-template <int kBytes>
-__device__ __forceinline__ void copy_async(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  if constexpr (kBytes == 16) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-                 "l"(gmem));
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s),
-                 "l"(gmem), "n"(kBytes));
-  }
-}
-
-__device__ __forceinline__ void commit_copies() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// Waits for all of this thread's copies, committed or not.
-__device__ __forceinline__ void wait_copies() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // A 4- or 8-byte column: one copy per survivor of this thread, row
@@ -274,15 +272,6 @@ __device__ __forceinline__ void stage_group(const Payloads& p,
   commit_copies();
 }
 
-template <typename T>
-__device__ __forceinline__ void write_column(const unsigned char* stage,
-                                             void* out, int offset, int total,
-                                             const uint16_t* s_pos) {
-  const T* s = reinterpret_cast<const T*>(stage);
-  T* o = static_cast<T*>(out) + offset;
-  for (int j = threadIdx.x; j < total; j += kThreads) o[j] = s[s_pos[j]];
-}
-
 // Writes columns [first, last) of the tile's survivors to their run.
 __device__ __forceinline__ void write_group(const Payloads& p,
                                             const StagePlan& plan, int first,
@@ -290,13 +279,16 @@ __device__ __forceinline__ void write_group(const Payloads& p,
                                             const unsigned char* stage,
                                             int offset, int total,
                                             const uint16_t* s_pos) {
+  const Positions pos{s_pos, false};
+  const int tid = threadIdx.x;
   for (int k = first; k < last; ++k) {
     const unsigned char* s = stage + plan.offset[k];
+    void* out = p.out[k];
     switch (p.width[k]) {
-      case 8: write_column<uint64_t>(s, p.out[k], offset, total, s_pos); break;
-      case 4: write_column<uint32_t>(s, p.out[k], offset, total, s_pos); break;
-      case 2: write_column<uint16_t>(s, p.out[k], offset, total, s_pos); break;
-      default: write_column<uint8_t>(s, p.out[k], offset, total, s_pos); break;
+      case 8: write_column<uint64_t>(s, out, offset, total, pos, tid); break;
+      case 4: write_column<uint32_t>(s, out, offset, total, pos, tid); break;
+      case 2: write_column<uint16_t>(s, out, offset, total, pos, tid); break;
+      default: write_column<uint8_t>(s, out, offset, total, pos, tid); break;
     }
   }
 }
@@ -306,7 +298,7 @@ __device__ __forceinline__ void write_group(const Payloads& p,
 __global__ void __launch_bounds__(kThreads, 4)
 lookback_kernel(const uint8_t* __restrict__ mask, long long n,
                 unsigned long long* __restrict__ status, long long tiles,
-                int32_t* __restrict__ tile_offsets,
+                int32_t* __restrict__ tile_counts,
                 int32_t* __restrict__ count, int32_t* __restrict__ idx_out,
                 Payloads p, StagePlan plan) {
   // dynamic shared memory: the staged payload tiles, then the survivors'
@@ -340,7 +332,7 @@ lookback_kernel(const uint8_t* __restrict__ mask, long long n,
     const int offset = look_back(status, tile, total);
     if (threadIdx.x == 0) {
       s_offset = offset;
-      if (tile_offsets != nullptr) tile_offsets[tile] = offset;
+      if (tile_counts != nullptr) tile_counts[tile] = total;
       if (tile == tiles - 1) *count = offset + total;
     }
   }
@@ -390,12 +382,12 @@ const char* gt_error_string(int code) {
 }
 
 // The single pass: ``status`` holds ceil(n / tile) + 1 zeroed 64-bit words
-// (the descriptors, then the tile counter); ``tile_offsets`` (may be null)
-// receives each tile's exclusive prefix; ``count`` (one int32) the number
+// (the descriptors, then the tile counter); ``tile_counts`` (may be null)
+// receives each tile's survivor count; ``count`` (one int32) the number
 // of survivors. ``ins``/``outs`` hold num_payloads device pointers,
 // ``widths`` their element sizes (1, 2, 4 or 8).
 int gt_fragnet_compact(const void* mask, long long n, void* status,
-                       void* tile_offsets, void* count, void* idx_out,
+                       void* tile_counts, void* count, void* idx_out,
                        int num_payloads, const void* const* ins,
                        void* const* outs, const int* widths, void* stream) {
   if (n <= 0) return 0;
@@ -403,13 +395,7 @@ int gt_fragnet_compact(const void* mask, long long n, void* status,
   if (!make_payloads(num_payloads, ins, outs, widths, &p)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  for (int k = 0; k < num_payloads; ++k) {
-    const int w = p.width[k];
-    if (w != 1 && w != 2 && w != 4 && w != 8) {
-      return static_cast<int>(cudaErrorInvalidValue);
-    }
-  }
-  const StagePlan plan = plan_stages(p);
+  const StagePlan plan = plan_stages(p, kStageRowBytes);
   const int smem = plan.stage_bytes + kTile * static_cast<int>(sizeof(uint16_t));
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
@@ -427,25 +413,24 @@ int gt_fragnet_compact(const void* mask, long long n, void* status,
                     static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(mask), n,
       static_cast<unsigned long long*>(status), tiles,
-      static_cast<int32_t*>(tile_offsets), static_cast<int32_t*>(count),
+      static_cast<int32_t*>(tile_counts), static_cast<int32_t*>(count),
       static_cast<int32_t*>(idx_out), p, plan);
   return static_cast<int>(cudaGetLastError());
 }
 
-// A later group of payloads over the offsets the single pass recorded.
-int gt_fragnet_scatter(const void* mask, long long n, const void* tile_offsets,
+// A later group of payloads over the tile counts the single pass recorded:
+// the offsets-given scatter of compaction_tile.cuh.
+int gt_fragnet_scatter(const void* mask, long long n, const void* tile_counts,
                        int num_payloads, const void* const* ins,
                        void* const* outs, const int* widths, void* stream) {
-  if (n <= 0) return 0;
   Payloads p;
   if (!make_payloads(num_payloads, ins, outs, widths, &p)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  scatter_kernel<<<num_tiles(n), kThreads, 0,
-                   static_cast<cudaStream_t>(stream)>>>(
+  return static_cast<int>(launch_scatter(
       static_cast<const uint8_t*>(mask), n,
-      static_cast<const int32_t*>(tile_offsets), nullptr, p);
-  return static_cast<int>(cudaGetLastError());
+      static_cast<const int32_t*>(tile_counts), nullptr, nullptr, p,
+      static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

@@ -10,13 +10,17 @@ payload come out packed to the front in row order, every output of length
 n and meaningful on ``[:count]``; ``count`` is a 0-d int32 device tensor, so
 a caller that does not ask for it never syncs the host. Any number of
 payloads: one scatter launch moves up to ``MAX_PAYLOADS`` of them, so the
-wrapper launches one per group over the same tile offsets.
+wrapper launches one per group over the same tile counts.
 
-Bound: bytes. The flagship batch (n = 64Mi rows, survivor fraction ≈ 0.474,
-payloads f64 + bool) must read mask 1 B + f64 8 B + validity 1 B = 10 B/row
-and write 0.474 × (4 + 8 + 1) ≈ 6.2 B/row: ≈ 16.2 B/row, ≈ 1.08 GB per
-call, ≈ 0.32 ms at the H100 SXM's 3.35 TB/s. The design (two passes over
-4096-row tiles, warp ballots, coalesced stores) is described in the source.
+Bound: bytes. Each row's 1 B mask is read once; each survivor's payloads
+are read once and written once with its 4 B index
+(``chip_smoke.py::compaction_bytes``). The flagship batch (n = 64Mi rows,
+survivor fraction ≈ 0.474, payloads f64 + bool) moves 67.1 MB of mask and
+31.8M × (4 + 2 × 9) B ≈ 0.767 GB in all: 0.2289 ms at the H100 SXM's
+3.35 TB/s. The design (a count pass over 16-byte mask vectors, then the
+offsets-given scatter of ``compaction_tile.cuh``, which sums the counts
+before each tile itself and loads dense tiles whole with bulk copies) is
+described in the source.
 
 ``compact_columns`` launches the kernel for CUDA tensors and takes
 ``compact_columns_plain`` only for CPU tensors; there is no fallback from
@@ -36,13 +40,17 @@ _WIDTHS = (1, 2, 4, 8)
 
 
 def _lib() -> ctypes.CDLL:
+    """K1's kernel library, built at first use."""
     lib = build.load("compaction")
     if not getattr(lib, "_gt_typed", False):
         vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         lib.gt_compact_count.argtypes = [vp, ll, vp, vp]
         lib.gt_compact_count.restype = ci
-        lib.gt_compact_scatter.argtypes = [vp, ll, vp, vp, ci, vp, vp, vp, vp]
+        lib.gt_compact_scatter.argtypes = [vp, ll, vp, vp, vp, ci, vp, vp,
+                                           vp, vp]
         lib.gt_compact_scatter.restype = ci
+        lib.gt_compact_scatter_shape.argtypes = [ci, vp, vp]
+        lib.gt_compact_scatter_shape.restype = ci
         lib.gt_compact_tile_rows.restype = ci
         lib.gt_compact_max_payloads.restype = ci
         lib.gt_error_string.argtypes = [ci]
@@ -94,6 +102,62 @@ def payload_group(columns: Sequence[torch.Tensor],
     return [ctypes.cast(a, ctypes.c_void_p) for a in (ins, outp, widths)]
 
 
+def tile_counts(mask: torch.Tensor) -> torch.Tensor:
+    """K1's count pass: the survivors of each 4096-row tile of a CUDA
+    ``mask``, as int32."""
+    lib = _lib()
+    n = mask.shape[0]
+    counts = torch.empty(-(-n // lib.gt_compact_tile_rows()),
+                         dtype=torch.int32, device=mask.device)
+    with torch.cuda.device(mask.device):
+        stream = torch.cuda.current_stream(mask.device).cuda_stream
+        _check(lib, lib.gt_compact_count(mask.data_ptr(), n,
+                                         counts.data_ptr(), stream),
+               "gt_compact_count")
+    return counts
+
+
+def scatter(mask: torch.Tensor, counts: torch.Tensor,
+            columns: Sequence[torch.Tensor]
+            ) -> Tuple[torch.Tensor, List[torch.Tensor], torch.Tensor]:
+    """K1's second pass: each tile's survivors to the run after those of
+    the tiles before it (``counts``: ``tile_counts``), one launch per group
+    of ``MAX_PAYLOADS`` columns; the first (which may have no column)
+    writes the row indices and the count. Returns (indices, packed
+    columns, count)."""
+    lib = _lib()
+    n = mask.shape[0]
+    indices = torch.empty(n, dtype=torch.int32, device=mask.device)
+    outs = [torch.empty_like(c) for c in columns]
+    count = torch.empty((), dtype=torch.int32, device=mask.device)
+    with torch.cuda.device(mask.device):
+        stream = torch.cuda.current_stream(mask.device).cuda_stream
+        for g in range(0, max(len(columns), 1), MAX_PAYLOADS):
+            group = range(g, min(g + MAX_PAYLOADS, len(columns)))
+            _check(lib, lib.gt_compact_scatter(
+                mask.data_ptr(), n, counts.data_ptr(),
+                indices.data_ptr() if g == 0 else None,
+                count.data_ptr() if g == 0 else None, len(group),
+                *payload_group(columns, outs, group), stream),
+                "gt_compact_scatter")
+            LAUNCHES["compact"] += 1
+    return indices, outs, count
+
+
+def scatter_shape(columns: Sequence[torch.Tensor]) -> Tuple[int, int, int]:
+    """The scatter's persistent grid (SMs × CTAs an SM), its stages and its
+    dynamic shared memory in bytes, for the first group of ``columns`` on
+    the current card."""
+    lib = _lib()
+    group = range(min(len(columns), MAX_PAYLOADS))
+    widths = (ctypes.c_int * MAX_PAYLOADS)(
+        *[columns[i].element_size() for i in group])
+    shape = (ctypes.c_int * 3)()
+    _check(lib, lib.gt_compact_scatter_shape(len(group), widths, shape),
+           "gt_compact_scatter_shape")
+    return shape[0], shape[1], shape[2]
+
+
 def compact_columns_cuda(mask: torch.Tensor, columns: Sequence[torch.Tensor]
                          ) -> Tuple[torch.Tensor, List[torch.Tensor],
                                     torch.Tensor]:
@@ -102,33 +166,11 @@ def compact_columns_cuda(mask: torch.Tensor, columns: Sequence[torch.Tensor]
         raise ValueError(f"compact_columns_cuda takes CUDA tensors, got "
                          f"{mask.device}")
     _validate(mask, columns)
-    n = mask.shape[0]
-    dev = mask.device
-    indices = torch.empty(n, dtype=torch.int32, device=dev)
-    outs = [torch.empty_like(c) for c in columns]
-    if n == 0:
-        return indices, outs, torch.zeros((), dtype=torch.int32, device=dev)
-    lib = _lib()
-    tile = lib.gt_compact_tile_rows()
-    counts = torch.empty(-(-n // tile), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        _check(lib, lib.gt_compact_count(mask.data_ptr(), n,
-                                         counts.data_ptr(), stream),
-               "gt_compact_count")
-        inclusive = torch.cumsum(counts, 0, dtype=torch.int32)
-        offsets = inclusive - counts
-        # one scatter per group of MAX_PAYLOADS columns, all over the same
-        # offsets; the first group (which may be empty) writes the indices
-        for g in range(0, max(len(columns), 1), MAX_PAYLOADS):
-            group = range(g, min(g + MAX_PAYLOADS, len(columns)))
-            _check(lib, lib.gt_compact_scatter(
-                mask.data_ptr(), n, offsets.data_ptr(),
-                indices.data_ptr() if g == 0 else None, len(group),
-                *payload_group(columns, outs, group), stream),
-                "gt_compact_scatter")
-            LAUNCHES["compact"] += 1
-    return indices, outs, inclusive[-1]
+    if mask.shape[0] == 0:
+        return (torch.empty(0, dtype=torch.int32, device=mask.device),
+                [torch.empty_like(c) for c in columns],
+                torch.zeros((), dtype=torch.int32, device=mask.device))
+    return scatter(mask, tile_counts(mask), columns)
 
 
 def compact_columns_plain(mask: torch.Tensor, columns: Sequence[torch.Tensor]

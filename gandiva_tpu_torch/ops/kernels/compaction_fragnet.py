@@ -21,8 +21,9 @@ The wrapper zeroes the tiles' descriptors and the tile counter with one
 ``MAX_PAYLOADS`` payloads. The kernel stages a tile's payloads in shared
 memory, in groups of columns it plans from their widths; the first group's
 loads are in flight during the look-back. More payloads than
-``MAX_PAYLOADS``: the single pass also records each tile's offset, and one
-scatter-only launch per later group reuses them.
+``MAX_PAYLOADS``: the single pass also records each tile's survivor count,
+and one launch per later group of K1's offsets-given scatter
+(``csrc/compaction_tile.cuh``) reuses them.
 ``compact_fragnet_columns`` launches the kernel for CUDA tensors and takes
 ``compact_fragnet_plain`` only for CPU tensors; there is no fallback from one
 to the other.
@@ -89,14 +90,14 @@ def launch(mask: torch.Tensor, columns: Sequence[torch.Tensor],
     status = torch.zeros(tiles + 1, dtype=torch.int64, device=dev)
     count = torch.empty((), dtype=torch.int32, device=dev)
     more = len(columns) > MAX_PAYLOADS
-    tile_offsets = torch.empty(tiles, dtype=torch.int32, device=dev) \
+    tile_counts = torch.empty(tiles, dtype=torch.int32, device=dev) \
         if more else None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         first = range(min(len(columns), MAX_PAYLOADS))
         _check(lib, lib.gt_fragnet_compact(
             mask.data_ptr(), n, status.data_ptr(),
-            tile_offsets.data_ptr() if more else None, count.data_ptr(),
+            tile_counts.data_ptr() if more else None, count.data_ptr(),
             indices.data_ptr(), len(first),
             *payload_group(columns, outs, first), stream),
             "gt_fragnet_compact")
@@ -104,7 +105,7 @@ def launch(mask: torch.Tensor, columns: Sequence[torch.Tensor],
         for g in range(MAX_PAYLOADS, len(columns), MAX_PAYLOADS):
             group = range(g, min(g + MAX_PAYLOADS, len(columns)))
             _check(lib, lib.gt_fragnet_scatter(
-                mask.data_ptr(), n, tile_offsets.data_ptr(), len(group),
+                mask.data_ptr(), n, tile_counts.data_ptr(), len(group),
                 *payload_group(columns, outs, group), stream),
                 "gt_fragnet_scatter")
             LAUNCHES["compact_fragnet"] += 1

@@ -228,6 +228,76 @@ def test_flagship_plan_launches_k1():
     assert torch.equal(value[:c], (b * 2.0 + a.double())[keep])
 
 
+@pytest.mark.parametrize("density", [0.0, 0.02, 0.474, 0.97, 1.0])
+def test_k1_densities_match_plain(density):
+    """Densities on both sides of the scatter's bulk-load threshold, so
+    dense tiles (loaded whole) and sparse ones (survivor by survivor) both
+    run, with a ragged last tile."""
+    dev = _card()
+    g = torch.Generator(device=dev)
+    g.manual_seed(int(density * 1000) + 7)
+    n = 37 * 4096 + 123
+    mask = torch.rand(n, generator=g, device=dev) < density
+    cols = _payloads(n, g, dev)
+    reset_launches()
+    got = compact_columns(mask, cols)
+    torch.cuda.synchronize()
+    assert LAUNCHES["compact"] == 1
+    _same_compaction(got, compact_columns_plain(mask, cols))
+
+
+@pytest.mark.parametrize("n", [4 * 4096 - 1, 4 * 4096, 4 * 4096 + 1,
+                               1_000_037])
+def test_k1_indices_only_matches_plain(n):
+    """No payload (Filter.evaluate): one scatter launch writes the row
+    indices and the count."""
+    dev = _card()
+    g = torch.Generator(device=dev)
+    g.manual_seed(n)
+    mask = torch.rand(n, generator=g, device=dev) < 0.474
+    reset_launches()
+    got = compact_columns(mask, [])
+    torch.cuda.synchronize()
+    assert LAUNCHES["compact"] == 1
+    _same_compaction(got, compact_columns_plain(mask, []))
+
+
+@pytest.mark.parametrize("offset", [1, 3, 8])
+def test_k1_unaligned_views_match_plain_and_k2(offset):
+    """A mask and payloads that start ``offset`` elements into their
+    buffers: the count pass counts byte by byte and the scatter takes the
+    mask and the 1- and 2-byte columns element by element (8 leaves the
+    2-byte column 16-B aligned)."""
+    dev = _card()
+    from gandiva_tpu_torch.ops.kernels.compaction_fragnet import (
+        compact_fragnet_columns)
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(offset + 40)
+    n = 1_000_037
+    mask = (torch.rand(n + offset, generator=g, device=dev) < 0.4)[offset:]
+    cols = [c[offset:] for c in _payloads(n + offset, g, dev)]
+    got = compact_columns(mask, cols)
+    torch.cuda.synchronize()
+    _same_compaction(got, compact_columns_plain(mask, cols))
+    _same_compaction(got, compact_fragnet_columns(mask, cols))
+
+
+def test_k1_back_to_back_calls():
+    """20 calls in a row on new masks, none checked until all have run."""
+    dev = _card()
+    g = torch.Generator(device=dev)
+    g.manual_seed(20)
+    n = 1_000_037
+    cols = _payloads(n, g, dev)[:2]
+    masks = [torch.rand(n, generator=g, device=dev) < (k + 1) / 21
+             for k in range(20)]
+    runs = [compact_columns(m, cols) for m in masks]
+    torch.cuda.synchronize()
+    for m, got in zip(masks, runs):
+        _same_compaction(got, compact_columns_plain(m, cols))
+
+
 @pytest.mark.parametrize("n,density", [(4096, 1.0), (1_000_037, 0.43)])
 def test_k1_many_payloads_matches_plain(n, density):
     """Ten payloads: two scatter launches over the same tile offsets."""
