@@ -116,8 +116,28 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                 build rows, 10% null keys on both sides: all six join types
                 and a two-key join_multi against pyarrow.acero's hashjoin,
                 row for row after sorting the pairs, and the hot path's
-                (start, len) against the dense path's.
-Then one {"kernels": [...]} line, and last {"ok": true, "device": {...}}.
+                (start, len) against the dense path's;
+ 18. registry — every signature of the date/time, interval, hash and
+                decimal registry (aliases included; decimals at precisions
+                9, 18, 28 and 38, every pair for the binary functions,
+                castDECIMAL to two targets) through make_projector on the
+                card and on the CPU over 1,048,576 rows made from a numpy
+                seed (5% nulls, dates 1600-01-01 .. 2400-12-31), bit for bit
+                (floats by their bits); prints the count held by family;
+                then int128 division by 10^2 and 10^10 by the port's
+                limb route and by divmod128: equal bits, and both times;
+ 19. TPC-H    — the lineitem scans of TPC-H Q1 and Q6 (make_filter_project,
+                entrypoints.tpch_q1_scan / tpch_q6_scan) over SF10's
+                59,986,052 LINEITEM rows made on the card (decimal(15,2)
+                money columns, a date32 ship date): rows/s of one
+                synchronized evaluate_device (best of 3), survivors, K1
+                launches, peak device memory, the profiler's top 8 and busy
+                share, a call's host clock split around K1 and the count's
+                sync; the selection and every output exact against plain
+                int64 on the card, and the first 1,048,576 rows against
+                pyarrow.compute (Q6, and Q1's outputs but its charge).
+Then one {"kernels": [...]} line (K1's launches by path include both
+scans), and last {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -160,6 +180,13 @@ ARROW_KEYS = 500_000
 JOIN_HOWS = ("inner", "left", "right", "full", "semi", "anti")
 ACERO = {"inner": "inner", "left": "left outer", "right": "right outer",
          "full": "full outer", "semi": "left semi", "anti": "left anti"}
+N_REGISTRY = 1 << 20             # phase 18's rows
+REGISTRY_NULLS = 0.05
+DEC_TYPES = ("decimal128(9,2)", "decimal128(18,4)", "decimal128(28,6)",
+             "decimal128(38,10)")
+DAY_FIRST, DAY_LAST = -135140, 157419   # 1600-01-01, 2400-12-31
+MS_PER_DAY = 86_400_000
+N_TPCH_PREFIX = 1 << 20          # phase 19's rows held against pyarrow
 
 
 def log(*a):
@@ -288,11 +315,12 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def profile_call(fn):
-    """Device time by kernel for one call of ``fn`` (torch.profiler), and
-    the device's busy share of that same call's synchronized wall time (the
-    profiler's own overhead included); None if the profiler sees no device
-    time."""
+def profile_call(fn, top=None):
+    """Device time by kernel for one call of ``fn`` (torch.profiler; the
+    ``top`` largest kernels printed, or all), and the device's busy share of
+    that same call's synchronized wall time (the profiler's own overhead
+    included). Returns (busy share, rows as (µs, launches, name) largest
+    first); the share is None if the profiler sees no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -314,13 +342,14 @@ def profile_call(fn):
     device_us = sum(r[0] for r in rows)
     if device_us == 0:
         log("profiler: no device time recorded (not measured)")
-        return None
-    log(f"profiler: device time {device_us / 1e3:.3f} ms in one call; "
-        f"busy share of its own {wall_s * 1e3:.3f} ms wall: "
-        f"{device_us / 1e6 / wall_s:.1%}")
-    for us, n, key in rows:
-        log(f"   {us / 1e3:9.3f} ms {n:4d}x  {key[:100]}")
-    return device_us / 1e6 / wall_s
+        return None, rows
+    log(f"profiler: device time {device_us / 1e3:.3f} ms in one call "
+        f"({sum(r[1] for r in rows)} launches); busy share of its own "
+        f"{wall_s * 1e3:.3f} ms wall: {device_us / 1e6 / wall_s:.1%}")
+    for us, n, key in rows[:top]:
+        log(f"   {us / 1e3:9.3f} ms {n:4d}x  {us / device_us:6.1%}  "
+            f"{key[:100]}")
+    return device_us / 1e6 / wall_s, rows
 
 
 def hold_k5(got, want, kinds, what: str) -> float:
@@ -428,6 +457,405 @@ def acero_pairs(pt, bt, keys, how: str, nb: int) -> np.ndarray:
     b = res.column("bv").fill_null(-1).to_numpy() \
         if how not in ("semi", "anti") else np.full(len(p), -1)
     return pair_codes(p, b, nb)
+
+
+# -- phase 18: the decimal, date/time, interval and hash registry ----------
+
+def registry_cases(gt):
+    """(name, argument type names, return or target type name, int32
+    literal or None) of every signature of the date/time, hash and decimal
+    registry: aliases included, decimals at DEC_TYPES (every pair of them
+    for the binary functions), castDECIMAL to two targets of each."""
+    from gandiva_tpu_torch.registry import decimal_ops
+
+    reg = gt.global_registry()
+    decs = [gt.batch.parse_dtype(t) for t in DEC_TYPES]
+    for a in decs:
+        for b in decs:
+            decimal_ops.ensure_registered([a, b])
+    mods = ("gandiva_tpu_torch.registry.datetime_ops",
+            "gandiva_tpu_torch.registry.hash_ops",
+            "gandiva_tpu_torch.registry.decimal_ops")
+    cases = set()
+    for sig in gt.get_registered_function_signatures():
+        params = tuple(map(str, sig.param_types))
+        fn = reg.lookup(sig.name, sig.param_types)
+        named = [p for p in params if p.startswith("decimal")]
+        if not (fn.impl.__module__ in mods or named) \
+                or not set(named) <= set(DEC_TYPES):
+            continue
+        if fn.needs_return_type:           # castDECIMAL*: two targets
+            k = DEC_TYPES.index(params[0]) if named else 1
+            for target in {DEC_TYPES[(k + 1) % 4], DEC_TYPES[(k + 3) % 4]}:
+                cases.add((sig.name, params, target, None))
+        elif params[1:] == ("int32",) and named:   # round/truncate(d, s)
+            cases.add((sig.name, params[:1], str(sig.return_type), 1))
+        else:
+            cases.add((sig.name, params, str(sig.return_type), None))
+    return sorted(cases, key=str)
+
+
+def registry_column(t: str, n: int, rng, amount: bool):
+    """Random (data, validity, hi) numpy arrays of type ``t``, 5% nulls:
+    dates over DAY_FIRST..DAY_LAST, decimals over their precision, and with
+    ``amount`` small integers (the day and month counts of the date
+    functions)."""
+    valid = rng.random(n) >= REGISTRY_NULLS
+    hi = None
+    full = {"int8": np.int8, "int16": np.int16, "int32": np.int32,
+            "int64": np.int64, "uint8": np.uint8, "uint16": np.uint16,
+            "uint32": np.uint32, "uint64": np.uint64}
+    if t.startswith("decimal128("):
+        prec = int(t[len("decimal128("):].split(",")[0])
+        if prec <= 18:
+            data = rng.integers(1 - 10 ** prec, 10 ** prec, n)
+            hi = np.where(data < 0, -1, 0)
+        else:                       # |hi| below 10^prec / 2^64
+            data = rng.integers(-(1 << 63), (1 << 63) - 1, n, endpoint=True)
+            hi = rng.integers(-(10 ** prec >> 64), 10 ** prec >> 64, n)
+        data[::97] = 0              # zero divisors
+        hi[::97] = 0
+    elif t == "date32":
+        data = rng.integers(DAY_FIRST, DAY_LAST, n, endpoint=True
+                            ).astype(np.int32)
+    elif t in ("date64", "timestamp"):
+        data = rng.integers(DAY_FIRST, DAY_LAST, n, endpoint=True) \
+            * MS_PER_DAY + rng.integers(0, MS_PER_DAY, n)
+    elif t == "time32":
+        data = rng.integers(0, MS_PER_DAY, n).astype(np.int32)
+    elif t == "time64":
+        data = rng.integers(0, MS_PER_DAY * 1000, n)
+    elif t == "interval_day":
+        data = (rng.integers(-20000, 20000, n) << 32) \
+            | rng.integers(0, MS_PER_DAY, n)
+    elif t == "interval_year":
+        data = rng.integers(-2400, 2400, n).astype(np.int32)
+    elif t == "bool":
+        data = rng.random(n) < 0.5
+    elif t in ("float32", "float64"):
+        data = (rng.standard_normal(n) * 1e6).astype(t)
+        data[:5] = [0.0, -0.0, np.nan, np.inf, -np.inf]
+    elif amount:
+        data = rng.integers(-50000, 50000, n).astype(full[t])
+    else:
+        info = np.iinfo(full[t])
+        data = rng.integers(info.min, info.max, n, dtype=full[t],
+                            endpoint=True)
+    return data, valid, hi
+
+
+def same_column(got, want) -> bool:
+    """A card column against a CPU column: validity, then the data's bits
+    (NaN equal to NaN) and the high limb."""
+    if not torch.equal(got.validity.cpu(), want.validity):
+        return False
+    g, w = got.data.cpu(), want.data
+    if g.dtype.is_floating_point:
+        nan = torch.isnan(w)
+        if not torch.equal(torch.isnan(g), nan):
+            return False
+        g, w = g.masked_fill(nan, 0), w.masked_fill(nan, 0)
+    if not torch.equal(bits(g), bits(w)):
+        return False
+    return want.extra is None or torch.equal(got.extra.cpu(), want.extra)
+
+
+def hold_registry(gt, dev) -> dict:
+    """Every registry case through make_projector on the card and on the
+    CPU over N_REGISTRY rows; any difference fails. Returns the count of
+    signatures held by family."""
+    rng = np.random.default_rng(18)
+    cases = registry_cases(gt)
+    columns = {}                # (type, position, amount) → both batches
+    B, dt = gt.TreeExprBuilder, gt.dtypes
+    held = {}
+    t0 = time.perf_counter()
+    for name, params, ret, lit in cases:
+        amount = name not in ("hash32", "hash64", "hash", "hash32AsDouble",
+                              "hash64AsDouble", "castDECIMAL",
+                              "castDECIMALNullOnOverflow")
+        for i, t in enumerate(params):
+            key = (t, i, amount)
+            if key not in columns:
+                cols = {"c": (t, *registry_column(t, N_REGISTRY, rng,
+                                                  amount))}
+                columns[key] = tuple(
+                    gt.from_columns_numpy(cols, N_REGISTRY, device=d)
+                    .column("c") for d in (dev, "cpu"))
+        fields = [dt.Field(f"a{i}", gt.batch.parse_dtype(t))
+                  for i, t in enumerate(params)]
+        args = [B.make_field(f) for f in fields]
+        if lit is not None:
+            args.append(B.make_int32_literal(lit))
+        node = B.make_function(name, args, gt.batch.parse_dtype(ret))
+        expr = B.make_expression(node, dt.Field("out", node.dtype))
+        outs = []
+        for k, d in enumerate((dev, "cpu")):
+            batch = gt.Batch({f"a{i}": columns[(t, i, amount)][k]
+                              for i, t in enumerate(params)}, N_REGISTRY)
+            outs.append(gt.make_projector(dt.Schema(fields), [expr],
+                                          use_cache=False, device=d)
+                        .evaluate_device(batch).column("out"))
+        if not same_column(*outs):
+            raise AssertionError(f"{name}({', '.join(params)}) -> {ret}: "
+                                 "the card differs from the CPU")
+        family = ("decimal" if any(p.startswith("decimal") for p in params)
+                  or ret.startswith("decimal") else
+                  "hash" if name.startswith("hash") else "date/time")
+        held[family] = held.get(family, 0) + 1
+    log(f"{len(cases)} signatures held bit-exact, card against CPU, at "
+        f"{N_REGISTRY} rows ({REGISTRY_NULLS:.0%} nulls, days "
+        f"{DAY_FIRST}..{DAY_LAST}): {held}; "
+        f"{time.perf_counter() - t0:.1f}s")
+    return held
+
+
+def time_pow10_division(dev) -> dict:
+    """The port's division by 10^k (``int128.divmod_pow10``: long division
+    over 32-bit limbs, the route of scale reduction, round, truncate and
+    castBIGINT) against the reference's route (``divmod128`` by 10^k, its
+    128-step loop) over N_REGISTRY decimal128(38,10) values: the same bits,
+    and each route's time, on the card (CUDA events) and on the CPU (one
+    call). Returns {k: {route: ms}}."""
+    from gandiva_tpu_torch.utils import int128 as i128
+
+    lo, _, hi = registry_column("decimal128(38,10)", N_REGISTRY,
+                                np.random.default_rng(181), False)
+    times = {}
+    for k in (2, 10):
+        ph, pl = i128.pow10_128(k)
+        row = {}
+        for where, d in (("card", dev), ("cpu", "cpu")):
+            h, l = torch.from_numpy(hi).to(d), torch.from_numpy(lo).to(d)
+
+            def limbs():
+                return i128.divmod_pow10(h, l, k)
+
+            def loop():
+                return i128.divmod128(h, l, torch.full_like(h, ph),
+                                      torch.full_like(l, pl))
+
+            got, want = limbs(), loop()
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError(f"divmod_pow10 by 10^{k} differs from "
+                                     f"divmod128 on the {where}")
+            if where == "card":
+                row["card_limbs_ms"] = time_ms(limbs, 10, 2)
+                row["card_divmod128_ms"] = time_ms(loop, 3, 1)
+            else:
+                for key, fn in (("cpu_limbs_ms", limbs),
+                                ("cpu_divmod128_ms", loop)):
+                    t = time.perf_counter()
+                    fn()
+                    row[key] = (time.perf_counter() - t) * 1e3
+        times[k] = row
+    log(f"int128 ÷ 10^k over {N_REGISTRY} rows, divmod_pow10 equal to "
+        f"divmod128 bit for bit: {json.dumps(times)}")
+    return times
+
+
+# -- phase 19: the TPC-H Q1 and Q6 lineitem scans ---------------------------
+
+def tpch_plain(batch, query: str):
+    """The scan's selection and outputs in plain int64 on the card, at each
+    output's result scale (no output of these scans reduces its scale):
+    Q1 disc_price = ep·(100 − disc) at scale 4, charge = ep·(100 −
+    disc)·(100 + tax) at scale 6; Q6 revenue = ep·disc at scale 4."""
+    from gandiva_tpu_torch import entrypoints as e
+
+    c = {k: batch.column(k).data for k in batch.columns}
+    ship, disc, qty = c["l_shipdate"], c["l_discount"], c["l_quantity"]
+    ep, tax = c["l_extendedprice"], c["l_tax"]
+    if query == "Q1":
+        keep = ship <= e.Q1_SHIPDATE - e.Q1_DELTA
+        outs = {"l_quantity": qty, "l_extendedprice": ep,
+                "disc_price": ep * (100 - disc),
+                "charge": ep * (100 - disc) * (100 + tax)}
+    else:
+        keep = ((ship >= e.Q6_FROM) & (ship < e.Q6_TO) & (disc >= 5)
+                & (disc <= 7) & (qty < 2400))
+        outs = {"revenue": ep * disc}
+    return torch.nonzero(keep).flatten(), outs
+
+
+def hold_tpch_prefix(gt, plan, batch, query: str) -> int:
+    """The scan over the first N_TPCH_PREFIX rows against pyarrow.compute
+    on the same rows (after to_arrow): the selection, and Q6's revenue
+    and Q1's first three outputs (Q1's charge, of precision 49 before
+    adjustment, is past pyarrow's decimal128)."""
+    import datetime
+    import decimal
+
+    import pyarrow as pa
+    import pyarrow.compute as pc
+
+    m = N_TPCH_PREFIX
+    prefix = gt.Batch({k: gt.Column(c.data[:m], c.validity[:m], c.dtype,
+                                    extra=None if c.extra is None
+                                    else c.extra[:m])
+                       for k, c in batch.columns.items()}, m)
+    arrow = gt.to_arrow(prefix)
+    col = {k: arrow.column(k) for k in arrow.schema.names}
+
+    def day(v):
+        return pa.scalar(datetime.date(1970, 1, 1)
+                         + datetime.timedelta(days=v), pa.date32())
+
+    def dec(v, p, s):
+        return pa.scalar(decimal.Decimal(v), pa.decimal128(p, s))
+
+    from gandiva_tpu_torch import entrypoints as e
+    if query == "Q1":
+        keep = pc.less_equal(col["l_shipdate"],
+                             day(e.Q1_SHIPDATE - e.Q1_DELTA))
+        want = [col["l_quantity"], col["l_extendedprice"],
+                pc.multiply(col["l_extendedprice"],
+                            pc.subtract(dec("1", 1, 0), col["l_discount"]))]
+    else:
+        keep = pc.and_(pc.and_(
+            pc.and_(pc.greater_equal(col["l_shipdate"], day(e.Q6_FROM)),
+                    pc.less(col["l_shipdate"], day(e.Q6_TO))),
+            pc.and_(pc.greater_equal(col["l_discount"], dec("0.05", 3, 2)),
+                    pc.less_equal(col["l_discount"], dec("0.07", 3, 2)))),
+            pc.less(col["l_quantity"], dec("24", 2, 0)))
+        want = [pc.multiply(col["l_extendedprice"], col["l_discount"])]
+    sel, outs = plan.evaluate(prefix)
+    idx = np.nonzero(keep.to_numpy(zero_copy_only=False))[0]
+    if not np.array_equal(sel.to_numpy(), idx):
+        raise AssertionError(f"{query}: selection differs from pyarrow")
+    for got, w in zip(outs, want):
+        if not got.equals(pc.filter(w, keep).cast(got.type)):
+            raise AssertionError(f"{query}: an output differs from "
+                                 "pyarrow.compute")
+    return len(idx)
+
+
+def host_split(plan, batch) -> dict:
+    """Where one scan call's wall goes on the host (median of 7 calls, ms):
+    before K1's wrapper (decomposing the plan and enqueueing its elementwise
+    chain), inside it, waiting at ``int(count)`` for the device, after it
+    (packing the outputs), and the device wait after the call returns."""
+    from gandiva_tpu_torch.compiler import projector
+
+    marks = {}
+    real_compact, real_count = projector.compact_best, plan._count
+
+    def timed_compact(*a, **k):
+        marks["in"] = time.perf_counter()
+        out = real_compact(*a, **k)
+        marks["out"] = time.perf_counter()
+        return out
+
+    def timed_count(*a, **k):
+        marks["synced"] = time.perf_counter()
+        return real_count(*a, **k)
+
+    parts = {"before_k1_ms": [], "k1_wrapper_ms": [], "count_wait_ms": [],
+             "after_ms": [], "device_wait_ms": [], "wall_ms": []}
+    projector.compact_best, plan._count = timed_compact, timed_count
+    try:
+        for _ in range(7):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            plan.evaluate_device(batch)
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            for key, s in (("before_k1_ms", marks["in"] - t0),
+                           ("k1_wrapper_ms", marks["out"] - marks["in"]),
+                           ("count_wait_ms", marks["synced"] - marks["out"]),
+                           ("after_ms", t1 - marks["synced"]),
+                           ("device_wait_ms", t2 - t1),
+                           ("wall_ms", t2 - t0)):
+                parts[key].append(s * 1e3)
+    finally:
+        projector.compact_best = real_compact
+        del plan._count
+    return {k: sorted(v)[len(v) // 2] for k, v in parts.items()}
+
+
+def drive_tpch(gt, dev, smi: str) -> dict:
+    """TPC-H Q1's and Q6's scans over SF10's 59,986,052 LINEITEM rows made
+    on the card: rows/s of one synchronized evaluate_device (best of 3),
+    survivors, K1 launches, peak memory, the profiler's top 8 and busy
+    share, a call's host clock split (``host_split``); every output held
+    exactly against plain int64 on the card, and the first N_TPCH_PREFIX
+    rows against pyarrow.compute. Returns K1's launches by scan."""
+    from gandiva_tpu_torch import entrypoints as e
+    from gandiva_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+
+    n = e.LINEITEM_SF10_ROWS
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    batch = e.lineitem(n, seed=19, device=dev)
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated() - base
+    log(f"{n} LINEITEM rows resident: {resident} B")
+    launches, report = {}, {}
+    for query, make, per_call in (("Q1", e.tpch_q1_scan, 2),
+                                  ("Q6", e.tpch_q6_scan, 1)):
+        plan = make(dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        reset_launches()
+        plan.evaluate_device(batch)                 # warm-up (allocator)
+        walls = []
+        for _ in range(3):
+            t = time.perf_counter()
+            sel, out = plan.evaluate_device(batch)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+        launches[f"TPC-H {query} scan"] = LAUNCHES["compact"]
+        peak = torch.cuda.max_memory_allocated()
+        if LAUNCHES["compact"] != 4 * per_call:
+            raise AssertionError(f"{query}: K1 launched "
+                                 f"{LAUNCHES['compact']} times, not "
+                                 f"{4 * per_call}")
+        count = int(sel.count)
+        idx, want = tpch_plain(batch, query)
+        if count != idx.numel() or not torch.equal(
+                sel.indices[:count].long(), idx):
+            raise AssertionError(f"{query}: selection differs from plain")
+        for name, w in want.items():
+            c = out.column(name)
+            w = w[idx]
+            if not (torch.equal(c.data[:count], w)
+                    and torch.equal(c.extra[:count], w >> 63)
+                    and bool(c.validity[:count].all())):
+                raise AssertionError(f"{query}: {name} differs from plain")
+        del idx, want, sel, out
+        prefix_rows = hold_tpch_prefix(gt, plan, batch, query)
+        log(f"{query} ({smi}): {n / min(walls):.6g} rows/s, walls_s="
+            f"{[round(w, 6) for w in walls]}; {count} survivors "
+            f"({count / n:.2%}); K1 launches {launches[f'TPC-H {query} scan']}"
+            f" (4 calls); max_memory_allocated={peak} (resident before the "
+            f"first call {before}: the path's own {peak - before}); exact "
+            f"against plain int64, and {prefix_rows} of the first "
+            f"{N_TPCH_PREFIX} rows' survivors against pyarrow.compute")
+        busy, rows = profile_call(lambda: plan.evaluate_device(batch), top=8)
+        device_us = sum(r[0] for r in rows)
+        k1_us = sum(r[0] for r in rows
+                    if "count_kernel" in r[2] or "scatter_kernel" in r[2])
+        if device_us:
+            log(f"   K1 {k1_us / device_us:.1%} of the device time, the rest"
+                f" (date compare, decimal int128 chain, copies) "
+                f"{1 - k1_us / device_us:.1%}")
+        host = host_split(plan, batch)
+        log(f"{query} call, host clock (median of 7): " + ", ".join(
+            f"{k} {v:.4f}" for k, v in host.items()))
+        report[query] = {"rows_per_s": n / min(walls), "walls_s": walls,
+                         "survivors": count, "max_memory_allocated": peak,
+                         "own_memory": peak - before,
+                         "device_busy_share": busy,
+                         "device_ms": device_us / 1e3,
+                         "k1_share": k1_us / device_us if device_us else None,
+                         "k1_launches": launches[f"TPC-H {query} scan"],
+                         "host_ms": host}
+    log(json.dumps({"tpch_scans": {"rows": n, "resident_bytes": resident,
+                                   "card": smi, **report}}))
+    del batch
+    return launches
 
 
 def main() -> int:
@@ -663,7 +1091,7 @@ def main() -> int:
         f"max_memory_allocated={peak}")
     if stream_launches != (1 + runs) * STREAM_K:
         raise AssertionError("the stream did not launch K1 once per batch")
-    busy = profile_call(lambda: fn(cols))
+    busy, _ = profile_call(lambda: fn(cols))
 
     plan = flagship_plan(dev)
     first = {name: (d[0], v[0]) for name, (d, v) in cols.items()}
@@ -895,7 +1323,7 @@ def main() -> int:
         f"the first call {resident}: the path's own {agg_peak - resident})")
     if agg_launches != 1 + runs:
         raise AssertionError("hash_aggregate did not launch K5 once a call")
-    agg_busy = profile_call(agg_path)
+    agg_busy, _ = profile_call(agg_path)
     # where one call's wall goes on the host: before K5's wrapper, inside it
     # (the ctypes call and its three launches), the decode after it, and
     # the wait for the device (median of 7 calls)
@@ -1217,7 +1645,7 @@ def main() -> int:
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t)
         peak = torch.cuda.max_memory_allocated()
-        busy = profile_call(sort_path)
+        busy, _ = profile_call(sort_path)
         launched = {k: LAUNCHES[k] for k in sort_launches}
         calls = 2 + runs
         words_ = torch.stack(_build_operands(keys, None)[0])
@@ -1578,7 +2006,7 @@ def main() -> int:
                                                        keys0).items()}
     log(f"one probe_chunk of {n_chunk} rows: {syncs} host syncs; "
         f"probe_diagnostics {diag}")
-    stream_busy = profile_call(stream)
+    stream_busy, _ = profile_call(stream)
     del jt_full, keys0, outs
     log(json.dumps({"join_path": {
         "resident": join_report, "rows": N_JOIN, "build_rows": JOIN_BUILD,
@@ -1651,6 +2079,16 @@ def main() -> int:
     if min(acero_launches.values()) == 0:
         raise AssertionError(f"join vs Arrow: launches {acero_launches}")
     del probe, build, pv, bv, p2, b2, host, pt, bt, jt, dense, hot, res
+
+    # -- 18. the decimal, date/time, interval and hash registry ----------
+    phase("the decimal, date/time, interval and hash registry, card "
+          "against CPU")
+    hold_registry(gt, dev)
+    time_pow10_division(dev)
+
+    # -- 19. TPC-H Q1 and Q6 lineitem scans at SF10 -----------------------
+    phase("main path: TPC-H Q1 and Q6 lineitem scans (SF10, resident)")
+    k1_by_path.update(drive_tpch(gt, dev, smi))
 
     # -- the kernels line, then the last line ----------------------------
     # each path's own count, read just after it ran; ``launches`` is the

@@ -5,21 +5,25 @@ The same public API as gandiva_tpu (TreeExprBuilder, make_projector,
 make_filter, make_filter_project, SelectionVector, Configuration(Builder),
 get_registered_function_signatures, ops.*), evaluated eagerly with torch,
 with the stream compaction (two designs), the one-pass GROUP BY, the block
-sort and the merge-path round as hand-written CUDA kernels (ops/kernels).
+sort and the merge-path round as hand-written CUDA kernels (ops/kernels);
+decimal128 and calendar arithmetic are elementwise torch ops.
 Imports neither JAX nor gandiva_tpu.
 
 Entry points run on the card by default (``device="cuda"``) and raise when
 there is none; pass ``device="cpu"`` to run on the CPU, where each kernel's
 plain torch version stands in for it.
 
-Ported so far: the expression front end, the numeric and cast registry, the
-decomposer, Projector / Filter / FilterProject and the flagship entry points;
-the hash aggregate with its group-id assignment, hashes and key
-normalization, the sort, and the hash join (``ops.join``, ``join_multi``,
-``join_stream``, ``build_join_table``, ``probe_chunk``, ``gather_payload``,
-``probe_diagnostics``, ``JoinResult``, ``JoinTable``; ops, utils). Strings,
-decimals, datetime functions, plans, I/O and distribution follow in later
-slices.
+Ported so far: the expression front end, the numeric, cast, date/time and
+interval, hash and decimal128 registry (decimal columns, literals and the
+int128 limb arithmetic), the decomposer, Projector / Filter / FilterProject
+and the flagship entry points; serialized plans (``load_plan``,
+``dump_plan``, ``make_*_from_plan``) and streaming I/O (``io``); the hash
+aggregate with its group-id assignment, hashes and key normalization, the
+sort, and the hash join (``ops.join``, ``join_multi``, ``join_stream``,
+``build_join_table``, ``probe_chunk``, ``gather_payload``,
+``probe_diagnostics``, ``JoinResult``, ``JoinTable``; ops, utils). Strings
+(with the string-typed date and decimal functions), profiling and
+distribution follow in later slices.
 """
 from __future__ import annotations
 
@@ -34,6 +38,9 @@ from .expr.builder import TreeExprBuilder
 # Register the kernel categories (import order defines registry population).
 from .registry import numeric as _numeric  # noqa: F401
 from .registry import cast as _cast  # noqa: F401
+from .registry import datetime_ops as _datetime_ops  # noqa: F401
+from .registry import hash_ops as _hash_ops  # noqa: F401
+from .registry import decimal_ops as _decimal_ops  # noqa: F401
 from .registry.registry import (EvaluationError, ExpressionValidationError,
                                 FunctionRegistry, global_registry)
 from .registry.signature import FunctionSignature
@@ -43,7 +50,9 @@ from .compiler.selection import SelectionMode, SelectionVector
 from .compiler.projector import (Filter, FilterProject, Projector,
                                  make_filter, make_filter_project,
                                  make_projector)
-from . import ops
+from . import io, ops
+from .plan import (Plan, PlanError, dump_plan, load_plan,
+                   make_filter_from_plan, make_projector_from_plan)
 
 
 def get_registered_function_signatures():
@@ -67,7 +76,9 @@ __all__ = [
     "FunctionRegistry", "FunctionSignature", "global_registry",
     "get_registered_function_signatures",
     "ExpressionValidationError", "EvaluationError",
-    "ops",
+    "Plan", "PlanError", "load_plan", "dump_plan",
+    "make_projector_from_plan", "make_filter_from_plan",
+    "io", "ops",
 ]
 
 __version__ = "0.1.0"

@@ -11,8 +11,10 @@ one explicit device.
   builds a larger capacity when a caller wants one (padding rows invalid);
 - unsigned 16/32/64-bit columns hold the bits of the signed type of the same
   width (``DataType.storage_np_dtype``); numpy and Arrow see unsigned values;
-- string/binary (dictionary) and decimal128 (hi, lo) columns are not ported
-  yet and raise ``NotImplementedError``.
+- decimal128 columns hold two int64 tensors, as the reference's do: ``data``
+  the low 64 bits (as int64 bits) and ``extra`` the high 64 bits, signed;
+- string/binary (dictionary) columns are not ported yet and raise
+  ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ import torch
 from . import dtypes as dt
 from .device import DEFAULT_DEVICE, resolve_device
 
-_NOT_PORTED = ("string, binary and decimal128 columns are not ported to "
+_NOT_PORTED = ("string and binary columns are not ported to "
                "gandiva_tpu_torch yet")
 
 
@@ -147,15 +149,48 @@ def _np_from_arrow(arr):
     return vals, validity
 
 
+def _decimal_limbs(arr):
+    """pyarrow decimal128 array → (lo int64, hi int64, validity bool), the
+    16-byte little-endian two's complement values read from the array's
+    ``offset``; null rows hold 0."""
+    n = len(arr)
+    validity = np.ones(n, dtype=bool)
+    if arr.null_count:
+        validity = arr.is_valid().to_numpy(zero_copy_only=False)
+    raw = np.frombuffer(arr.buffers()[1], dtype=np.int64,
+                        count=2 * (n + arr.offset))[2 * arr.offset:]
+    pairs = raw.reshape(n, 2)
+    lo = np.where(validity, pairs[:, 0], 0)
+    hi = np.where(validity, pairs[:, 1], 0)
+    return lo, hi, validity
+
+
+def _decimal_column(lo, hi, validity, logical: dt.DataType, cap: int,
+                    dev) -> Column:
+    validity = np.asarray(validity, dtype=bool)
+    hi, _ = _padded(np.asarray(hi, dtype=np.int64), validity, cap)
+    lo, validity = _padded(np.asarray(lo, dtype=np.int64), validity, cap)
+    return Column(tensor_from_numpy(lo, logical, dev),
+                  torch.from_numpy(np.array(validity, dtype=bool)).to(dev),
+                  logical, extra=tensor_from_numpy(hi, logical, dev))
+
+
 def column_from_arrow(arr, pad_to: Optional[int] = None,
                       device=DEFAULT_DEVICE) -> Column:
     """Convert a pyarrow Array/ChunkedArray into a device Column."""
     import pyarrow as pa
 
     logical = dt.from_arrow(arr.type)
-    if logical.is_decimal or logical.is_varlen:
+    if logical.is_varlen:
         raise NotImplementedError(_NOT_PORTED)
     dev = resolve_device(device)
+    if logical.is_decimal:
+        if isinstance(arr, pa.ChunkedArray):
+            arr = arr.combine_chunks()
+        lo, hi, validity = _decimal_limbs(arr)
+        return _decimal_column(lo, hi, validity, logical,
+                               pad_to if pad_to is not None else len(arr),
+                               dev)
     vals, validity = _np_from_arrow(arr)
     n = len(vals)
     cap = pad_to if pad_to is not None else n
@@ -189,11 +224,20 @@ def column_to_arrow(col: Column, length: int):
     """Convert a device Column back to a pyarrow Array (first ``length`` rows)."""
     import pyarrow as pa
 
-    if col.dtype.is_decimal or col.dtype.is_varlen:
+    if col.dtype.is_varlen:
         raise NotImplementedError(_NOT_PORTED)
     vals = tensor_to_numpy(col.data[:length], col.dtype)
     mask = ~col.validity[:length].cpu().numpy()  # True ⇒ null
     arrow_type = dt.to_arrow(col.dtype)
+    if col.dtype.is_decimal:
+        pairs = np.empty((length, 2), dtype=np.int64)
+        pairs[:, 0] = vals
+        pairs[:, 1] = tensor_to_numpy(col.extra[:length], col.dtype)
+        nulls = int(mask.sum())
+        validity_buf = pa.array(~mask).buffers()[1] if nulls else None
+        return pa.Array.from_buffers(arrow_type, length,
+                                     [validity_buf, pa.py_buffer(pairs)],
+                                     null_count=nulls)
     if col.dtype.is_temporal:
         # temporal values are physically int32/int64; build as integers and
         # reinterpret-cast to the temporal arrow type
@@ -236,17 +280,24 @@ def from_columns_numpy(columns: Dict[str, tuple], length: int,
     where ``dtype`` is a DataType or its string form (``str(dtype)``), and
     ``data``/``validity`` cover the whole capacity. This carries a
     gandiva_tpu Batch over with its padding, so both engines start from the
-    same state. ``extra`` (decimal hi limbs) and ``dictionary`` (strings)
-    raise until those types are ported."""
+    same state. A decimal column's ``data`` is its low limb and ``extra``
+    its high limb (int64 each); ``dictionary`` (strings) raises until
+    strings are ported."""
     dev = resolve_device(device)
     cols = {}
     for name, (dtype, data, validity, *rest) in columns.items():
-        if any(r is not None for r in rest):
-            raise NotImplementedError(_NOT_PORTED)
+        extra, dictionary = (list(rest) + [None, None])[:2]
         logical = parse_dtype(dtype)
-        if logical.is_decimal or logical.is_varlen:
+        if logical.is_varlen or dictionary is not None:
             raise NotImplementedError(_NOT_PORTED)
         data = np.asarray(data)
+        if logical.is_decimal:
+            cols[name] = _decimal_column(data, extra, validity, logical,
+                                         len(data), dev)
+            continue
+        if extra is not None:
+            raise ValueError(f"column {name!r}: only decimal columns carry "
+                             "an extra limb")
         cols[name] = _column(data, validity, logical, len(data), dev)
     return Batch(cols, length)
 

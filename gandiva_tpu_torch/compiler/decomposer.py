@@ -14,8 +14,9 @@ the reference's rules:
 
 Torch runs eagerly, so decomposing a tree *is* evaluating it: each registry
 function is called on whole columns as the walk reaches it. Literals are 0-d
-tensors of the node's dtype; the registry only pairs arguments of one dtype,
-so torch's 0-d type promotion never widens a result.
+tensors of the node's dtype (a decimal's, a pair of 0-d int64 limbs, as
+decimal columns carry (hi, lo)); the registry only pairs arguments of one
+dtype, so torch's 0-d type promotion never widens a result.
 """
 from __future__ import annotations
 
@@ -28,6 +29,7 @@ import torch
 from .. import dtypes as dt
 from ..expr.nodes import (BooleanNode, FieldNode, FunctionNode, IfNode,
                           InNode, LiteralNode, Node)
+from ..registry import decimal_ops
 from ..registry.registry import (ExpressionValidationError, Nullability, Val,
                                  global_registry)
 
@@ -142,8 +144,7 @@ class ExprDecomposer:
     def _literal(self, node: LiteralNode) -> Val:
         d = node.dtype
         if d.is_decimal:
-            raise NotImplementedError(
-                "decimal128 literals are not ported to gandiva_tpu_torch yet")
+            return self._decimal_literal(node)
         if d.is_varlen:
             # device value filled in lazily by consumers via dictionary
             # tables; carry the python literal.
@@ -160,6 +161,24 @@ class ExprDecomposer:
             np.asarray(node.value, dtype=d.np_dtype).view(d.storage_np_dtype)))
         return Val(v, None, d, literal=node.value, is_literal=True)
 
+    def _decimal_literal(self, node: LiteralNode) -> Val:
+        """A decimal literal as a pair of 0-d int64 limbs: the unscaled
+        value's high 64 bits and its low 64 bits wrapped to int64."""
+        d = node.dtype
+        if node.value is None:
+            z = self._const(("zero", dt.int64), lambda: np.zeros(
+                (), dtype=np.int64))
+            cap = self.ctx.capacity
+            invalid = self._const(("invalid", cap), lambda: np.zeros(
+                cap, dtype=bool))
+            return Val((z, z), invalid, d, literal=None, is_literal=True)
+        unscaled = int(node.value)
+        lo = unscaled & 0xFFFF_FFFF_FFFF_FFFF
+        limbs = tuple(self._const(("lit", dt.int64, v), lambda v=v: np.array(
+            v, dtype=np.int64)) for v in (unscaled >> 64,
+                                          lo - (lo >> 63 << 64)))
+        return Val(limbs, None, d, literal=node.value, is_literal=True)
+
     def _field(self, node: FieldNode) -> Val:
         name = node.field.name
         if name not in self.ctx.columns:
@@ -175,6 +194,7 @@ class ExprDecomposer:
     def _function(self, node: FunctionNode) -> Val:
         args = [self.decompose(a) for a in node.args]
         arg_types = [a.dtype for a in args]
+        decimal_ops.ensure_registered(arg_types)
         fn = self.registry.lookup_or_raise(node.name, arg_types)
         rt = fn.signature.return_type
         if rt is not None and rt != node.dtype:
@@ -211,7 +231,11 @@ class ExprDecomposer:
         sel = cond.value
         if cond.validity is not None:
             sel = torch.logical_and(sel, cond.validity)
-        value = torch.where(sel, then_v.value, else_v.value)
+        if isinstance(then_v.value, tuple):  # decimal limb pairs
+            value = tuple(torch.where(sel, t, e)
+                          for t, e in zip(then_v.value, else_v.value))
+        else:
+            value = torch.where(sel, then_v.value, else_v.value)
         if then_v.validity is None and else_v.validity is None:
             validity = None
         else:

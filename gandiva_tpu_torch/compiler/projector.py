@@ -45,8 +45,24 @@ def _default_config(config: Optional[Configuration]) -> Configuration:
 
 
 def _full(x, cap: int):
-    """A (cap,) contiguous tensor: literals (0-d) are broadcast."""
+    """A (cap,) contiguous tensor: literals (0-d) are broadcast; a decimal's
+    (hi, lo) limb pair becomes a pair of them."""
+    if isinstance(x, tuple):
+        return tuple(_full(limb, cap) for limb in x)
     return torch.broadcast_to(x, (cap,)).contiguous()
+
+
+def _limbs(data):
+    """A column's data as a tuple: one tensor, or a decimal's (hi, lo)."""
+    return data if isinstance(data, tuple) else (data,)
+
+
+def _out_column(value, validity, dtype: dt.DataType) -> Column:
+    """An output column: a decimal's (hi, lo) becomes data lo, extra hi."""
+    if isinstance(value, tuple):
+        hi, lo = value
+        return Column(lo, validity, dtype, extra=hi)
+    return Column(value, validity, dtype)
 
 
 def _condition_mask(ctx: TraceContext, v: Val):
@@ -99,8 +115,9 @@ class _CompiledPlan:
     def _run(self, cols, length, seed: int,
              finish: Optional[Callable] = None):
         """Evaluate every root over ``cols`` ({name: (data, validity)});
-        ``length`` is a Python int or a 0-d device tensor."""
-        capacity = int(next(iter(cols.values()))[0].shape[0])
+        ``length`` is a Python int or a 0-d device tensor; a decimal
+        column's data is its (hi, lo) limb pair."""
+        capacity = int(_limbs(next(iter(cols.values()))[0])[0].shape[0])
         ctx = TraceContext(capacity, length, {}, self.device, seed=seed,
                            check_errors=self.config.raise_errors,
                            consts=self._consts)
@@ -121,18 +138,24 @@ class _CompiledPlan:
         row_ok = torch.arange(cap, device=self.device) < sel_count
         # the tail past count is unspecified: point it at row 0
         idx = torch.where(row_ok, sel_indices, torch.zeros_like(sel_indices))
-        gathered = {name: (data.index_select(0, idx),
-                           validity.index_select(0, idx) & row_ok)
-                    for name, (data, validity) in cols.items()}
+        gathered = {}
+        for name, (data, validity) in cols.items():
+            g = tuple(d.index_select(0, idx) for d in _limbs(data))
+            gathered[name] = (g if isinstance(data, tuple) else g[0],
+                              validity.index_select(0, idx) & row_ok)
         return self._run(gathered, sel_count, seed)
 
     def _cols_of(self, batch: Batch):
         if batch.columns and batch.device != self.device:
             raise ValueError(f"batch is on {batch.device}, plan on "
                              f"{self.device}")
-        return {f.name: (batch.column(f.name).data,
-                         batch.column(f.name).validity)
-                for f in self.schema if f.name in batch.columns}
+        cols = {}
+        for f in self.schema:
+            if f.name in batch.columns:
+                c = batch.column(f.name)
+                data = (c.extra, c.data) if f.dtype.is_decimal else c.data
+                cols[f.name] = (data, c.validity)
+        return cols
 
     def _as_batch(self, batch) -> Batch:
         import pyarrow as pa
@@ -253,8 +276,8 @@ class Projector(_CompiledPlan):
                 cols, seed, idx, selection.count))
             length = int(selection.count)
         self._count(batch, length)
-        return Batch({e.result_field.name: Column(value, validity,
-                                                  e.result_field.dtype)
+        return Batch({e.result_field.name: _out_column(value, validity,
+                                                       e.result_field.dtype)
                       for e, (value, validity) in zip(self.exprs, outs)},
                      length)
 
@@ -337,11 +360,12 @@ class FilterProject(_CompiledPlan):
         return FilterProject(schema, condition, exprs, config, device)
 
     def _dense(self, ctx: TraceContext, outs: List[Val]):
-        """(row mask, [value, validity] per expression) before compaction."""
+        """(row mask, [value, validity] per expression, a decimal's value as
+        its hi and lo limbs) before compaction."""
         cap = ctx.capacity
         payload = []
         for v in outs[1:]:
-            payload.append(_full(v.value, cap))
+            payload.extend(_limbs(_full(v.value, cap)))
             payload.append(as_valid_mask(v, cap, ctx.device).contiguous())
         return _condition_mask(ctx, outs[0]), payload
 
@@ -356,10 +380,16 @@ class FilterProject(_CompiledPlan):
                       self._next_seed()))
         length = int(count)
         self._count(batch, length)
-        out_cols = {e.result_field.name: Column(packed[2 * i],
-                                                packed[2 * i + 1],
-                                                e.result_field.dtype)
-                    for i, e in enumerate(self.exprs)}
+        out_cols = {}
+        pos = 0
+        for e in self.exprs:
+            t = e.result_field.dtype
+            if t.is_decimal:
+                value, pos = (packed[pos], packed[pos + 1]), pos + 2
+            else:
+                value, pos = packed[pos], pos + 1
+            out_cols[e.result_field.name] = _out_column(value, packed[pos], t)
+            pos += 1
         return (SelectionVector(idx, count, SelectionMode.UINT32),
                 Batch(out_cols, length))
 

@@ -10,6 +10,7 @@ from __future__ import annotations
 from .. import dtypes as dt
 from ..expr.nodes import (BooleanNode, FieldNode, FunctionNode, IfNode,
                           InNode, LiteralNode, Node)
+from ..registry import decimal_ops
 from ..registry.registry import ExpressionValidationError, global_registry
 
 
@@ -33,6 +34,7 @@ def validate(node: Node, schema: dt.Schema) -> dt.DataType:
 
     if isinstance(node, FunctionNode):
         arg_types = [validate(a, schema) for a in node.args]
+        decimal_ops.ensure_registered(arg_types)
         fn = global_registry().lookup_or_raise(node.name, arg_types)
         rt = fn.signature.return_type
         if rt is not None and rt != node.dtype:

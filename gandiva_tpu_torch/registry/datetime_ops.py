@@ -1,0 +1,543 @@
+"""Date/time kernels.
+
+The torch counterpart of gandiva_tpu.registry.datetime_ops (Gandiva's
+precompiled/time.cc and timestamp_arithmetic.cc, SURVEY.md §2b
+"Date/time"): extract*, date_trunc_*, date/timestamp casts,
+timestampadd/timestampdiff, add_months, months_between, datediff,
+last_day, unix_timestamp/from_unixtime, and the interval_day /
+interval_year casts and arithmetic. The string-typed functions (to_date,
+is_date, castDATE/castTIMESTAMP from utf8) and next_day, whose weekday
+argument is a string, come with the string registry.
+
+Representation (dtypes.py): date32 = days since epoch (int32), date64 and
+timestamp = milliseconds since epoch (int64), time32 = millis since midnight,
+interval_day = (days << 32) | millis in an int64, interval_year = months
+(int32). Civil-calendar math uses the days↔(y,m,d) bijection from Howard
+Hinnant's public-domain algorithms, as pure integer torch ops: torch's
+``//`` and ``%`` floor on integer tensors, as the algorithms need for
+pre-epoch dates. Torch keeps an int32 tensor int32 when it is multiplied by
+a Python int, so every date32 value widens to int64 before a multiply.
+"""
+from __future__ import annotations
+
+import torch
+
+from .. import dtypes as dt
+from .registry import global_registry
+
+_R = global_registry()
+
+MS_PER_DAY = 86_400_000
+MS_PER_HOUR = 3_600_000
+MS_PER_MINUTE = 60_000
+MS_PER_SECOND = 1_000
+
+DATE_TYPES = [dt.date32, dt.date64, dt.timestamp]
+
+
+def _i64(x):
+    return x.to(torch.int64)
+
+
+# ---------------------------------------------------------------------------
+# civil calendar core
+# ---------------------------------------------------------------------------
+
+def civil_from_days(days):
+    """days since 1970-01-01 → (year, month, day), int64 tensors."""
+    z = _i64(days) + 719468
+    era = z // 146097
+    doe = z - era * 146097                       # [0, 146096]
+    yoe = (doe - doe // 1460 + doe // 36524 - doe // 146096) // 365
+    y = yoe + era * 400
+    doy = doe - (365 * yoe + yoe // 4 - yoe // 100)   # [0, 365]
+    mp = (5 * doy + 2) // 153                    # [0, 11]
+    d = doy - (153 * mp + 2) // 5 + 1            # [1, 31]
+    m = torch.where(mp < 10, mp + 3, mp - 9)     # [1, 12]
+    year = y + (m <= 2).to(torch.int64)
+    return year, m, d
+
+
+def days_from_civil(y, m, d):
+    """(year, month, day) → days since 1970-01-01 (int64)."""
+    y = _i64(y) - (m <= 2).to(torch.int64)
+    era = y // 400
+    yoe = y - era * 400
+    mp = torch.where(m > 2, m - 3, m + 9)
+    doy = (153 * mp + 2) // 5 + d - 1
+    doe = yoe * 365 + yoe // 4 - yoe // 100 + doy
+    return era * 146097 + doe - 719468
+
+
+def is_leap(y):
+    return (y % 4 == 0) & ((y % 100 != 0) | (y % 400 == 0))
+
+
+def days_in_month(y, m):
+    """Days of month ``m`` (1..12) of year ``y``: the non-leap lengths as
+    two bits a month of one constant, plus February's leap day."""
+    d = 28 + ((0x3BBEECC >> (2 * m)) & 3)
+    return torch.where((m == 2) & is_leap(y), 29, d)
+
+
+def _to_days(val):
+    """Any date/timestamp column → days since epoch (floored)."""
+    if val.dtype.kind is dt.TypeKind.DATE32:
+        return _i64(val.value)
+    return val.value // MS_PER_DAY
+
+
+def _to_millis(val):
+    if val.dtype.kind is dt.TypeKind.DATE32:
+        return _i64(val.value) * MS_PER_DAY
+    return val.value
+
+
+# ---------------------------------------------------------------------------
+# extract* (return int64, matching gandiva's extract signatures)
+# ---------------------------------------------------------------------------
+
+def _extract_year(v):
+    return civil_from_days(v)[0]
+
+
+def _extract_month(v):
+    return civil_from_days(v)[1]
+
+
+def _extract_day(v):
+    return civil_from_days(v)[2]
+
+
+def _extract_quarter(v):
+    return (civil_from_days(v)[1] - 1) // 3 + 1
+
+
+def _extract_doy(v):
+    y = civil_from_days(v)[0]
+    one = torch.ones_like(y)
+    return _i64(v) - days_from_civil(y, one, one) + 1
+
+
+def _extract_dow(v):
+    # SQL/Gandiva convention: 1 = Sunday .. 7 = Saturday.
+    # 1970-01-01 (days=0) was a Thursday.
+    return (_i64(v) + 4) % 7 + 1
+
+
+def _iso_dow(v):
+    # ISO: 1 = Monday .. 7 = Sunday
+    return (_i64(v) + 3) % 7 + 1
+
+
+def _weeks_in_iso_year(y):
+    p = (y + y // 4 - y // 100 + y // 400) % 7
+    py = y - 1
+    p_prev = (py + py // 4 - py // 100 + py // 400) % 7
+    return 52 + ((p == 4) | (p_prev == 3)).to(torch.int64)
+
+
+def _extract_week(v):
+    """ISO-8601 week number."""
+    days = _i64(v)
+    y = civil_from_days(days)[0]
+    doy = _extract_doy(days)
+    dow = _iso_dow(days)
+    w0 = (doy - dow + 10) // 7
+    return torch.where(w0 < 1, _weeks_in_iso_year(y - 1),
+                       torch.where(w0 > _weeks_in_iso_year(y), 1, w0))
+
+
+_DAY_EXTRACTORS = {
+    "extractYear": _extract_year,
+    "extractMonth": _extract_month,
+    "extractDay": _extract_day,
+    "extractQuarter": _extract_quarter,
+    "extractDoy": _extract_doy,
+    "extractDow": _extract_dow,
+    "extractWeek": _extract_week,
+}
+
+for _name, _f in _DAY_EXTRACTORS.items():
+    def _impl(ctx, args, _f=_f):
+        return _i64(_f(_to_days(args[0])))
+    for _t in DATE_TYPES:
+        _R.register(_name, [_t], dt.int64, _impl)
+
+
+def _register_time_extract(name, f):
+    def impl(ctx, args):
+        return _i64(f(_to_millis(args[0])))
+    for t in [dt.date64, dt.timestamp]:
+        _R.register(name, [t], dt.int64, impl)
+
+
+_register_time_extract("extractHour", lambda ms: (ms // MS_PER_HOUR) % 24)
+_register_time_extract("extractMinute", lambda ms: (ms // MS_PER_MINUTE) % 60)
+_register_time_extract("extractSecond", lambda ms: (ms // MS_PER_SECOND) % 60)
+_register_time_extract("extractMillennium",
+                       lambda ms: (_extract_year(ms // MS_PER_DAY) + 999) // 1000)
+_register_time_extract("extractCentury",
+                       lambda ms: (_extract_year(ms // MS_PER_DAY) + 99) // 100)
+_register_time_extract("extractDecade",
+                       lambda ms: _extract_year(ms // MS_PER_DAY) // 10)
+_register_time_extract("extractEpoch", lambda ms: ms // MS_PER_SECOND)
+
+# time32 (millis since midnight) hour/minute/second
+for _name, _f in [("extractHour", lambda v: v // MS_PER_HOUR),
+                  ("extractMinute", lambda v: (v // MS_PER_MINUTE) % 60),
+                  ("extractSecond", lambda v: (v // MS_PER_SECOND) % 60)]:
+    def _impl(ctx, args, _f=_f):
+        return _f(_i64(args[0].value))
+    _R.register(_name, [dt.time32], dt.int64, _impl)
+
+
+# ---------------------------------------------------------------------------
+# date_trunc_*
+# ---------------------------------------------------------------------------
+
+def _trunc_to_days_fn(unit):
+    def f(days):
+        y, m, d = civil_from_days(days)
+        one = torch.ones_like(y)
+        if unit == "Year":
+            return days_from_civil(y, one, one)
+        if unit == "Quarter":
+            qm = ((m - 1) // 3) * 3 + 1
+            return days_from_civil(y, qm, one)
+        if unit == "Month":
+            return days_from_civil(y, m, one)
+        if unit == "Week":
+            # truncate to Monday
+            return days - (_iso_dow(days) - 1)
+        if unit == "Decade":
+            return days_from_civil((y // 10) * 10, one, one)
+        if unit == "Century":
+            return days_from_civil(((y + 99) // 100) * 100 - 99, one, one)
+        if unit == "Millennium":
+            return days_from_civil(((y + 999) // 1000) * 1000 - 999, one, one)
+        raise AssertionError(unit)
+    return f
+
+
+for _unit in ["Year", "Quarter", "Month", "Week", "Decade", "Century",
+              "Millennium"]:
+    _dayf = _trunc_to_days_fn(_unit)
+
+    def _impl_ms(ctx, args, _dayf=_dayf):
+        ms = _to_millis(args[0])
+        return _dayf(ms // MS_PER_DAY) * MS_PER_DAY
+
+    def _impl_d32(ctx, args, _dayf=_dayf):
+        return _dayf(_i64(args[0].value)).to(torch.int32)
+
+    for _t in [dt.date64, dt.timestamp]:
+        _R.register(f"date_trunc_{_unit}", [_t], _t, _impl_ms)
+    _R.register(f"date_trunc_{_unit}", [dt.date32], dt.date32, _impl_d32)
+
+for _unit, _msq in [("Day", MS_PER_DAY), ("Hour", MS_PER_HOUR),
+                    ("Minute", MS_PER_MINUTE), ("Second", MS_PER_SECOND)]:
+    def _impl(ctx, args, _msq=_msq):
+        ms = _to_millis(args[0])
+        return (ms // _msq) * _msq
+    for _t in [dt.date64, dt.timestamp]:
+        _R.register(f"date_trunc_{_unit}", [_t], _t, _impl)
+
+
+# ---------------------------------------------------------------------------
+# casts between temporal types
+# ---------------------------------------------------------------------------
+
+def _trunc_to_day_ms(ctx, args):
+    """castDATE(timestamp / date64) → date64 truncated to day (gandiva
+    semantics)."""
+    return (args[0].value // MS_PER_DAY) * MS_PER_DAY
+
+
+def _identity(ctx, args):
+    return args[0].value
+
+
+def _date32_to_ms(ctx, args):
+    return _i64(args[0].value) * MS_PER_DAY
+
+
+_R.register("castDATE", [dt.timestamp], dt.date64, _trunc_to_day_ms)
+_R.register("castDATE", [dt.date64], dt.date64, _trunc_to_day_ms)
+_R.register("castDATE", [dt.int64], dt.date64, _identity)
+_R.register("castDATE", [dt.date32], dt.date64, _date32_to_ms)
+
+_R.register("castTIMESTAMP", [dt.date64], dt.timestamp, _identity)
+_R.register("castTIMESTAMP", [dt.date32], dt.timestamp, _date32_to_ms)
+_R.register("castTIMESTAMP", [dt.int64], dt.timestamp, _identity)
+
+_R.register("castDATE32", [dt.date64], dt.date32,
+            lambda ctx, args: (args[0].value // MS_PER_DAY).to(torch.int32))
+_R.register("castBIGINT", [dt.timestamp], dt.int64, _identity)
+_R.register("castBIGINT", [dt.date64], dt.int64, _identity)
+
+
+# ---------------------------------------------------------------------------
+# arithmetic: date_add / date_sub / datediff / add_months / months_between
+# ---------------------------------------------------------------------------
+
+def _date_add_days(ctx, args):
+    a, b = args
+    if a.dtype.is_temporal:
+        datev, intv = a, b
+    else:
+        datev, intv = b, a
+    days = _i64(intv.value)
+    if datev.dtype.kind is dt.TypeKind.DATE32:
+        return (_i64(datev.value) + days).to(torch.int32)
+    return datev.value + days * MS_PER_DAY
+
+
+def _date_sub_days(ctx, args):
+    a, b = args
+    days = _i64(b.value)
+    if a.dtype.kind is dt.TypeKind.DATE32:
+        return (_i64(a.value) - days).to(torch.int32)
+    return a.value - days * MS_PER_DAY
+
+
+for _dt_ in DATE_TYPES:
+    for _it in [dt.int32, dt.int64]:
+        _R.register("date_add", [_dt_, _it], _dt_, _date_add_days,
+                    aliases=["add"])
+        _R.register("date_add", [_it, _dt_], _dt_, _date_add_days)
+        _R.register("date_sub", [_dt_, _it], _dt_, _date_sub_days,
+                    aliases=["subtract", "date_diff"])
+
+
+def _datediff(ctx, args):
+    return ((args[0].value // MS_PER_DAY)
+            - (args[1].value // MS_PER_DAY)).to(torch.int32)
+
+
+for _dt_ in [dt.date64, dt.timestamp]:
+    _R.register("datediff", [_dt_, _dt_], dt.int32, _datediff)
+
+
+def _add_months_days(days, months):
+    y, m, d = civil_from_days(days)
+    tot = (y * 12 + (m - 1)) + months
+    ny, nm = tot // 12, tot % 12 + 1
+    nd = torch.minimum(d, days_in_month(ny, nm))
+    return days_from_civil(ny, nm, nd)
+
+
+def _ts_plus_months(ts_ms, months):
+    day_part = ts_ms // MS_PER_DAY
+    time_part = ts_ms - day_part * MS_PER_DAY
+    return _add_months_days(day_part, months) * MS_PER_DAY + time_part
+
+
+def _add_months(ctx, args):
+    datev, mv = args
+    months = _i64(mv.value)
+    if datev.dtype.kind is dt.TypeKind.DATE32:
+        return _add_months_days(_i64(datev.value), months).to(torch.int32)
+    return _ts_plus_months(datev.value, months)
+
+
+for _dt_ in DATE_TYPES:
+    for _it in [dt.int32, dt.int64]:
+        _R.register("add_months", [_dt_, _it], _dt_, _add_months)
+
+
+def _months_between(ctx, args):
+    ms1, ms2 = _to_millis(args[0]), _to_millis(args[1])
+    d1, d2 = ms1 // MS_PER_DAY, ms2 // MS_PER_DAY
+    y1, m1, dd1 = civil_from_days(d1)
+    y2, m2, dd2 = civil_from_days(d2)
+    months = ((y1 - y2) * 12 + (m1 - m2)).to(torch.float64)
+    last1 = dd1 == days_in_month(y1, m1)
+    last2 = dd2 == days_in_month(y2, m2)
+    t1 = ms1 - d1 * MS_PER_DAY
+    t2 = ms2 - d2 * MS_PER_DAY
+    # the reference's compiler divides by a constant as a multiply by its
+    # reciprocal; so does this, for the same bits
+    frac = ((dd1 - dd2).to(torch.float64)
+            + (t1 - t2).to(torch.float64) * (1.0 / MS_PER_DAY)) * (1.0 / 31.0)
+    return torch.where(last1 & last2, months, months + frac)
+
+
+for _dt_ in [dt.date64, dt.timestamp]:
+    _R.register("months_between", [_dt_, _dt_], dt.float64, _months_between)
+
+
+def _last_day(ctx, args):
+    days = _to_days(args[0])
+    y, m, _ = civil_from_days(days)
+    out_days = days_from_civil(y, m, days_in_month(y, m))
+    if args[0].dtype.kind is dt.TypeKind.DATE32:
+        return out_days.to(torch.int32)
+    return out_days * MS_PER_DAY
+
+
+for _dt_ in DATE_TYPES:
+    _R.register("last_day", [_dt_], _dt_, _last_day)
+
+
+# ---------------------------------------------------------------------------
+# timestampadd* / timestampdiff*
+# ---------------------------------------------------------------------------
+
+_FIXED_UNITS_MS = {
+    "Second": MS_PER_SECOND, "Minute": MS_PER_MINUTE, "Hour": MS_PER_HOUR,
+    "Day": MS_PER_DAY, "Week": 7 * MS_PER_DAY,
+}
+
+for _unit, _ms_ in _FIXED_UNITS_MS.items():
+    def _addimpl(ctx, args, _ms_=_ms_):
+        n, ts = args
+        return ts.value + _i64(n.value) * _ms_
+
+    def _diffimpl(ctx, args, _ms_=_ms_):
+        # gandiva: timestampdiffX(t1, t2) = (t2 - t1) / unit, truncated
+        t1, t2 = args
+        diff = t2.value - t1.value
+        return torch.sign(diff) * (torch.abs(diff) // _ms_)
+
+    for _it in [dt.int32, dt.int64]:
+        _R.register(f"timestampadd{_unit}", [_it, dt.timestamp], dt.timestamp,
+                    _addimpl)
+    _R.register(f"timestampdiff{_unit}", [dt.timestamp, dt.timestamp],
+                dt.int64, _diffimpl)
+
+for _unit, _mcount in [("Month", 1), ("Quarter", 3), ("Year", 12)]:
+    def _addimpl(ctx, args, _mcount=_mcount):
+        n, ts = args
+        return _ts_plus_months(ts.value, _i64(n.value) * _mcount)
+
+    def _diffimpl(ctx, args, _mcount=_mcount):
+        t1, t2 = args
+        d1, d2 = t1.value // MS_PER_DAY, t2.value // MS_PER_DAY
+        y1, m1, dd1 = civil_from_days(d1)
+        y2, m2, dd2 = civil_from_days(d2)
+        months = (y2 - y1) * 12 + (m2 - m1)
+        # truncate toward zero on partial months
+        partial1 = dd1 * MS_PER_DAY + (t1.value - d1 * MS_PER_DAY)
+        partial2 = dd2 * MS_PER_DAY + (t2.value - d2 * MS_PER_DAY)
+        adj = torch.where((months > 0) & (partial2 < partial1), -1,
+                          torch.where((months < 0) & (partial2 > partial1),
+                                      1, 0))
+        return (months + adj) // _mcount
+
+    for _it in [dt.int32, dt.int64]:
+        _R.register(f"timestampadd{_unit}", [_it, dt.timestamp], dt.timestamp,
+                    _addimpl)
+    _R.register(f"timestampdiff{_unit}", [dt.timestamp, dt.timestamp],
+                dt.int64, _diffimpl)
+
+
+# ---------------------------------------------------------------------------
+# unix epoch conversions
+# ---------------------------------------------------------------------------
+
+_R.register("unix_timestamp", [dt.timestamp], dt.int64,
+            lambda ctx, args: args[0].value // MS_PER_SECOND)
+_R.register("from_unixtime", [dt.int64], dt.timestamp,
+            lambda ctx, args: args[0].value * MS_PER_SECOND)
+_R.register("from_unixtime", [dt.int32], dt.timestamp,
+            lambda ctx, args: _i64(args[0].value) * MS_PER_SECOND)
+
+
+# ---------------------------------------------------------------------------
+# interval day/year: casts, timestamp/date ± interval (gandiva
+# function_registry_timestamp_arithmetic.cc; castNULLABLEINTERVALDAY/YEAR in
+# function_registry_datetime.cc). interval_day packs (days << 32) | millis
+# in an int64; interval_year is months (int32).
+# ---------------------------------------------------------------------------
+
+_M32 = 0xFFFF_FFFF
+
+
+def _interval_day_total_ms(v):
+    """Packed interval_day -> total milliseconds (int64)."""
+    return (v >> 32) * MS_PER_DAY + (v & _M32)
+
+
+def _cast_interval_day(ctx, args):
+    # gandiva castNULLABLEINTERVALDAY(int): the integer is total millis
+    ms = _i64(args[0].value)
+    days = ms // MS_PER_DAY
+    return (days << 32) | (ms - days * MS_PER_DAY)
+
+
+def _to_int32(ctx, args):
+    return args[0].value.to(torch.int32)
+
+
+for _it in (dt.int32, dt.int64):
+    _R.register("castINTERVALDAY", [_it], dt.interval_day,
+                _cast_interval_day, aliases=["castNULLABLEINTERVALDAY"])
+    # months
+    _R.register("castINTERVALYEAR", [_it], dt.interval_year, _to_int32,
+                aliases=["castNULLABLEINTERVALYEAR"])
+
+
+def _ts_plus_interval_day(ctx, args):
+    a, b = args
+    if a.dtype.kind is dt.TypeKind.INTERVAL_DAY:
+        b, a = a, b
+    return a.value + _interval_day_total_ms(_i64(b.value))
+
+
+def _ts_minus_interval_day(ctx, args):
+    ts, iv = args
+    return ts.value - _interval_day_total_ms(_i64(iv.value))
+
+
+def _ts_plus_interval_year(ctx, args):
+    a, b = args
+    if a.dtype.kind is dt.TypeKind.INTERVAL_YEAR:
+        b, a = a, b
+    return _ts_plus_months(_i64(a.value), _i64(b.value))
+
+
+def _ts_minus_interval_year(ctx, args):
+    ts, iv = args
+    return _ts_plus_months(_i64(ts.value), -_i64(iv.value))
+
+
+for _tt in (dt.timestamp, dt.date64):
+    _R.register("add", [_tt, dt.interval_day], _tt, _ts_plus_interval_day,
+                aliases=["date_add"])
+    _R.register("add", [dt.interval_day, _tt], _tt, _ts_plus_interval_day)
+    _R.register("subtract", [_tt, dt.interval_day], _tt,
+                _ts_minus_interval_day, aliases=["date_sub"])
+    _R.register("add", [_tt, dt.interval_year], _tt, _ts_plus_interval_year)
+    _R.register("add", [dt.interval_year, _tt], _tt, _ts_plus_interval_year)
+    _R.register("subtract", [_tt, dt.interval_year], _tt,
+                _ts_minus_interval_year)
+
+
+def _date32_plus_interval_day(ctx, args):
+    a, b = args
+    if a.dtype.kind is dt.TypeKind.INTERVAL_DAY:
+        b, a = a, b
+    return (_i64(a.value) + (_i64(b.value) >> 32)).to(torch.int32)
+
+
+_R.register("add", [dt.date32, dt.interval_day], dt.date32,
+            _date32_plus_interval_day)
+_R.register("add", [dt.interval_day, dt.date32], dt.date32,
+            _date32_plus_interval_day)
+
+
+# ---------------------------------------------------------------------------
+# interval extraction + interval → integer casts (gandiva precompiled/
+# time.cc extractDay_daytimeinterval, function_registry_datetime.cc
+# castBIGINT(day_time_interval) / castINT(month_interval))
+# ---------------------------------------------------------------------------
+
+_R.register("extractDay", [dt.interval_day], dt.int64,
+            lambda ctx, args: _i64(args[0].value) >> 32)
+# total milliseconds (the inverse of castINTERVALDAY(int))
+_R.register("castBIGINT", [dt.interval_day], dt.int64,
+            lambda ctx, args: _interval_day_total_ms(_i64(args[0].value)))
+_R.register("castINT", [dt.interval_year], dt.int32, _to_int32)
+_R.register("castBIGINT", [dt.interval_year], dt.int64,
+            lambda ctx, args: _i64(args[0].value))

@@ -307,11 +307,15 @@ _R.register(
     lambda ctx, args: torch.logical_not(args[0].value))
 
 
+def _ref_arr(v: Val):
+    # decimals carry (hi, lo) limb tuples
+    return v.value[0] if isinstance(v.value, tuple) else v.value
+
+
 def _isnull(ctx, args):
     v = args[0]
     if v.validity is None:
-        out = torch.zeros(v.value.shape, dtype=torch.bool,
-                          device=v.value.device)
+        out = torch.zeros_like(_ref_arr(v), dtype=torch.bool)
     else:
         out = torch.logical_not(v.validity)
     return Val(out, None, dt.bool_)
@@ -320,8 +324,7 @@ def _isnull(ctx, args):
 def _isnotnull(ctx, args):
     v = args[0]
     if v.validity is None:
-        out = torch.ones(v.value.shape, dtype=torch.bool,
-                         device=v.value.device)
+        out = torch.ones_like(_ref_arr(v), dtype=torch.bool)
     else:
         out = v.validity
     return Val(out, None, dt.bool_)

@@ -159,32 +159,86 @@ def _table(registry):
     return {key: f.signature.return_type for key, f in registry._table.items()}
 
 
-_PORTED_MODULES = ("gandiva_tpu.registry.numeric", "gandiva_tpu.registry.cast")
+_TEXT = ("string", "binary")
+
+
+def _names_text(key, rt) -> bool:
+    return any(str(t) in _TEXT for t in key[1]) or str(rt) in _TEXT
+
+
+def _plain(table):
+    """Entries of a registry table with no decimal parameter, as strings."""
+    return {(n, tuple(map(str, pt))): str(rt) for (n, pt), rt in table.items()
+            if not any(t.is_decimal for t in pt)}
 
 
 def test_signatures_match_reference():
-    """Every name the port registers has the signature set that
-    gandiva_tpu's numeric and cast modules register for it; the reference's
-    other signatures of those names come from modules not ported yet."""
-    port = {(n, tuple(map(str, pt))): str(rt)
-            for (n, pt), rt in _table(gt_registry()).items()}
-    ref_all = {(n, tuple(map(str, pt))): (str(f.signature.return_type),
-                                           f.impl.__module__)
-               for (n, pt), f in g_registry()._table.items()}
+    """The port's registry is the reference's less the entries that name a
+    string or binary type (the string registry comes later). Entries with
+    a decimal parameter register on demand and are held in the next test."""
+    port = _plain(_table(gt_registry()))
+    ref = _plain(_table(g_registry()))
+    assert port.items() <= ref.items()
+    assert all(_names_text(k, rt) for k, rt in ref.items() - port.items())
+    # every function a port entry names comes from the same module
+    def modules(registry, prefix):
+        return {(n, tuple(map(str, pt))):
+                f.impl.__module__.replace(prefix, "gandiva_tpu.")
+                for (n, pt), f in registry._table.items()}
+
+    ref_mods = modules(g_registry(), "gandiva_tpu.")
+    assert all(ref_mods[k] == m for k, m in
+               modules(gt_registry(), "gandiva_tpu_torch.").items())
+    # aliases of ported names resolve the same way
     names = {n for n, _ in port}
-    ref = {k: rt for k, (rt, mod) in ref_all.items()
-           if k[0] in names and mod in _PORTED_MODULES}
-    assert port == ref
-    later = {mod for k, (rt, mod) in ref_all.items()
-             if k[0] in names and k not in port}
-    assert later <= {"gandiva_tpu.registry.datetime_ops",
-                     "gandiva_tpu.registry.string_ops",
-                     "gandiva_tpu.registry.decimal_ops"}
-    # aliases of ported names resolve the same way (date_add/date_sub are
-    # datetime aliases of add/subtract)
-    ref_alias = {a: b for a, b in g_registry()._aliases.items()
-                 if b in names and a not in ("date_add", "date_sub")}
+    ref_alias = {a: b for a, b in g_registry()._aliases.items() if b in names}
     assert gt_registry()._aliases == ref_alias
+
+
+def _signatures(p):
+    return {(x.name, tuple(map(str, x.param_types)), str(x.return_type))
+            for x in p.get_registered_function_signatures()
+            if not any(t.is_decimal for t in x.param_types)}
+
+
+def test_missing_signatures_all_name_a_string_or_binary():
+    port, ref = _signatures(gt), _signatures(g)
+    assert port <= ref
+    missing = ref - port
+    assert all(_names_text((n, pt), rt) for n, pt, rt in missing)
+    assert len(missing) == 134
+
+
+_DECIMALS = [(9, 2), (18, 4), (28, 6), (38, 10), (15, 2), (3, 2), (1, 0)]
+
+
+def test_decimal_signatures_match_reference():
+    """After ``ensure_registered`` over the same decimal argument types,
+    both packages hold the same decimal signatures for them, less
+    castVARCHAR(decimal), which comes with the string registry."""
+    from gandiva_tpu.registry import decimal_ops as g_dec
+    from gandiva_tpu_torch.registry import decimal_ops as t_dec
+
+    for p, mod in ((g, g_dec), (gt, t_dec)):
+        types = [p.dtypes.decimal128(*ps) for ps in _DECIMALS]
+        for a in types:
+            mod.ensure_registered([a])
+            for b in types:
+                mod.ensure_registered([a, b])
+    names = {f"decimal128({p},{s})" for p, s in _DECIMALS}
+
+    def ours(p):
+        out = {}
+        for (n, pt), rt in _table(p.global_registry()).items():
+            decs = [str(t) for t in pt if t.is_decimal]
+            if decs and set(decs) <= names:
+                out[(n, tuple(map(str, pt)))] = str(rt)
+        return out
+
+    ref = {k: rt for k, rt in ours(g).items() if not _names_text(k, rt)}
+    port = ours(gt)
+    assert port == ref
+    assert len(port) == 7 * 14 + 49 * 11
 
 
 def test_get_registered_function_signatures():

@@ -933,3 +933,86 @@ def test_join_multi_and_stream_on_card_match_cpu():
         _same_join(type(want[0])(*(f[i] for f in got[0])),
                    type(want[0])(*(f[i] for f in want[0])))
     assert launched["compact_fragnet"] >= 3
+
+
+# ---------------------------------------------------------------------------
+# the decimal, date/time, interval and hash registry on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name,types,ret", [
+    ("hash64", ("int64", "int64"), "int64"),
+    ("hash64AsDouble", ("int64",), "float64"),
+    ("extractWeek", ("timestamp",), "int64"),
+    ("months_between", ("timestamp", "timestamp"), "float64"),
+    ("add", ("date32", "interval_day"), "date32"),
+    ("multiply", ("decimal128(38,10)", "decimal128(28,6)"), None),
+    ("multiply", ("decimal128(28,6)", "decimal128(9,2)"), None),
+    ("divide", ("decimal128(18,4)", "decimal128(9,2)"), None),
+    ("round", ("decimal128(38,10)",), None),
+    ("castFLOAT8", ("decimal128(38,10)",), "float64"),
+    ("castDECIMAL", ("float64",), "decimal128(18,4)"),
+])
+def test_registry_family_on_card_matches_cpu(name, types, ret):
+    """One signature of each family of the date/time, interval, hash and
+    decimal registry through make_projector on the card and on the CPU at
+    4,096 rows, bit for bit (floats by their bits)."""
+    dev = _card()
+    import numpy as np
+
+    import gandiva_tpu_torch as gt
+    from chip_smoke import registry_column
+    from gandiva_tpu_torch.registry.decimal_ops import ensure_registered
+
+    B, dt = gt.TreeExprBuilder, gt.dtypes
+    rng = np.random.default_rng(len(name) + len(types))
+    # full-range integers: the only integer arguments here are hash64's
+    cpu = gt.from_columns_numpy(
+        {f"a{i}": (t, *registry_column(t, 4096, rng, amount=False))
+         for i, t in enumerate(types)}, 4096, device="cpu")
+    schema = dt.Schema([dt.Field(k, c.dtype) for k, c in cpu.columns.items()])
+    args = [B.make_field(f) for f in schema]
+    ensure_registered([a.dtype for a in args])
+    rt = gt.batch.parse_dtype(ret) if ret else gt.global_registry() \
+        .lookup_or_raise(name, [a.dtype for a in args]).signature.return_type
+    node = B.make_function(name, args, rt)
+    expr = B.make_expression(node, dt.Field("out", rt))
+    card = gt.Batch({k: gt.Column(c.data.to(dev), c.validity.to(dev),
+                                  c.dtype, extra=None if c.extra is None
+                                  else c.extra.to(dev))
+                     for k, c in cpu.columns.items()}, cpu.length)
+    outs = [gt.make_projector(schema, [expr], use_cache=False, device=d)
+            .evaluate_device(b).column("out") for d, b in
+            ((dev, card), (torch.device("cpu"), cpu))]
+    got, want = outs
+    assert torch.equal(got.validity.cpu(), want.validity)
+    assert torch.equal(_bits(got.data).cpu(), _bits(want.data))
+    if want.extra is not None:
+        assert torch.equal(got.extra.cpu(), want.extra)
+
+
+@pytest.mark.parametrize("query", ["q1", "q6"])
+def test_tpch_scan_on_card_matches_cpu(query):
+    """TPC-H Q1's and Q6's lineitem scans at 4,096 rows on the card and on
+    the CPU: the same selection and decimal limbs, K1 launched (Q1's twelve
+    payloads take two scatter launches)."""
+    dev = _card()
+    from gandiva_tpu_torch import entrypoints as e
+
+    make = e.tpch_q1_scan if query == "q1" else e.tpch_q6_scan
+    cpu = e.lineitem(4096, seed=3, device="cpu")
+    card = e.Batch({k: e.Column(c.data.to(dev), c.validity.to(dev), c.dtype,
+                                extra=None if c.extra is None
+                                else c.extra.to(dev))
+                    for k, c in cpu.columns.items()}, cpu.length)
+    reset_launches()
+    gsel, gout = make(dev).evaluate_device(card)
+    assert LAUNCHES["compact"] == (2 if query == "q1" else 1)
+    csel, cout = make("cpu").evaluate_device(cpu)
+    c = int(csel.count)
+    assert int(gsel.count) == c > 0
+    assert torch.equal(gsel.indices[:c].cpu(), csel.indices[:c])
+    for name in cout.columns:
+        g_, w = gout.column(name), cout.column(name)
+        for a, b in ((g_.data, w.data), (g_.extra, w.extra),
+                     (g_.validity, w.validity)):
+            assert torch.equal(a[:c].cpu(), b[:c])

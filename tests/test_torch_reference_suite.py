@@ -4,14 +4,17 @@ Each listed test module is executed again with ``gandiva_tpu`` (and the
 submodules it imports) standing for ``gandiva_tpu_torch`` on the CPU, and
 the listed test functions are called with their parametrize cases. The
 reference test files stay as they are. Tests of features the port does not
-have yet (strings, decimals, profiling, the jit flag's internals) are left
-out and named in ROADMAP.md.
+have yet (strings and the string-typed date and decimal functions,
+profiling, the jit flag's internals) are left out and named in ROADMAP.md.
 
 The aggregate, sort and join tests hand the port the reference's (JAX)
 arrays: the stand-ins for ``gandiva_tpu.ops.hash_aggregate``, ``.groupby``,
 ``.sort``, ``.hash_join`` and ``.kernels.merge_path`` below turn them into
 CPU tensors through ``np.asarray`` and the results into numpy arrays; the
-port itself takes torch tensors only. ``test_join``'s two ``join_stream``
+port itself takes torch tensors only. ``test_decimal``'s int128 unit tests and ``test_registry_tail``'s interval
+tests hand over ``jnp`` arrays too: the ``gandiva_tpu.utils.int128`` and
+``gandiva_tpu.batch`` stand-ins convert them the same way. ``test_join``'s
+two ``join_stream``
 tests ``jax.jit`` the reference's stream and are left out (ROADMAP.md);
 ``tests/test_torch_join.py`` holds the port's stream instead. ``test_sort_bitonic`` runs only its
 ``sort_columns`` case: its other tests test ``bitonic_sort_u32`` and
@@ -104,6 +107,31 @@ CASES = (
     + [("test_join", "test_join_unique_build_detects_duplicates", {})]
     + [("test_join", "test_probe_ranges_hot_matches_dense", {"dist": dist})
        for dist in ("zipf", "uniform", "allsame")]
+    + [("test_plan", name, {}) for name in (
+        "test_load_and_evaluate_projector", "test_load_and_evaluate_filter",
+        "test_round_trip_to_string",
+        "test_decimal_and_binary_literals_round_trip", "test_plan_errors")]
+    + [("test_datetime", name, {}) for name in (
+        "test_extract_fields", "test_extract_differential_vs_arrow_random",
+        "test_date_trunc", "test_add_months_and_last_day",
+        "test_timestampdiff_month", "test_datediff_and_date_add",
+        "test_timestamp_plus_interval_day_literal",
+        "test_timestamp_plus_interval_year_calendar",
+        "test_cast_interval_and_column_arithmetic")]
+    + [("test_decimal", name, {}) for name in (
+        "test_int128_roundtrip_add_sub", "test_int128_mul",
+        "test_int128_divmod", "test_int128_pow10",
+        "test_decimal_projector_add", "test_decimal_multiply_divide",
+        "test_decimal_compare_filter", "test_decimal_abs_round_cast",
+        "test_cast_decimal_rescale_and_from_numeric",
+        "test_cast_decimal_null_on_overflow", "test_int128_mul256_div_pow10",
+        "test_decimal_xlarge_multiply")]
+    + [("test_io", name, {}) for name in (
+        "test_evaluate_stream", "test_prefetcher_propagates_errors")]
+    + [("test_registry_tail", "test_interval_extraction_and_casts", {})]
+    + [("test_runtime_errors", name, {}) for name in (
+        "test_decimal_divide_by_zero_raises",
+        "test_cast_decimal_overflow_raises")]
 )
 
 
@@ -115,7 +143,8 @@ def _port_on_cpu() -> types.ModuleType:
         if not name.startswith("__"):
             setattr(mod, name, getattr(gt, name))
     for name in ("make_projector", "make_filter", "make_filter_project",
-                 "from_arrow", "from_numpy"):
+                 "from_arrow", "from_numpy", "make_projector_from_plan",
+                 "make_filter_from_plan"):
         setattr(mod, name, functools.partial(getattr(gt, name),
                                              device="cpu"))
     return mod
@@ -304,6 +333,60 @@ def _sort_bitonic_shim() -> types.ModuleType:
     return mod
 
 
+def _plan_shim() -> types.ModuleType:
+    """The port's plan module with its makers bound to the CPU."""
+    mod = types.ModuleType("gandiva_tpu.plan")
+    for name in dir(gt.plan):
+        if not name.startswith("__"):
+            setattr(mod, name, getattr(gt.plan, name))
+    for name in ("make_projector_from_plan", "make_filter_from_plan"):
+        setattr(mod, name, functools.partial(getattr(gt.plan, name),
+                                             device="cpu"))
+    return mod
+
+
+def _io_shim() -> types.ModuleType:
+    mod = types.ModuleType("gandiva_tpu.io")
+    mod.BatchPrefetcher = functools.partial(gt.io.BatchPrefetcher,
+                                            device="cpu")
+    mod.evaluate_stream = gt.io.evaluate_stream
+    return mod
+
+
+def _int128_shim() -> types.ModuleType:
+    """The port's int128 functions on the reference's (jnp) limb arrays:
+    arrays in as CPU tensors, limbs out as numpy arrays; static ints
+    (shift and power-of-ten counts) pass through."""
+    port = importlib.import_module("gandiva_tpu_torch.utils.int128")
+    mod = types.ModuleType("gandiva_tpu.utils.int128")
+
+    def wrap(fn):
+        def run(*args):
+            return _numpy(fn(*(a if isinstance(a, int) else _tensor(a)
+                               for a in args)))
+        return run
+
+    for name in ("add128", "sub128", "mul_i64", "divmod128", "mul_pow10",
+                 "div_pow10_round", "mul256_div_pow10"):
+        setattr(mod, name, wrap(getattr(port, name)))
+    return mod
+
+
+def _batch_shim() -> types.ModuleType:
+    """The port's Batch, and a Column that takes the reference's (jnp)
+    arrays as CPU tensors."""
+    mod = types.ModuleType("gandiva_tpu.batch")
+
+    def column(data, validity, dtype, dictionary=None, extra=None):
+        return gt.Column(_tensor(data), _tensor(validity), dtype, dictionary,
+                         _tensor(extra))
+
+    mod.Batch, mod.Column = gt.Batch, column
+    return mod
+
+
+_UTILS = types.ModuleType("gandiva_tpu.utils")
+_UTILS.int128 = _int128_shim()
 _AGG = _aggregate_shim()
 _GROUPBY = _groupby_shim()
 _SORT = _sort_shim()
@@ -320,6 +403,12 @@ _STAND_INS = {
     "gandiva_tpu.expr.nodes": gt.expr.nodes,
     "gandiva_tpu.registry": gt.registry,
     "gandiva_tpu.registry.registry": gt.registry.registry,
+    "gandiva_tpu.registry.decimal_ops": gt.registry.decimal_ops,
+    "gandiva_tpu.plan": _plan_shim(),
+    "gandiva_tpu.io": _io_shim(),
+    "gandiva_tpu.batch": _batch_shim(),
+    "gandiva_tpu.utils": _UTILS,
+    "gandiva_tpu.utils.int128": _UTILS.int128,
     "gandiva_tpu.ops": _OPS,
     "gandiva_tpu.ops.hash_aggregate": _AGG,
     "gandiva_tpu.ops.groupby": _GROUPBY,
