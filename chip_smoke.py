@@ -135,9 +135,33 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                 share, a call's host clock split around K1 and the count's
                 sync; the selection and every output exact against plain
                 int64 on the card, and the first 1,048,576 rows against
-                pyarrow.compute (Q6, and Q1's outputs but its charge).
-Then one {"kernels": [...]} line (K1's launches by path include both
-scans), and last {"ok": true, "device": {...}}.
+                pyarrow.compute (Q6, and Q1's outputs but its charge);
+ 20. strings  — every signature that names a string or binary type (the
+                string registry's, aliases included, the string-typed date
+                functions, castVARCHAR(decimal) at four precisions) through
+                make_projector on the card and on the CPU over 1,048,576
+                rows, dictionaries of 1,000 values with multi-byte UTF-8 and
+                empty strings, 5% nulls: codes, bits and dictionaries equal;
+                prints the count held by family; each LIKE plan twice, its
+                table_builds unchanged; then the host syncs and wall of one
+                call on the routes that read device values back
+                (castVARCHAR of a computed float and of a decimal, concat's
+                per-row route) beside a LIKE plan;
+ 21. TPC-H strings — Q1 (with l_returnflag and l_linestatus), Q12 and Q19
+                over SF10's LINEITEM made on the card, Q9 and Q16 over
+                SF10's 2,000,000 PART rows made on the host and brought in
+                through from_arrow (timed, with the distinct/row ratio of
+                the near-unique p_name): rows/s of one synchronized
+                evaluate_device (best of 3), survivors, K1 launches, peak
+                memory, the profiler's top 8 and busy share, a cold call's
+                host tables against a memoised call's, the host clock split
+                around K1 and the count's sync; the selection and every
+                output exact against plain torch on the card (strings as
+                codes under the same dictionary object), and against
+                pyarrow.compute on LINEITEM's first 1,048,576 rows and all
+                of PART.
+Then one {"kernels": [...]} line (K1's launches by path include every
+scan), and last {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -352,6 +376,19 @@ def profile_call(fn, top=None):
     return device_us / 1e6 / wall_s, rows
 
 
+def count_syncs(fn) -> int:
+    """Host syncs the card reports for one call of ``fn``."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
 def hold_k5(got, want, kinds, what: str) -> float:
     """K5's outputs against its plain version's: bit-exact apart from f64
     sums (rtol AGG_RTOL); only the flag where the query overflows. Returns
@@ -464,8 +501,9 @@ def acero_pairs(pt, bt, keys, how: str, nb: int) -> np.ndarray:
 def registry_cases(gt):
     """(name, argument type names, return or target type name, int32
     literal or None) of every signature of the date/time, hash and decimal
-    registry: aliases included, decimals at DEC_TYPES (every pair of them
-    for the binary functions), castDECIMAL to two targets of each."""
+    registry that names no string or binary type: aliases included,
+    decimals at DEC_TYPES (every pair of them for the binary functions),
+    castDECIMAL to two targets of each."""
     from gandiva_tpu_torch.registry import decimal_ops
 
     reg = gt.global_registry()
@@ -484,6 +522,8 @@ def registry_cases(gt):
         if not (fn.impl.__module__ in mods or named) \
                 or not set(named) <= set(DEC_TYPES):
             continue
+        if {*params, str(sig.return_type)} & {"string", "binary"}:
+            continue                        # phase 20's
         if fn.needs_return_type:           # castDECIMAL*: two targets
             k = DEC_TYPES.index(params[0]) if named else 1
             for target in {DEC_TYPES[(k + 1) % 4], DEC_TYPES[(k + 3) % 4]}:
@@ -660,7 +700,8 @@ def tpch_plain(batch, query: str):
     """The scan's selection and outputs in plain int64 on the card, at each
     output's result scale (no output of these scans reduces its scale):
     Q1 disc_price = ep·(100 − disc) at scale 4, charge = ep·(100 −
-    disc)·(100 + tax) at scale 6; Q6 revenue = ep·disc at scale 4."""
+    disc)·(100 + tax) at scale 6, and its two flags' codes; Q6 revenue =
+    ep·disc at scale 4."""
     from gandiva_tpu_torch import entrypoints as e
 
     c = {k: batch.column(k).data for k in batch.columns}
@@ -668,7 +709,9 @@ def tpch_plain(batch, query: str):
     ep, tax = c["l_extendedprice"], c["l_tax"]
     if query == "Q1":
         keep = ship <= e.Q1_SHIPDATE - e.Q1_DELTA
-        outs = {"l_quantity": qty, "l_extendedprice": ep,
+        outs = {"l_returnflag": c["l_returnflag"],
+                "l_linestatus": c["l_linestatus"],
+                "l_quantity": qty, "l_extendedprice": ep,
                 "disc_price": ep * (100 - disc),
                 "charge": ep * (100 - disc) * (100 + tax)}
     else:
@@ -690,10 +733,7 @@ def hold_tpch_prefix(gt, plan, batch, query: str) -> int:
     import pyarrow.compute as pc
 
     m = N_TPCH_PREFIX
-    prefix = gt.Batch({k: gt.Column(c.data[:m], c.validity[:m], c.dtype,
-                                    extra=None if c.extra is None
-                                    else c.extra[:m])
-                       for k, c in batch.columns.items()}, m)
+    prefix = batch.slice(0, m)
     arrow = gt.to_arrow(prefix)
     col = {k: arrow.column(k) for k in arrow.schema.names}
 
@@ -708,7 +748,8 @@ def hold_tpch_prefix(gt, plan, batch, query: str) -> int:
     if query == "Q1":
         keep = pc.less_equal(col["l_shipdate"],
                              day(e.Q1_SHIPDATE - e.Q1_DELTA))
-        want = [col["l_quantity"], col["l_extendedprice"],
+        want = [col["l_returnflag"], col["l_linestatus"], col["l_quantity"],
+                col["l_extendedprice"],
                 pc.multiply(col["l_extendedprice"],
                             pc.subtract(dec("1", 1, 0), col["l_discount"]))]
     else:
@@ -820,8 +861,10 @@ def drive_tpch(gt, dev, smi: str) -> dict:
         for name, w in want.items():
             c = out.column(name)
             w = w[idx]
-            if not (torch.equal(c.data[:count], w)
-                    and torch.equal(c.extra[:count], w >> 63)
+            hi_ok = (c.dictionary is batch.column(name).dictionary
+                     if c.extra is None
+                     else torch.equal(c.extra[:count], w >> 63))
+            if not (torch.equal(c.data[:count], w) and hi_ok
                     and bool(c.validity[:count].all())):
                 raise AssertionError(f"{query}: {name} differs from plain")
         del idx, want, sel, out
@@ -855,6 +898,522 @@ def drive_tpch(gt, dev, smi: str) -> dict:
     log(json.dumps({"tpch_scans": {"rows": n, "resident_bytes": resident,
                                    "card": smi, **report}}))
     del batch
+    return launches
+
+
+# -- phase 20: the string and binary registry --------------------------------
+
+STRING_SEED_WORDS = ["", "é", "日本語", "naïve façade", "ÄÖÜ äöü", "42", "-7",
+                     "3.5", "1e10", "nan", " 12 ", "2020-03-01",
+                     "1969-12-31", "1999-12-31 23:59:59", "2020-02-30",
+                     "6172726F77", "00ff", "zz", "a_b%c", "ab\\cd", "kitten",
+                     "  padded  ", "DELIVER IN PERSON", "MAIL"]
+# per function: its literals after the column (positions ≥ 1)
+STRING_LITERALS = {
+    "btrim": ["ab "], "trim": ["ab "], "ltrim": ["ab "], "rtrim": ["a "],
+    "castVARBINARY": [3], "castVARCHAR": [4], "substr": [2, 3],
+    "substring": [-3, 2], "charSubstring": [0, 4], "left": [3],
+    "right": [-2], "repeat": [3], "lpad": [8, "*-"], "rpad": [7, "ü"],
+    "replace": ["ab", "XY"], "regexp_replace": ["[aeiou]+", "#"],
+    "regexp_extract": ["([a-z]+)([0-9]*)", 1], "split_part": [" ", 2],
+    "translate": ["abc", "xy"], "strpos": ["ab"], "position": ["a"],
+    "levenshtein": ["kitten"], "like": ["%a_b%", "\\"], "ilike": ["%AB%"],
+    "starts_with": ["a"], "ends_with": ["e"], "is_substr": ["ab"],
+    "contains": ["b"], "regexp_matches": ["^[a-c]"],
+    "regexp_like": ["[0-9]$"], "hash": [7], "hash32": [5], "hash64": [11],
+    "to_date": ["YYYY-MM-DD", 0], "is_date": ["YYYY-MM-DD"],
+    "next_day": ["tuesday"]}
+STRING_TWO_COLUMNS = {"concat", "concatOperator", "||", "equal",
+                      "not_equal", "less_than", "less_than_or_equal_to",
+                      "greater_than", "greater_than_or_equal_to", "==",
+                      "!=", "<", "<=", ">", ">=", "eq", "ne", "lt", "le",
+                      "gt", "ge", "gte", "lte", "same"}
+STRING_DICT = 1000                      # phase 20's distinct values
+
+
+def string_cases(gt):
+    """(name, parameter type names, return type name) of every signature
+    that names a string or binary type: the string registry's, the
+    string-typed date/time functions and castVARCHAR(decimal) at
+    DEC_TYPES; aliases included."""
+    from gandiva_tpu_torch.registry import decimal_ops
+
+    for t in DEC_TYPES:
+        decimal_ops.ensure_registered([gt.batch.parse_dtype(t)])
+    text = ("string", "binary")
+    cases = set()
+    for sig in gt.get_registered_function_signatures():
+        params = tuple(map(str, sig.param_types))
+        named = [p for p in params if p.startswith("decimal")]
+        if set(named) - set(DEC_TYPES):
+            continue
+        if (any(p in text for p in params) or str(sig.return_type) in text) \
+                and sig.name not in ("isnull", "isnotnull"):
+            cases.add((sig.name, params, str(sig.return_type)))
+    return sorted(cases, key=str)
+
+
+def string_dictionary(rng, kind: str, name: str):
+    """STRING_DICT distinct values, multi-byte UTF-8 and empty strings
+    among them (bytes for binary; base64 texts for unbase64)."""
+    alphabet = list("abcdefxyzABC019 _%-:") + ["é", "日", "ü", "€"]
+    words = list(dict.fromkeys(STRING_SEED_WORDS + [
+        "".join(rng.choice(alphabet, rng.integers(1, 13)))
+        for _ in range(2 * STRING_DICT)]))[:STRING_DICT]
+    if name == "unbase64":
+        import base64
+        words = [base64.b64encode(w.encode()).decode() for w in words]
+    if kind == "binary":
+        return [w.encode() for w in words[:-4]] + [
+            b"\xff\xfe", b"ab\x80", b"\x00\x01", b"\xc3"]
+    return words
+
+
+def string_column(t: str, n: int, rng, name: str):
+    """(codes, validity, None, dictionary) of a string or binary column, or
+    a registry_column for another type."""
+    import pyarrow as pa
+
+    if t not in ("string", "binary"):
+        return (*registry_column(t, n, rng, False), None)
+    values = string_dictionary(rng, t, name)
+    valid = rng.random(n) >= REGISTRY_NULLS
+    codes = np.where(valid, rng.integers(0, len(values), n), 0)
+    return (codes.astype(np.int32), valid, None,
+            pa.array(values, type=pa.string() if t == "string"
+                     else pa.binary()))
+
+
+def string_expr(gt, name, params, ret, fields):
+    """The case's expression: the first argument a column, later ones
+    literals (two columns for the comparisons and concat; chr/space, which
+    take literals only, concatenated to a column; locate's needle a
+    literal)."""
+    B, dt = gt.TreeExprBuilder, gt.dtypes
+    f = [B.make_field(x) for x in fields]
+
+    def lit(v, t):
+        if isinstance(v, str):
+            return B.make_string_literal(v)
+        return B.make_literal(v, gt.batch.parse_dtype(t))
+
+    if name in ("chr", "space"):
+        node = B.make_function("concat", [f[0], B.make_function(
+            name, [lit(65 if name == "chr" else 3, params[0])], dt.string)],
+            dt.string)
+    elif name == "locate":
+        node = B.make_function(name, [B.make_string_literal("ab"), f[0]]
+                               + [lit(2, "int32")] * (len(params) == 3),
+                               dt.int32)
+    else:
+        lits = STRING_LITERALS.get(name, [])
+        args = f + [lit(lits[i], t) for i, t in
+                    enumerate(params[len(f):])]
+        node = B.make_function(name, args, gt.batch.parse_dtype(ret))
+    return B.make_expression(node, dt.Field("out", node.dtype))
+
+
+def same_string_column(got, want) -> bool:
+    """same_column, and a string output's dictionary by value."""
+    if not same_column(got, want):
+        return False
+    return want.dictionary is None or got.dictionary.equals(want.dictionary)
+
+
+def hold_string_registry(gt, dev) -> dict:
+    """Every signature that names a string or binary type through
+    make_projector on the card and on the CPU over N_REGISTRY rows,
+    dictionaries of STRING_DICT values, 5% nulls: codes, bits and
+    dictionaries equal; any difference fails. Each LIKE plan evaluates
+    twice on the card, and its table_builds must not grow. Returns the
+    count held by family."""
+    rng = np.random.default_rng(20)
+    cases = string_cases(gt)
+    B, dt = gt.TreeExprBuilder, gt.dtypes
+    held, like_builds = {}, {}
+    t0 = time.perf_counter()
+    for name, params, ret in cases:
+        types = ("string",) if name in ("chr", "space", "locate") \
+            else params[:2 if name in STRING_TWO_COLUMNS else 1]
+        cols = {f"a{i}": (t, *string_column(t, N_REGISTRY, rng, name))
+                for i, t in enumerate(types)}
+        fields = [dt.Field(k, gt.batch.parse_dtype(c[0]))
+                  for k, c in cols.items()]
+        expr = string_expr(gt, name, params, ret, fields)
+        cpu = gt.from_columns_numpy(cols, N_REGISTRY, device="cpu")
+        outs = []
+        for d, batch in ((dev, cpu.to(dev)), ("cpu", cpu)):
+            plan = gt.make_projector(dt.Schema(fields), [expr],
+                                     use_cache=False, device=d)
+            outs.append(plan.evaluate_device(batch).column("out"))
+            if d is dev and name in ("like", "ilike"):
+                first = plan.stats.get("table_builds", 0)
+                plan.evaluate_device(batch)
+                like_builds[f"{name}{params}"] = (
+                    first, plan.stats.get("table_builds", 0))
+                if plan.stats.get("table_builds", 0) != first:
+                    raise AssertionError(f"{name}{params}: the LIKE table "
+                                         "was built again")
+        if not same_string_column(*outs):
+            raise AssertionError(f"{name}({', '.join(params)}) -> {ret}: "
+                                 "the card differs from the CPU")
+        family = ("decimal" if any(p.startswith("decimal") for p in params)
+                  else "date/time" if name in ("to_date", "is_date",
+                                               "castDATE", "castTIMESTAMP",
+                                               "next_day")
+                  else "LIKE and predicates" if ret == "bool"
+                  else "hash" if name.startswith("hash") and ret != "string"
+                  else "cast from string" if name.startswith("cast")
+                  and params[0] == "string" and ret not in ("string",
+                                                            "binary")
+                  else "castVARCHAR/VARBINARY of numbers"
+                  if name.startswith("cast") and params[0] not in ("string",
+                                                                  "binary")
+                  else "string → int" if ret.startswith("int")
+                  else "string → string/binary")
+        held[family] = held.get(family, 0) + 1
+    log(f"{len(cases)} string and binary signatures held, card against "
+        f"CPU (codes, bits and dictionaries), at {N_REGISTRY} rows, "
+        f"dictionaries of {STRING_DICT} values, {REGISTRY_NULLS:.0%} nulls: "
+        f"{held}; {time.perf_counter() - t0:.1f}s")
+    log(f"LIKE plans, table_builds after one call and after two: "
+        f"{like_builds}")
+    return held
+
+
+def string_route_syncs(gt, dev) -> dict:
+    """Host syncs and wall of one call on each route that reads device
+    values back (castVARCHAR of a computed float64 and of a decimal
+    column, concat's per-row route) and of a LIKE plan, over N_REGISTRY
+    rows: {route: (syncs, ms)}."""
+    from gandiva_tpu_torch.registry import string_ops
+
+    rng = np.random.default_rng(201)
+    B, dt = gt.TreeExprBuilder, gt.dtypes
+    cols = {"s": ("string", *string_column("string", N_REGISTRY, rng, "")),
+            "t": ("string", *string_column("string", N_REGISTRY, rng, "")),
+            "f": ("float64", *string_column("float64", N_REGISTRY, rng, "")),
+            "d": ("decimal128(18,4)", *string_column(
+                "decimal128(18,4)", N_REGISTRY, rng, ""))}
+    batch = gt.from_columns_numpy(cols, N_REGISTRY, device=dev)
+    schema = dt.Schema([dt.Field(k, c.dtype)
+                        for k, c in batch.columns.items()])
+    f = {x.name: B.make_field(x) for x in schema}
+    plans = {
+        "castVARCHAR(multiply(f, 2.0))": B.make_function("castVARCHAR", [
+            B.make_function("multiply", [f["f"], B.make_double_literal(2.0)],
+                            dt.float64)], dt.string),
+        "castVARCHAR(decimal column)": B.make_function(
+            "castVARCHAR", [f["d"]], dt.string),
+        "concat(s, t), per-row route": B.make_function(
+            "concat", [f["s"], f["t"]], dt.string),
+        "like(s, '%a_%')": B.make_function(
+            "like", [f["s"], B.make_string_literal("%a_%")], dt.bool_)}
+    out = {}
+    cap = string_ops.MAX_PRODUCT_DICT
+    string_ops.MAX_PRODUCT_DICT = 1000      # below 1000 × 1000: per row
+    try:
+        for what, node in plans.items():
+            plan = gt.make_projector(schema, [B.make_expression(
+                node, dt.Field("out", node.dtype))], use_cache=False,
+                device=dev)
+            plan.evaluate_device(batch)
+            syncs = count_syncs(lambda: plan.evaluate_device(batch))
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            plan.evaluate_device(batch)
+            torch.cuda.synchronize()
+            out[what] = (syncs, (time.perf_counter() - t) * 1e3)
+    finally:
+        string_ops.MAX_PRODUCT_DICT = cap
+    log(f"host syncs and wall (ms) of one call at {N_REGISTRY} rows: "
+        + json.dumps(out))
+    return out
+
+
+# -- phase 21: the TPC-H string scans ---------------------------------------
+
+def lineitem_code(name: str, value: str):
+    """The code of ``value`` in LINEITEM's fixed dictionary of ``name``, or
+    None if it is not there."""
+    from gandiva_tpu_torch import entrypoints as e
+
+    values = e.STRING_COLUMNS[name].to_pylist()
+    return values.index(value) if value in values else None
+
+
+def string_scan_plain(batch, query: str):
+    """The scan's selection and outputs in plain torch on the card: codes
+    against the fixed dictionaries' codes (LINEITEM), or against a host
+    table of the dictionary's values made with Python's ``in``,
+    ``startswith`` and ``!=`` (PART); decimals as int64 at their scale."""
+    from gandiva_tpu_torch import entrypoints as e
+
+    c = {k: batch.column(k).data for k in batch.columns}
+    dev = next(iter(c.values())).device
+
+    def on_values(name, pred):
+        d = batch.column(name).dictionary.to_pylist()
+        table = torch.tensor([pred(v) for v in d], device=dev)
+        return table[c[name].long()]
+
+    if query == "Q1":
+        return tpch_plain(batch, "Q1")
+    if query == "Q12":
+        modes = [lineitem_code("l_shipmode", v) for v in ("MAIL", "SHIP")]
+        keep = (torch.isin(c["l_shipmode"], torch.tensor(modes, device=dev,
+                                                         dtype=torch.int32))
+                & (c["l_commitdate"] < c["l_receiptdate"])
+                & (c["l_shipdate"] < c["l_commitdate"])
+                & (c["l_receiptdate"] >= e.Q12_FROM)
+                & (c["l_receiptdate"] < e.Q12_TO))
+        outs = {"l_shipmode": c["l_shipmode"]}
+    elif query == "Q19":
+        modes = [x for x in (lineitem_code("l_shipmode", v)
+                             for v in ("AIR", "AIR REG")) if x is not None]
+        q = c["l_quantity"]
+        keep = (torch.isin(c["l_shipmode"], torch.tensor(
+            modes, device=dev, dtype=torch.int32))
+            & (c["l_shipinstruct"] == lineitem_code("l_shipinstruct",
+                                                    "DELIVER IN PERSON"))
+            & (((q >= 100) & (q <= 1100)) | ((q >= 1000) & (q <= 2000))
+               | ((q >= 2000) & (q <= 3000))))
+        outs = {"l_extendedprice": c["l_extendedprice"],
+                "l_discount": c["l_discount"]}
+    elif query == "Q9":
+        keep = on_values("p_name", lambda v: e.Q9_COLOR in v)
+        outs = {"p_partkey": c["p_partkey"]}
+    else:
+        keep = (on_values("p_brand", lambda v: v != e.Q16_BRAND)
+                & on_values("p_type", lambda v: not v.startswith(
+                    e.Q16_TYPE))
+                & torch.isin(c["p_size"], torch.tensor(
+                    e.Q16_SIZES, device=dev, dtype=torch.int32)))
+        outs = {n: c[n] for n in ("p_brand", "p_type", "p_size")}
+    return torch.nonzero(keep).flatten(), outs
+
+
+def string_scan_arrow(arrow, query: str):
+    """The scan's predicate over an Arrow batch with pyarrow.compute
+    (match_like, is_in, equal, not_equal and the date and decimal
+    compares)."""
+    import decimal
+
+    import pyarrow as pa
+    import pyarrow.compute as pc
+
+    from gandiva_tpu_torch import entrypoints as e
+
+    col = {k: arrow.column(k) for k in arrow.schema.names}
+
+    def day(v):
+        return pa.scalar(v, pa.int32()).cast(pa.date32())
+
+    if query == "Q1":
+        return pc.less_equal(col["l_shipdate"],
+                             day(e.Q1_SHIPDATE - e.Q1_DELTA))
+    if query == "Q12":
+        return pc.and_(pc.and_(pc.and_(
+            pc.is_in(col["l_shipmode"], value_set=pa.array(["MAIL",
+                                                            "SHIP"])),
+            pc.less(col["l_commitdate"], col["l_receiptdate"])),
+            pc.less(col["l_shipdate"], col["l_commitdate"])), pc.and_(
+            pc.greater_equal(col["l_receiptdate"], day(e.Q12_FROM)),
+            pc.less(col["l_receiptdate"], day(e.Q12_TO))))
+    if query == "Q19":
+        q = col["l_quantity"]
+
+        def between(lo, hi):
+            def dec(v):
+                return pa.scalar(decimal.Decimal(v), pa.decimal128(2, 0))
+
+            return pc.and_(pc.greater_equal(q, dec(lo)),
+                           pc.less_equal(q, dec(hi)))
+
+        return pc.and_(pc.and_(
+            pc.is_in(col["l_shipmode"], value_set=pa.array(["AIR",
+                                                            "AIR REG"])),
+            pc.equal(col["l_shipinstruct"], "DELIVER IN PERSON")),
+            pc.or_(pc.or_(between(1, 11), between(10, 20)),
+                   between(20, 30)))
+    if query == "Q9":
+        return pc.match_like(col["p_name"], f"%{e.Q9_COLOR}%")
+    return pc.and_(pc.and_(
+        pc.not_equal(col["p_brand"], e.Q16_BRAND),
+        pc.invert(pc.match_like(col["p_type"], f"{e.Q16_TYPE}%"))),
+        pc.is_in(col["p_size"], value_set=pa.array(e.Q16_SIZES,
+                                                   type=pa.int32())))
+
+
+def hold_string_scan_arrow(plan, batch, arrow, query: str) -> int:
+    """The plan over ``batch`` against pyarrow.compute over ``arrow`` (the
+    same rows): the selection and every output pyarrow can compute
+    (Q1's charge is past decimal128). Returns the survivors."""
+    import pyarrow.compute as pc
+
+    keep = string_scan_arrow(arrow, query)
+    sel, outs = plan.evaluate(batch)
+    idx = np.nonzero(keep.to_numpy(zero_copy_only=False))[0]
+    if not np.array_equal(sel.to_numpy(), idx):
+        raise AssertionError(f"{query}: selection differs from pyarrow")
+    want = pc.filter(arrow, keep)
+    names = set(arrow.schema.names)
+    for e_, got in zip(plan.exprs, outs):
+        name = e_.result_field.name
+        if name in names and not got.equals(want.column(name)):
+            raise AssertionError(f"{query}: {name} differs from pyarrow")
+    return len(idx)
+
+
+def table_split(plan_maker, batch) -> dict:
+    """Host clock of a cold call (a new plan: its host tables built and
+    uploaded) against a memoised call (the same plan again), each
+    synchronized: wall, time inside ``add_table`` and tables built."""
+    from gandiva_tpu_torch.compiler.decomposer import TraceContext
+
+    real = TraceContext.add_table
+    spent = []
+
+    def timed(self, thunk, cache_on_dicts=False):
+        t = time.perf_counter()
+        try:
+            return real(self, thunk, cache_on_dicts)
+        finally:
+            spent.append(time.perf_counter() - t)
+
+    out = {}
+    plan = plan_maker()
+    TraceContext.add_table = timed
+    try:
+        for what in ("cold", "memoised"):
+            spent.clear()
+            builds = plan.stats.get("table_builds", 0)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            plan.evaluate_device(batch)
+            torch.cuda.synchronize()
+            out[what] = {"wall_ms": (time.perf_counter() - t) * 1e3,
+                         "add_table_ms": sum(spent) * 1e3,
+                         "tables": len(spent),
+                         "built": plan.stats.get("table_builds", 0) - builds}
+    finally:
+        TraceContext.add_table = real
+    if out["memoised"]["built"]:
+        raise AssertionError("a memoised call built host tables again")
+    return out
+
+
+def drive_string_scans(gt, dev, smi: str) -> dict:
+    """TPC-H's string scans: Q1 (with its two flags), Q12 and Q19 over
+    SF10's 59,986,052 LINEITEM rows made on the card, Q9 and Q16 over SF10
+    PART's 2,000,000 rows made on the host and brought in through
+    from_arrow. For each: rows/s of one synchronized evaluate_device (best
+    of 3), survivors, K1 launches, peak memory, the profiler's top 8 and
+    busy share, the host clock of a cold call against a memoised one
+    (``table_split``) and around K1 and the count's sync
+    (``host_split``); the selection and every output exact against plain
+    torch on the card, and against pyarrow.compute on LINEITEM's first
+    N_TPCH_PREFIX rows and on all of PART. Returns K1's launches by scan."""
+    from gandiva_tpu_torch import entrypoints as e
+    from gandiva_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+
+    launches, report = {}, {}
+    arrow_part = e.part_arrow(e.PART_SF10_ROWS, seed=21)
+    ingest = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        part = gt.from_arrow(arrow_part, device=dev)
+        torch.cuda.synchronize()
+        ingest.append(time.perf_counter() - t)
+    sizes = {k: len(c.dictionary) for k, c in part.columns.items()
+             if c.dictionary is not None}
+    ratio = max(sizes.values()) / part.length
+    log(f"PART: {part.length} rows through from_arrow in "
+        f"{[round(w, 4) for w in ingest]} s ({smi}); dictionaries {sizes}, "
+        f"distinct/row {ratio:.6f}")
+    lineitem = e.lineitem(e.LINEITEM_SF10_ROWS, seed=21, device=dev)
+    prefix = lineitem.slice(0, N_TPCH_PREFIX)
+    arrow_prefix = gt.to_arrow(prefix)
+    scans = (("Q1", e.tpch_q1_scan, lineitem, 2),
+             ("Q12", e.tpch_q12_scan, lineitem, 1),
+             ("Q19", e.tpch_q19_scan, lineitem, 1),
+             ("Q9", e.tpch_q9_part_scan, part, 1),
+             ("Q16", e.tpch_q16_part_scan, part, 1))
+    for query, make, batch, per_call in scans:
+        n = batch.length
+        split = table_split(lambda: make(dev), batch)
+        plan = make(dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        reset_launches()
+        plan.evaluate_device(batch)                 # warm-up (allocator)
+        walls = []
+        for _ in range(3):
+            t = time.perf_counter()
+            sel, out = plan.evaluate_device(batch)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+        key = f"TPC-H {query} {'PART' if batch is part else 'LINEITEM'}" \
+            " string scan"
+        launches[key] = LAUNCHES["compact"]
+        peak = torch.cuda.max_memory_allocated()
+        if LAUNCHES["compact"] != 4 * per_call:
+            raise AssertionError(f"{query}: K1 launched "
+                                 f"{LAUNCHES['compact']} times, not "
+                                 f"{4 * per_call}")
+        count = int(sel.count)
+        idx, want = string_scan_plain(batch, query)
+        if count != idx.numel() or not torch.equal(
+                sel.indices[:count].long(), idx):
+            raise AssertionError(f"{query}: selection differs from plain")
+        for name, w in want.items():
+            c, w = out.column(name), w[idx]
+            same = torch.equal(c.data[:count], w) and bool(
+                c.validity[:count].all())
+            if c.dtype.is_varlen:
+                same = same and c.dictionary is batch.column(name).dictionary
+            elif c.extra is not None:
+                same = same and torch.equal(c.extra[:count], w >> 63)
+            if not same:
+                raise AssertionError(f"{query}: {name} differs from plain")
+        del idx, want, sel, out
+        builds = plan.stats.get("table_builds", 0)
+        if batch is part:
+            held = hold_string_scan_arrow(plan, part, arrow_part, query)
+            where = f"all {n} PART rows"
+        else:
+            held = hold_string_scan_arrow(plan, prefix, arrow_prefix, query)
+            where = f"the first {N_TPCH_PREFIX} LINEITEM rows"
+        log(f"{query} ({smi}): {n / min(walls):.6g} rows/s, walls_s="
+            f"{[round(w, 6) for w in walls]}; {count} survivors "
+            f"({count / n:.4%}); K1 launches {launches[key]} (4 calls); "
+            f"max_memory_allocated={peak} (the path's own {peak - before});"
+            f" exact against plain torch, and {held} survivors of {where} "
+            f"against pyarrow.compute; table_builds {builds} over its 4 "
+            "calls")
+        busy, rows = profile_call(lambda: plan.evaluate_device(batch), top=8)
+        device_us = sum(r[0] for r in rows)
+        k1_us = sum(r[0] for r in rows
+                    if "count_kernel" in r[2] or "scatter_kernel" in r[2])
+        host = host_split(plan, batch)
+        log(f"{query} call, host clock (median of 7): " + ", ".join(
+            f"{k} {v:.4f}" for k, v in host.items()))
+        log(f"{query} cold call against memoised (ms): {json.dumps(split)}")
+        report[query] = {"rows": n, "rows_per_s": n / min(walls),
+                         "walls_s": walls, "survivors": count,
+                         "max_memory_allocated": peak,
+                         "own_memory": peak - before,
+                         "device_busy_share": busy,
+                         "device_ms": device_us / 1e3,
+                         "k1_share": k1_us / device_us if device_us else None,
+                         "k1_launches": launches[key], "host_ms": host,
+                         "tables": split}
+    log(json.dumps({"string_scans": {"card": smi, "part_from_arrow_s": ingest,
+                                     "part_distinct_ratio": ratio,
+                                     **report}}))
+    del lineitem, prefix, part
     return launches
 
 
@@ -1993,15 +2552,8 @@ def main() -> int:
         f"path's own {peak - resident}); every chunk's checksum equals "
         "n + Σ iota + Σ keys")
     # host syncs of one probe_chunk (one per walk round and per decision)
-    torch.cuda.synchronize()
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            hj.probe_chunk(jt_full, keys0, n_chunk, "inner")
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    syncs = count_syncs(lambda: hj.probe_chunk(jt_full, keys0, n_chunk,
+                                               "inner"))
     diag = {k: int(v) for k, v in hj.probe_diagnostics(jt_full,
                                                        keys0).items()}
     log(f"one probe_chunk of {n_chunk} rows: {syncs} host syncs; "
@@ -2089,6 +2641,16 @@ def main() -> int:
     # -- 19. TPC-H Q1 and Q6 lineitem scans at SF10 -----------------------
     phase("main path: TPC-H Q1 and Q6 lineitem scans (SF10, resident)")
     k1_by_path.update(drive_tpch(gt, dev, smi))
+
+    # -- 20. the string and binary registry ------------------------------
+    phase("the string and binary registry, card against CPU")
+    hold_string_registry(gt, dev)
+    string_route_syncs(gt, dev)
+
+    # -- 21. TPC-H string scans at SF10 ----------------------------------
+    phase("main path: TPC-H string scans (Q1, Q12, Q19 over LINEITEM; Q9, "
+          "Q16 over PART; SF10)")
+    k1_by_path.update(drive_string_scans(gt, dev, smi))
 
     # -- the kernels line, then the last line ----------------------------
     # each path's own count, read just after it ran; ``launches`` is the

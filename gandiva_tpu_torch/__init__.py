@@ -14,16 +14,18 @@ there is none; pass ``device="cpu"`` to run on the CPU, where each kernel's
 plain torch version stands in for it.
 
 Ported so far: the expression front end, the numeric, cast, date/time and
-interval, hash and decimal128 registry (decimal columns, literals and the
-int128 limb arithmetic), the decomposer, Projector / Filter / FilterProject
-and the flagship entry points; serialized plans (``load_plan``,
-``dump_plan``, ``make_*_from_plan``) and streaming I/O (``io``); the hash
-aggregate with its group-id assignment, hashes and key normalization, the
-sort, and the hash join (``ops.join``, ``join_multi``, ``join_stream``,
-``build_join_table``, ``probe_chunk``, ``gather_payload``,
-``probe_diagnostics``, ``JoinResult``, ``JoinTable``; ops, utils). Strings
-(with the string-typed date and decimal functions), profiling and
-distribution follow in later slices.
+interval, string and binary, hash and decimal128 registry (dictionary-
+encoded string columns with their host tables, decimal columns, literals
+and the int128 limb arithmetic), the decomposer, Projector / Filter /
+FilterProject and the entry points (the flagship, the TPC-H LINEITEM and
+PART scans); the native host runtime (``native``: memory pool, bitmap
+codec, LIKE matcher, byte hashing; built with g++ on first use);
+serialized plans (``load_plan``, ``dump_plan``, ``make_*_from_plan``) and
+streaming I/O (``io``); the hash aggregate with its group-id assignment,
+hashes and key normalization, the sort, and the hash join (``ops.join``,
+``join_multi``, ``join_stream``, ``build_join_table``, ``probe_chunk``,
+``gather_payload``, ``probe_diagnostics``, ``JoinResult``, ``JoinTable``;
+ops, utils). Profiling and distribution follow in later slices.
 """
 from __future__ import annotations
 
@@ -39,6 +41,7 @@ from .expr.builder import TreeExprBuilder
 from .registry import numeric as _numeric  # noqa: F401
 from .registry import cast as _cast  # noqa: F401
 from .registry import datetime_ops as _datetime_ops  # noqa: F401
+from .registry import string_ops as _string_ops  # noqa: F401
 from .registry import hash_ops as _hash_ops  # noqa: F401
 from .registry import decimal_ops as _decimal_ops  # noqa: F401
 from .registry.registry import (EvaluationError, ExpressionValidationError,
@@ -50,7 +53,7 @@ from .compiler.selection import SelectionMode, SelectionVector
 from .compiler.projector import (Filter, FilterProject, Projector,
                                  make_filter, make_filter_project,
                                  make_projector)
-from . import io, ops
+from . import io, native, ops
 from .plan import (Plan, PlanError, dump_plan, load_plan,
                    make_filter_from_plan, make_projector_from_plan)
 
@@ -78,7 +81,7 @@ __all__ = [
     "ExpressionValidationError", "EvaluationError",
     "Plan", "PlanError", "load_plan", "dump_plan",
     "make_projector_from_plan", "make_filter_from_plan",
-    "io", "ops",
+    "io", "native", "ops",
 ]
 
 __version__ = "0.1.0"

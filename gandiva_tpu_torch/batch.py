@@ -13,8 +13,13 @@ one explicit device.
   width (``DataType.storage_np_dtype``); numpy and Arrow see unsigned values;
 - decimal128 columns hold two int64 tensors, as the reference's do: ``data``
   the low 64 bits (as int64 bits) and ``extra`` the high 64 bits, signed;
-- string/binary (dictionary) columns are not ported yet and raise
-  ``NotImplementedError``.
+- string and binary columns are dictionary-encoded at ingest, as the
+  reference's are: ``data`` holds int32 codes on the device (0 in null
+  rows), and ``dictionary`` the distinct values, a pyarrow Array on the
+  host. String functions run once per distinct value on the host and are
+  gathered by code on the device (registry/string_ops.py); padding and the
+  selection path keep the same dictionary object, which the plans' table
+  memo keys on.
 """
 from __future__ import annotations
 
@@ -25,9 +30,6 @@ import torch
 
 from . import dtypes as dt
 from .device import DEFAULT_DEVICE, resolve_device
-
-_NOT_PORTED = ("string and binary columns are not ported to "
-               "gandiva_tpu_torch yet")
 
 
 class Column:
@@ -46,6 +48,21 @@ class Column:
     def __repr__(self):
         return (f"Column({self.dtype}, shape={tuple(self.data.shape)}, "
                 f"device={self.data.device})")
+
+    def _map(self, fn) -> "Column":
+        return Column(fn(self.data), fn(self.validity), self.dtype,
+                      self.dictionary,
+                      None if self.extra is None else fn(self.extra))
+
+    def to(self, device) -> "Column":
+        """The column's tensors on ``device``; the dictionary is the same
+        object."""
+        return self._map(lambda t: t.to(device))
+
+    def slice(self, start: int, stop: int) -> "Column":
+        """Rows ``[start, stop)`` as views; the dictionary is the same
+        object."""
+        return self._map(lambda t: t[start:stop])
 
 
 class Batch:
@@ -71,6 +88,20 @@ class Batch:
 
     def column(self, name: str) -> Column:
         return self.columns[name]
+
+    def to(self, device) -> "Batch":
+        """Every column on ``device`` (dictionaries kept, as objects)."""
+        return Batch({k: c.to(device) for k, c in self.columns.items()},
+                     self.length)
+
+    def slice(self, start: int, stop: int) -> "Batch":
+        """Rows ``[start, stop)`` of the capacity as views (dictionaries
+        kept, as objects); the length is the part of them below ``length``.
+        """
+        stop = min(stop, self.capacity)
+        return Batch({k: c.slice(start, stop)
+                      for k, c in self.columns.items()},
+                     max(0, min(stop, self.length) - start))
 
     def __contains__(self, name):
         return name in self.columns
@@ -112,13 +143,24 @@ def _padded(vals: np.ndarray, validity: np.ndarray, cap: int):
     return pv, pm
 
 
-def _column(vals, validity, logical: dt.DataType, cap: int, dev) -> Column:
+def _column(vals, validity, logical: dt.DataType, cap: int, dev,
+            dictionary=None) -> Column:
     vals, validity = _padded(np.asarray(vals).astype(logical.np_dtype,
                                                      copy=False),
                              np.asarray(validity, dtype=bool), cap)
     return Column(tensor_from_numpy(vals, logical, dev),
                   torch.from_numpy(np.array(validity, dtype=bool)).to(dev),
-                  logical)
+                  logical, dictionary=dictionary)
+
+
+def _validity(arr) -> np.ndarray:
+    """An Arrow array's validity, a bool per row (native bitmap codec)."""
+    n = len(arr)
+    if not arr.null_count:
+        return np.ones(n, dtype=bool)
+    from . import native
+
+    return native.unpack_bitmap(arr.buffers()[0], arr.offset, n)
 
 
 # ---------------------------------------------------------------------------
@@ -126,18 +168,27 @@ def _column(vals, validity, logical: dt.DataType, cap: int, dev) -> Column:
 # ---------------------------------------------------------------------------
 
 def _np_from_arrow(arr):
-    """Return (values ndarray, validity bool ndarray)."""
+    """Return (values ndarray, validity bool ndarray, dictionary or None):
+    string, large_string, binary and large_binary arrays are
+    dictionary-encoded, a dictionary array keeps its dictionary; the codes
+    of null rows are 0."""
     import pyarrow as pa
+    import pyarrow.compute as pc
 
     if isinstance(arr, pa.ChunkedArray):
         arr = arr.combine_chunks()
-    n = len(arr)
-    validity = np.ones(n, dtype=bool)
-    if arr.null_count:
-        validity = arr.is_valid().to_numpy(zero_copy_only=False)
+    validity = _validity(arr)
     t = arr.type
+    if pa.types.is_string(t) or pa.types.is_large_string(t) \
+            or pa.types.is_binary(t) or pa.types.is_large_binary(t):
+        arr = pc.dictionary_encode(arr)
+        t = arr.type
+    if pa.types.is_dictionary(t):
+        codes = arr.indices.fill_null(0).to_numpy(zero_copy_only=False)
+        return codes.astype(np.int32), validity, arr.dictionary
     if pa.types.is_boolean(t):
-        return arr.fill_null(False).to_numpy(zero_copy_only=False), validity
+        return (arr.fill_null(False).to_numpy(zero_copy_only=False),
+                validity, None)
     zero = pa.scalar(0.0 if pa.types.is_floating(t) else 0, type=t)
     try:
         filled = arr.fill_null(zero)
@@ -146,7 +197,7 @@ def _np_from_arrow(arr):
     vals = filled.to_numpy(zero_copy_only=False)
     if vals.dtype.kind in "Mm":  # datetime64/timedelta64 → int64 view
         vals = vals.view(np.int64)
-    return vals, validity
+    return vals, validity, None
 
 
 def _decimal_limbs(arr):
@@ -154,9 +205,7 @@ def _decimal_limbs(arr):
     16-byte little-endian two's complement values read from the array's
     ``offset``; null rows hold 0."""
     n = len(arr)
-    validity = np.ones(n, dtype=bool)
-    if arr.null_count:
-        validity = arr.is_valid().to_numpy(zero_copy_only=False)
+    validity = _validity(arr)
     raw = np.frombuffer(arr.buffers()[1], dtype=np.int64,
                         count=2 * (n + arr.offset))[2 * arr.offset:]
     pairs = raw.reshape(n, 2)
@@ -181,8 +230,6 @@ def column_from_arrow(arr, pad_to: Optional[int] = None,
     import pyarrow as pa
 
     logical = dt.from_arrow(arr.type)
-    if logical.is_varlen:
-        raise NotImplementedError(_NOT_PORTED)
     dev = resolve_device(device)
     if logical.is_decimal:
         if isinstance(arr, pa.ChunkedArray):
@@ -191,7 +238,7 @@ def column_from_arrow(arr, pad_to: Optional[int] = None,
         return _decimal_column(lo, hi, validity, logical,
                                pad_to if pad_to is not None else len(arr),
                                dev)
-    vals, validity = _np_from_arrow(arr)
+    vals, validity, dictionary = _np_from_arrow(arr)
     n = len(vals)
     cap = pad_to if pad_to is not None else n
     vals = vals.astype(logical.np_dtype, copy=False)
@@ -199,7 +246,7 @@ def column_from_arrow(arr, pad_to: Optional[int] = None,
     if pa.types.is_timestamp(arr.type) and arr.type.unit != "ms":
         scale = {"s": 1000, "ms": 1, "us": 1 / 1000, "ns": 1 / 1000000}[arr.type.unit]
         vals = vals * int(scale) if scale >= 1 else vals // int(1 / scale)
-    return _column(vals, validity, logical, cap, dev)
+    return _column(vals, validity, logical, cap, dev, dictionary)
 
 
 def from_arrow(batch, pad_to: Optional[int] = None,
@@ -224,11 +271,13 @@ def column_to_arrow(col: Column, length: int):
     """Convert a device Column back to a pyarrow Array (first ``length`` rows)."""
     import pyarrow as pa
 
-    if col.dtype.is_varlen:
-        raise NotImplementedError(_NOT_PORTED)
     vals = tensor_to_numpy(col.data[:length], col.dtype)
     mask = ~col.validity[:length].cpu().numpy()  # True ⇒ null
     arrow_type = dt.to_arrow(col.dtype)
+    if col.dtype.is_varlen:
+        codes = pa.array(vals, mask=mask, type=pa.int32())
+        return pa.DictionaryArray.from_arrays(
+            codes, col.dictionary).cast(arrow_type)
     if col.dtype.is_decimal:
         pairs = np.empty((length, 2), dtype=np.int64)
         pairs[:, 0] = vals
@@ -281,15 +330,17 @@ def from_columns_numpy(columns: Dict[str, tuple], length: int,
     ``data``/``validity`` cover the whole capacity. This carries a
     gandiva_tpu Batch over with its padding, so both engines start from the
     same state. A decimal column's ``data`` is its low limb and ``extra``
-    its high limb (int64 each); ``dictionary`` (strings) raises until
-    strings are ported."""
+    its high limb (int64 each); a string or binary column's ``data`` is its
+    int32 codes and ``dictionary`` its pyarrow dictionary, taken as it is
+    (the same object)."""
     dev = resolve_device(device)
     cols = {}
     for name, (dtype, data, validity, *rest) in columns.items():
         extra, dictionary = (list(rest) + [None, None])[:2]
         logical = parse_dtype(dtype)
-        if logical.is_varlen or dictionary is not None:
-            raise NotImplementedError(_NOT_PORTED)
+        if logical.is_varlen != (dictionary is not None):
+            raise ValueError(f"column {name!r}: a string or binary column, "
+                             "and only one, carries a dictionary")
         data = np.asarray(data)
         if logical.is_decimal:
             cols[name] = _decimal_column(data, extra, validity, logical,
@@ -298,7 +349,8 @@ def from_columns_numpy(columns: Dict[str, tuple], length: int,
         if extra is not None:
             raise ValueError(f"column {name!r}: only decimal columns carry "
                              "an extra limb")
-        cols[name] = _column(data, validity, logical, len(data), dev)
+        cols[name] = _column(data, validity, logical, len(data), dev,
+                             dictionary)
     return Batch(cols, length)
 
 

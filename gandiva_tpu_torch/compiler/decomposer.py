@@ -12,6 +12,11 @@ the reference's rules:
   ``true OR null = true``, otherwise null if any input null;
 - IN: membership over a literal set, validity propagated from the eval subtree.
 
+String work runs once per distinct dictionary value on the host (Gandiva's
+function holders, SURVEY.md §2a#7): a registry kernel hands the context a
+host-table builder (``TraceContext.add_table``) and gathers the uploaded
+table by the column's codes on the device.
+
 Torch runs eagerly, so decomposing a tree *is* evaluating it: each registry
 function is called on whole columns as the walk reaches it. Literals are 0-d
 tensors of the node's dtype (a decimal's, a pair of 0-d int64 limbs, as
@@ -40,18 +45,25 @@ class TraceContext:
     ``length`` is the logical row count: a Python int, or a 0-d device
     tensor when it comes from a device-side count (a selection vector).
     ``consts`` is a plan-owned cache of literal tensors, so evaluating a plan
-    again copies no literal to the device. The reference's host-table
-    thunks (``add_table``, for string holders) come with the string slice.
+    again copies no literal to the device. ``batch`` is the host Batch the
+    host-table builders read (its dictionaries, and for the per-row string
+    routes its codes), and ``tables`` the plan's memo of the tables that
+    are pure functions of its dictionaries (``add_table``).
     """
 
     def __init__(self, capacity: int, length, columns: Dict[str, Val],
                  device, seed: int = 0, check_errors: bool = False,
-                 consts: Optional[Dict[Any, torch.Tensor]] = None):
+                 consts: Optional[Dict[Any, torch.Tensor]] = None,
+                 batch=None, tables: Optional[Dict[int, Any]] = None):
         self.capacity = capacity
         self.length = length
         self.columns = columns
         self.device = device
         self.consts = {} if consts is None else consts
+        self.batch = batch
+        self._tables = tables
+        self._table_idx = 0
+        self.table_builds = 0
         self._seed = seed
         self._generator: Optional[torch.Generator] = None
         # runtime-error surface (Configuration.raise_errors): kernels record
@@ -59,6 +71,33 @@ class TraceContext:
         self.check_errors = check_errors
         self.error_flags: List[Any] = []
         self.error_messages: List[str] = []
+
+    def add_table(self, thunk: Callable, cache_on_dicts: bool = False
+                  ) -> torch.Tensor:
+        """Run a host table builder and return its table on the device.
+
+        ``thunk(batch) -> np.ndarray`` runs on the host at evaluate time
+        (the analogue of Gandiva's holders). ``cache_on_dicts=True``
+        declares it a pure function of the batch's DICTIONARIES (not codes
+        or values): the plan then memoizes the uploaded table, by the
+        table's place in the plan, while every dictionary object and the
+        capacity stay the same (``_CompiledPlan._table_memo``), and a
+        later evaluation neither rebuilds nor uploads it."""
+        if self.batch is None:
+            raise ValueError("this plan needs host tables (string "
+                             "functions), so it evaluates per Batch; "
+                             "stream_fn and raw column calls cannot run it")
+        i = self._table_idx
+        self._table_idx += 1
+        memo = self._tables if cache_on_dicts else None
+        if memo is not None and i in memo:
+            return memo[i]
+        table = torch.from_numpy(np.ascontiguousarray(thunk(self.batch)))
+        table = table.to(self.device)
+        self.table_builds += 1
+        if memo is not None:
+            memo[i] = table
+        return table
 
     def generator(self) -> torch.Generator:
         """The evaluation's random stream (the reference's rng key): one
@@ -98,6 +137,21 @@ class TraceContext:
         for i, f in enumerate(self.error_flags):
             code = torch.where((code == 0) & f, i + 1, code)
         return code
+
+
+def at_least_one(arr: np.ndarray, fill) -> np.ndarray:
+    """A host table at least one entry long (an empty dictionary's table
+    holds ``fill``), so every code can be clipped into it."""
+    if len(arr):
+        return arr
+    return np.full(1, fill, dtype=arr.dtype)
+
+
+def gather_by_code(table: torch.Tensor, codes) -> torch.Tensor:
+    """``table[codes]`` with the codes clipped into the table, as the
+    reference clips them."""
+    idx = torch.clamp(codes, 0, table.shape[0] - 1)
+    return table.index_select(0, idx.reshape(-1)).reshape(idx.shape)
 
 
 def _and_validity(vals: List[Optional[Any]]):
@@ -145,9 +199,9 @@ class ExprDecomposer:
         d = node.dtype
         if d.is_decimal:
             return self._decimal_literal(node)
-        if d.is_varlen:
-            # device value filled in lazily by consumers via dictionary
-            # tables; carry the python literal.
+        if d.is_varlen and node.value is not None:
+            # string and binary literals stay Python values: the registry's
+            # kernels fold them into their host tables
             return Val(None, None, d, literal=node.value, is_literal=True)
         if node.value is None:
             cap = self.ctx.capacity
@@ -277,8 +331,22 @@ class ExprDecomposer:
                 f"Evaluation expression for IN clause returns {ev.dtype} "
                 f"values are of type {node.value_dtype}")
         if node.value_dtype.is_varlen:
-            raise NotImplementedError(
-                "IN over strings is not ported to gandiva_tpu_torch yet")
+            # membership decided per distinct dictionary value on the host
+            dict_thunk = ev.dict_thunk
+            if dict_thunk is None:
+                raise ExpressionValidationError(
+                    "IN on string requires a dictionary-backed input")
+            values = {v if isinstance(v, (str, bytes)) else str(v)
+                      for v in node.values}
+
+            def thunk(batch, _dt=dict_thunk, _vals=values):
+                return at_least_one(np.array(
+                    [x in _vals for x in _dt(batch).to_pylist()],
+                    dtype=bool), False)
+
+            table = self.ctx.add_table(thunk, cache_on_dicts=True)
+            return Val(gather_by_code(table, ev.value), ev.validity,
+                       dt.bool_)
         d = node.value_dtype
         vals = self._const(("in", node), lambda: np.array(
             sorted(node.values), dtype=d.np_dtype).view(d.storage_np_dtype))

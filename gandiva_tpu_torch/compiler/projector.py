@@ -10,6 +10,10 @@ gandiva_tpu.compiler.projector:
     evaluation                          eager torch calls on whole columns
                                         (decomposer.py), on the plan's device
     stream compaction                   kernel K1 (ops/kernels/compaction.py)
+    function holders (LIKE tables,      host tables built per distinct
+    dictionary ranks, string IN sets)   dictionary value at evaluate time,
+                                        memoized per plan on the identity of
+                                        the batch's dictionaries
     DumpIR                              a text dump of the decomposed plan
                                         (``.hlo`` / ``.llvm_ir``)
     expression cache (cache.h)          the make_* plan cache
@@ -57,12 +61,14 @@ def _limbs(data):
     return data if isinstance(data, tuple) else (data,)
 
 
-def _out_column(value, validity, dtype: dt.DataType) -> Column:
-    """An output column: a decimal's (hi, lo) becomes data lo, extra hi."""
+def _out_column(value, validity, dtype: dt.DataType,
+                dictionary=None) -> Column:
+    """An output column: a decimal's (hi, lo) becomes data lo, extra hi; a
+    string's codes go with their dictionary."""
     if isinstance(value, tuple):
         hi, lo = value
         return Column(lo, validity, dtype, extra=hi)
-    return Column(value, validity, dtype)
+    return Column(value, validity, dtype, dictionary=dictionary)
 
 
 def _condition_mask(ctx: TraceContext, v: Val):
@@ -98,6 +104,7 @@ class _CompiledPlan:
         self.device = resolve_device(device)
         self._roots = tuple(roots)
         self._consts: Dict[Any, torch.Tensor] = {}
+        self._table_memo: Dict[str, Any] = {}
         self._error_messages: List[str] = []
         self._seed = 0
         # per-operator observability (SURVEY.md §5.5): host-side counters
@@ -105,35 +112,85 @@ class _CompiledPlan:
 
     # ---- evaluation ----------------------------------------------------
     def _make_vals(self, cols) -> Dict[str, Val]:
-        return {f.name: Val(*cols[f.name], f.dtype)
-                for f in self.schema if f.name in cols}
+        out = {}
+        for f in self.schema:
+            if f.name not in cols:
+                continue
+            thunk = None
+            if f.dtype.is_varlen:
+                def thunk(batch, _n=f.name):
+                    return batch.column(_n).dictionary
+            out[f.name] = Val(*cols[f.name], f.dtype, dict_thunk=thunk,
+                              source_field=f.name)
+        return out
+
+    def _tables_for(self, batch: Batch) -> Dict[int, Any]:
+        """The plan's memo of dictionary-pure host tables for ``batch``:
+        kept while every dictionary OBJECT of the batch and its capacity
+        are the ones it was built for, emptied otherwise. Holding the key
+        objects pins them, so a reused id cannot alias."""
+        dicts = tuple(c.dictionary for c in batch.columns.values()
+                      if c.dictionary is not None)
+        memo = self._table_memo
+        if not (memo and memo["capacity"] == batch.capacity
+                and len(memo["key"]) == len(dicts)
+                and all(a is b for a, b in zip(memo["key"], dicts))):
+            memo = self._table_memo = {"key": dicts,
+                                       "capacity": batch.capacity,
+                                       "vals": {}}
+        # string-cliff observability: string work is per DISTINCT value on
+        # the host, so a near-unique dictionary (distinct/row → 1) makes it
+        # per-row host work; record the worst ratio seen
+        ratio = max((len(d) for d in dicts), default=0) / batch.length \
+            if batch.length else 0.0
+        if ratio:
+            self.stats["dict_distinct_ratio"] = max(
+                self.stats.get("dict_distinct_ratio", 0.0), ratio)
+        return memo["vals"]
 
     def _finish(self, ctx: TraceContext, outs: List[Val]):
         """Subclass hook: turn decomposed root Vals into outputs."""
         raise NotImplementedError
 
+    def _with_dicts(self, ctx: TraceContext, outs: List[Val]):
+        """The subclass's outputs, and each root's output dictionary (None
+        but for strings), built from ``ctx.batch``."""
+        return self._finish(ctx, outs), [
+            v.dict_thunk(ctx.batch) if v.dtype.is_varlen else None
+            for v in outs]
+
     def _run(self, cols, length, seed: int,
-             finish: Optional[Callable] = None):
+             finish: Optional[Callable] = None,
+             batch: Optional[Batch] = None):
         """Evaluate every root over ``cols`` ({name: (data, validity)});
         ``length`` is a Python int or a 0-d device tensor; a decimal
-        column's data is its (hi, lo) limb pair."""
+        column's data is its (hi, lo) limb pair. ``batch`` is the Batch the
+        host tables are built from (string plans need it)."""
         capacity = int(_limbs(next(iter(cols.values()))[0])[0].shape[0])
         ctx = TraceContext(capacity, length, {}, self.device, seed=seed,
                            check_errors=self.config.raise_errors,
-                           consts=self._consts)
+                           consts=self._consts, batch=batch,
+                           tables=None if batch is None
+                           else self._tables_for(batch))
         ctx.columns = self._make_vals(cols)
         dec = ExprDecomposer(ctx)
         outs = [dec.decompose(r) for r in self._roots]
         res = (finish or self._finish)(ctx, outs)
+        if ctx.table_builds:
+            self.stats["table_builds"] = (self.stats.get("table_builds", 0)
+                                          + ctx.table_builds)
         if not self.config.raise_errors:
             return res
         self._error_messages = list(ctx.error_messages)
         return res, ctx.error_code()
 
-    def _run_selected(self, cols, seed: int, sel_indices, sel_count):
+    def _run_selected(self, cols, seed: int, sel_indices, sel_count,
+                      finish: Optional[Callable] = None,
+                      batch: Optional[Batch] = None):
         """Selection-vector-aware evaluation: gather the selected rows first,
         then evaluate on the gathered batch (reference behavior:
-        test_gandiva.py:358-373 — output has len(selection) rows)."""
+        test_gandiva.py:358-373 — output has len(selection) rows). String
+        codes are gathered; their dictionaries stay ``batch``'s."""
         cap = sel_indices.shape[0]
         row_ok = torch.arange(cap, device=self.device) < sel_count
         # the tail past count is unspecified: point it at row 0
@@ -143,7 +200,7 @@ class _CompiledPlan:
             g = tuple(d.index_select(0, idx) for d in _limbs(data))
             gathered[name] = (g if isinstance(data, tuple) else g[0],
                               validity.index_select(0, idx) & row_ok)
-        return self._run(gathered, sel_count, seed)
+        return self._run(gathered, sel_count, seed, finish, batch)
 
     def _cols_of(self, batch: Batch):
         if batch.columns and batch.device != self.device:
@@ -255,7 +312,8 @@ class Projector(_CompiledPlan):
         cols = self._cols_of(batch)
         seed = self._next_seed()
         if selection is None:
-            outs = self._unwrap_errors(self._run(cols, batch.length, seed))
+            outs, dicts = self._unwrap_errors(self._run(
+                cols, batch.length, seed, self._with_dicts, batch))
             length = batch.length
         else:
             # Reference contract (libgandiva.pxd:238, projector.cc): a
@@ -272,14 +330,14 @@ class Projector(_CompiledPlan):
                     f"match projector selection_mode "
                     f"{self.selection_mode.value}")
             idx = selection.indices.to(mode_index_dtype(self.selection_mode))
-            outs = self._unwrap_errors(self._run_selected(
-                cols, seed, idx, selection.count))
+            outs, dicts = self._unwrap_errors(self._run_selected(
+                cols, seed, idx, selection.count, self._with_dicts, batch))
             length = int(selection.count)
         self._count(batch, length)
-        return Batch({e.result_field.name: _out_column(value, validity,
-                                                       e.result_field.dtype)
-                      for e, (value, validity) in zip(self.exprs, outs)},
-                     length)
+        return Batch({e.result_field.name: _out_column(
+            value, validity, e.result_field.dtype, dictionary)
+            for e, (value, validity), dictionary in zip(self.exprs, outs,
+                                                        dicts)}, length)
 
     def evaluate(self, batch, selection: Optional[SelectionVector] = None):
         """Evaluate a batch; returns a list of pyarrow Arrays (mirrors
@@ -320,7 +378,7 @@ class Filter(_CompiledPlan):
         batch = self._as_batch(batch)
         idx, count = self._unwrap_errors(
             self._run(self._cols_of(batch), batch.length,
-                      self._next_seed()))
+                      self._next_seed(), batch=batch))
         self.stats["evaluations"] += 1
         self.stats["rows_in"] += batch.length
         if mode is SelectionMode.UINT16:
@@ -361,7 +419,8 @@ class FilterProject(_CompiledPlan):
 
     def _dense(self, ctx: TraceContext, outs: List[Val]):
         """(row mask, [value, validity] per expression, a decimal's value as
-        its hi and lo limbs) before compaction."""
+        its hi and lo limbs, a string's as its int32 codes) before
+        compaction."""
         cap = ctx.capacity
         payload = []
         for v in outs[1:]:
@@ -375,20 +434,21 @@ class FilterProject(_CompiledPlan):
     def evaluate_device(self, batch: Batch):
         """Returns (SelectionVector, Batch of projected columns) — both
         logically ``count`` rows long."""
-        idx, count, packed = self._unwrap_errors(
+        (idx, count, packed), dicts = self._unwrap_errors(
             self._run(self._cols_of(batch), batch.length,
-                      self._next_seed()))
+                      self._next_seed(), self._with_dicts, batch))
         length = int(count)
         self._count(batch, length)
         out_cols = {}
         pos = 0
-        for e in self.exprs:
+        for e, dictionary in zip(self.exprs, dicts[1:]):
             t = e.result_field.dtype
             if t.is_decimal:
                 value, pos = (packed[pos], packed[pos + 1]), pos + 2
             else:
                 value, pos = packed[pos], pos + 1
-            out_cols[e.result_field.name] = _out_column(value, packed[pos], t)
+            out_cols[e.result_field.name] = _out_column(value, packed[pos], t,
+                                                        dictionary)
             pos += 1
         return (SelectionVector(idx, count, SelectionMode.UINT32),
                 Batch(out_cols, length))
@@ -408,7 +468,8 @@ class FilterProject(_CompiledPlan):
         outputs on the device; ``fn`` then returns the stacked reductions.
         Without it, ``fn`` returns the list of per-batch
         ``(idx, count, packed)``. Host tables (string holders) are not
-        supported on this path — it is for numeric plans.
+        supported on this path — it is for numeric plans: a string plan
+        raises (``TraceContext.add_table``).
         """
         if self.config.raise_errors:
             raise ValueError(

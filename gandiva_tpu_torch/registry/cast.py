@@ -4,8 +4,8 @@ The torch counterpart of gandiva_tpu.registry.cast. Float→integer casts round
 half away from zero (Java semantics, matching Gandiva's use of lround), then
 saturate at the target's bounds with NaN → 0, as the reference does on the
 CPU (torch's own cast would give INT64_MIN for NaN and for overflow).
-Temporal and varchar casts belong to the datetime/string modules, which are
-not ported yet.
+Temporal casts live in datetime_ops.py, and the casts to and from strings
+in string_ops.py (castVARCHAR, castVARBINARY, castBIGINT(utf8), …).
 """
 from __future__ import annotations
 

@@ -4,10 +4,11 @@ The torch counterpart of gandiva_tpu.registry.datetime_ops (Gandiva's
 precompiled/time.cc and timestamp_arithmetic.cc, SURVEY.md §2b
 "Date/time"): extract*, date_trunc_*, date/timestamp casts,
 timestampadd/timestampdiff, add_months, months_between, datediff,
-last_day, unix_timestamp/from_unixtime, and the interval_day /
-interval_year casts and arithmetic. The string-typed functions (to_date,
-is_date, castDATE/castTIMESTAMP from utf8) and next_day, whose weekday
-argument is a string, come with the string registry.
+last_day, unix_timestamp/from_unixtime, next_day, the interval_day /
+interval_year casts and arithmetic, and the string-typed functions:
+to_date, is_date and castDATE/castTIMESTAMP from utf8 parse each distinct
+dictionary value on the host (the ToDateHolder analogue) and gather the
+parsed values and parse flags by code on the device.
 
 Representation (dtypes.py): date32 = days since epoch (int32), date64 and
 timestamp = milliseconds since epoch (int64), time32 = millis since midnight,
@@ -20,10 +21,12 @@ a Python int, so every date32 value widens to int64 before a multiply.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .. import dtypes as dt
-from .registry import global_registry
+from .registry import (ExpressionValidationError, Nullability, Val,
+                       global_registry)
 
 _R = global_registry()
 
@@ -442,6 +445,165 @@ _R.register("from_unixtime", [dt.int64], dt.timestamp,
             lambda ctx, args: args[0].value * MS_PER_SECOND)
 _R.register("from_unixtime", [dt.int32], dt.timestamp,
             lambda ctx, args: _i64(args[0].value) * MS_PER_SECOND)
+
+
+def _next_day_impl(ctx, args):
+    """next_day(date, dow_literal): first date after ``date`` that falls on
+    the given weekday ('SU','MO',... or full names)."""
+    datev, dowv = args
+    if not dowv.is_literal:
+        raise ExpressionValidationError("next_day requires a literal weekday")
+    name = str(dowv.literal).upper()[:2]
+    targets = {"SU": 1, "MO": 2, "TU": 3, "WE": 4, "TH": 5, "FR": 6, "SA": 7}
+    if name not in targets:
+        raise ExpressionValidationError(f"invalid weekday {dowv.literal!r}")
+    days = _to_days(datev)
+    delta = (targets[name] - _extract_dow(days)) % 7
+    out = days + torch.where(delta == 0, 7, delta)
+    if datev.dtype.kind is dt.TypeKind.DATE32:
+        return out.to(torch.int32)
+    return out * MS_PER_DAY
+
+
+for _dt_ in DATE_TYPES:
+    _R.register("next_day", [_dt_, dt.string], _dt_, _next_day_impl)
+
+
+# ---------------------------------------------------------------------------
+# string → date/timestamp parsing (the ToDateHolder analogue,
+# to_date_holder.cc: pattern compiled once at Make, applied per row — here
+# applied per *distinct* dictionary value on the host)
+# ---------------------------------------------------------------------------
+
+_SQL_TO_STRPTIME = [
+    ("YYYY", "%Y"), ("YYY", "%Y"), ("YY", "%y"),
+    ("MONTH", "%B"), ("MON", "%b"), ("MM", "%m"),
+    ("DDD", "%j"), ("DD", "%d"),
+    ("HH24", "%H"), ("HH12", "%I"), ("HH", "%H"),
+    ("MI", "%M"), ("SS", "%S"),
+]
+
+
+def sql_format_to_strptime(fmt: str) -> str:
+    """SQL date format (YYYY-MM-DD …) → strptime format."""
+    out = []
+    i = 0
+    up = fmt.upper()
+    while i < len(fmt):
+        for token, repl in _SQL_TO_STRPTIME:
+            if up.startswith(token, i):
+                out.append(repl)
+                i += len(token)
+                break
+        else:
+            out.append(fmt[i])
+            i += 1
+    return "".join(out)
+
+
+def _parse_table(ctx, sval, fmt: str):
+    """Host tables — epoch milliseconds and a parse-ok flag per distinct
+    value — gathered by code: (ms, ok) device tensors."""
+    import datetime as _dt
+
+    from ..compiler.decomposer import at_least_one, gather_by_code
+
+    strp = sql_format_to_strptime(fmt)
+    dthunk = sval.dict_thunk
+
+    def values_thunk(batch, _dt_=dthunk, _f=strp):
+        d = _dt_(batch).to_pylist()
+        out = np.zeros(len(d), dtype=np.int64)
+        for i, v in enumerate(d):
+            if v is None:
+                continue
+            try:
+                t = _dt.datetime.strptime(v.strip(), _f)
+                out[i] = int((t - _dt.datetime(1970, 1, 1)).total_seconds()
+                             * 1000)
+            except ValueError:
+                out[i] = 0
+        return at_least_one(out, 0)
+
+    def ok_thunk(batch, _dt_=dthunk, _f=strp):
+        d = _dt_(batch).to_pylist()
+        out = np.zeros(len(d), dtype=bool)
+        for i, v in enumerate(d):
+            if v is None:
+                continue
+            try:
+                _dt.datetime.strptime(v.strip(), _f)
+                out[i] = True
+            except ValueError:
+                pass
+        return at_least_one(out, False)
+
+    tv = ctx.add_table(values_thunk, cache_on_dicts=True)
+    tok = ctx.add_table(ok_thunk, cache_on_dicts=True)
+    return gather_by_code(tv, sval.value), gather_by_code(tok, sval.value)
+
+
+def _require_string_column(s: Val, fname: str) -> None:
+    if s.dict_thunk is None:
+        raise ExpressionValidationError(f"{fname} requires a string column")
+
+
+def _to_date_impl(ctx, args):
+    """to_date(string, format[, suppress_errors]) → date64; unparseable →
+    null (NULL_INTERNAL, matching the holder's suppress-errors mode)."""
+    s = args[0]
+    _require_string_column(s, "to_date")
+    if not args[1].is_literal:
+        raise ExpressionValidationError("to_date format must be a literal")
+    ms, ok = _parse_table(ctx, s, str(args[1].literal))
+    days_ms = (ms // MS_PER_DAY) * MS_PER_DAY
+    validity = ok if s.validity is None else (ok & s.validity)
+    return Val(days_ms, validity, dt.date64)
+
+
+def _cast_date_from_string(ctx, args):
+    """castDATE(utf8) — ISO YYYY-MM-DD."""
+    s = args[0]
+    _require_string_column(s, "castDATE")
+    ms, ok = _parse_table(ctx, s, "YYYY-MM-DD")
+    validity = ok if s.validity is None else (ok & s.validity)
+    return Val(ms, validity, dt.date64)
+
+
+def _cast_ts_from_string(ctx, args):
+    s = args[0]
+    _require_string_column(s, "castTIMESTAMP")
+    ms, ok = _parse_table(ctx, s, "YYYY-MM-DD HH24:MI:SS")
+    ms2, ok2 = _parse_table(ctx, s, "YYYY-MM-DD")
+    out = torch.where(ok, ms, ms2)
+    okc = ok | ok2
+    validity = okc if s.validity is None else (okc & s.validity)
+    return Val(out, validity, dt.timestamp)
+
+
+def _is_date_impl(ctx, args):
+    s = args[0]
+    _require_string_column(s, "is_date")
+    fmt = "YYYY-MM-DD" if len(args) < 2 or not args[1].is_literal \
+        else str(args[1].literal)
+    _, ok = _parse_table(ctx, s, fmt)
+    if s.validity is not None:
+        ok = ok & s.validity
+    return Val(ok, None, dt.bool_)
+
+
+_R.register("to_date", [dt.string, dt.string], dt.date64, _to_date_impl,
+            nullability=Nullability.NULL_INTERNAL)
+_R.register("to_date", [dt.string, dt.string, dt.int32], dt.date64,
+            _to_date_impl, nullability=Nullability.NULL_INTERNAL)
+_R.register("castDATE", [dt.string], dt.date64, _cast_date_from_string,
+            nullability=Nullability.NULL_INTERNAL)
+_R.register("castTIMESTAMP", [dt.string], dt.timestamp, _cast_ts_from_string,
+            nullability=Nullability.NULL_INTERNAL)
+_R.register("is_date", [dt.string], dt.bool_, _is_date_impl,
+            nullability=Nullability.NULL_NEVER)
+_R.register("is_date", [dt.string, dt.string], dt.bool_, _is_date_impl,
+            nullability=Nullability.NULL_NEVER)
 
 
 # ---------------------------------------------------------------------------

@@ -14,7 +14,8 @@ TPC-H-style decimal(15,2) columns stay on the 64×64 product.
 Division and scale reduction round half away from zero, as Gandiva does.
 Signatures are parameterized by (precision, scale), so they register on
 demand (``ensure_registered``, called by the validator and the decomposer).
-castVARCHAR(decimal) comes with the string registry.
+castVARCHAR(decimal) formats through the string registry
+(``string_ops._cast_varchar_numeric``).
 """
 from __future__ import annotations
 
@@ -351,6 +352,11 @@ def register_decimal_for(t1: dt.DataType, t2: dt.DataType):
             _R.register(name, [t1, t2], dt.bool_, _cmp_impl(op))
 
 
+def _cast_varchar_decimal(ctx, args):
+    from .string_ops import _cast_varchar_numeric
+    return _cast_varchar_numeric(ctx, args)
+
+
 def register_decimal_unary(t: dt.DataType):
     """The unary signatures of one concrete decimal type."""
     register_cast_decimal_from(t)
@@ -358,6 +364,10 @@ def register_decimal_unary(t: dt.DataType):
         if _R.lookup(name, [t]) is None:
             _R.register(name, [t], dt.bool_, f,
                         nullability=Nullability.NULL_NEVER)
+    for params in ([t], [t, dt.int64]):
+        if _R.lookup("castVARCHAR", params) is None:
+            _R.register("castVARCHAR", params, dt.string,
+                        _cast_varchar_decimal)
     specs = [
         ("abs", _abs_impl, t),
         ("negative", _negative, t),

@@ -6,7 +6,8 @@ hash32/hash64 with an optional chainable seed, on utils.hashing's
 murmur-fmix32 family. Seeds and results keep the reference's bits: hash32
 returns the int32 bits of the uint32 hash, hash64 the int64 bits of the
 uint64 one, and the AsDouble forms convert the unsigned hash to float64 with
-one rounding. String hashes come with the string registry.
+one rounding. The string hashes (FNV-1a 64 per distinct dictionary value)
+live in string_ops.py.
 """
 from __future__ import annotations
 

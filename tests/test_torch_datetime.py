@@ -2,7 +2,10 @@
 against gandiva_tpu's on the same columns: every signature the port
 registers there, each alias name included, one case each, bit for bit
 (months_between's float64 too). Dates span 1600-01-01 to 2400-12-31, so
-pre-epoch days and the Gregorian 100/400 rules are in every case."""
+pre-epoch days and the Gregorian 100/400 rules are in every case. The
+string-typed ones (to_date, is_date, castDATE/castTIMESTAMP of utf8,
+next_day) parse a dictionary of date texts, valid and not, with their
+format or weekday a literal."""
 import datetime as pydt
 import zlib
 
@@ -18,7 +21,7 @@ from gandiva_tpu_torch.registry import datetime_ops as t_dt
 from gandiva_tpu_torch.registry.registry import global_registry
 
 from torch_differential import (DAY_MAX, DAY_MIN, batches, column,
-                                dtype_of, project_both)
+                                dtype_of, project_both, text_column)
 
 N = 1000
 
@@ -40,14 +43,24 @@ SIGNATURES = _datetime_signatures(gt, t_dt.__name__)
 
 
 def test_signatures_are_the_reference_ones_without_strings():
-    """The reference's date/time signatures less those that name a string
-    (to_date, is_date, castDATE/castTIMESTAMP(utf8), next_day)."""
+    """The reference's date/time signatures, the nine that name a string
+    (to_date ×2, is_date ×2, castDATE(utf8), castTIMESTAMP(utf8),
+    next_day ×3) included."""
     import gandiva_tpu as g
 
-    ref = [s for s in _datetime_signatures(g, g_dt.__name__)
-           if "string" not in s[1]]
-    assert SIGNATURES == ref
-    assert len(SIGNATURES) == 199
+    assert SIGNATURES == _datetime_signatures(g, g_dt.__name__)
+    assert len(SIGNATURES) == 199 + 9
+    assert sum("string" in s[1] for s in SIGNATURES) == 9
+
+
+# dates and timestamps as text, in and out of the formats, multi-byte and
+# padded among them
+DATE_TEXTS = ["2020-03-01", "1969-12-31", "1600-01-01", "2400-12-31",
+              "2020-02-30", "not a date", "", " 2021-07-04 ", "2020-03-01 "
+              "12:30:45", "1999-12-31 23:59:59", "2020-3-1", "１９９９-01-01",
+              "2000-02-29", "2100-02-29", "0001-01-01", "12/31/1999"]
+FORMATS = {"to_date": "YYYY-MM-DD", "is_date": "YYYY-MM-DD",
+           "next_day": "tuesday"}
 
 
 @pytest.mark.parametrize("sig", SIGNATURES,
@@ -56,13 +69,21 @@ def test_signatures_are_the_reference_ones_without_strings():
 def test_signature_matches_reference(sig):
     name, params, ret = sig
     rng = np.random.default_rng(zlib.crc32(repr(sig).encode()))
-    cols = {f"a{i}": (t, *column(t, rng, N, kind="amount"))
-            for i, t in enumerate(params)}
+    # the first string is a column of date texts, a later one the literal
+    # format or weekday
+    texts = [i for i, t in enumerate(params) if t == "string"]
+    literal = texts[1:] if name != "next_day" else texts
+    cols = {f"a{i}": (t, *(text_column(t, rng, N, DATE_TEXTS)
+                           if t == "string" else
+                           column(t, rng, N, kind="amount")))
+            for i, t in enumerate(params) if i not in literal}
 
     def exprs(p, schema):
         B = p.TreeExprBuilder
-        node = B.make_function(name, [B.make_field(f) for f in schema],
-                               dtype_of(p, ret))
+        args = [B.make_string_literal(FORMATS[name]) if i in literal
+                else B.make_field(schema.field(f"a{i}"))
+                for i in range(len(params))]
+        node = B.make_function(name, args, dtype_of(p, ret))
         return [B.make_expression(node, p.dtypes.Field("out",
                                                        node.dtype))]
 

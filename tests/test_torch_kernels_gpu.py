@@ -990,20 +990,30 @@ def test_registry_family_on_card_matches_cpu(name, types, ret):
         assert torch.equal(got.extra.cpu(), want.extra)
 
 
-@pytest.mark.parametrize("query", ["q1", "q6"])
+def _same_output(got, want, c):
+    """A card output column against the CPU's on [:c]: validity and data
+    bits, the high limb, and a string's dictionary by value."""
+    assert torch.equal(got.validity[:c].cpu(), want.validity[:c])
+    assert torch.equal(_bits(got.data[:c]).cpu(), _bits(want.data[:c]))
+    if want.extra is not None:
+        assert torch.equal(got.extra[:c].cpu(), want.extra[:c])
+    if want.dictionary is not None:
+        assert got.dictionary.equals(want.dictionary)
+
+
+@pytest.mark.parametrize("query", ["q1", "q6", "q12", "q19"])
 def test_tpch_scan_on_card_matches_cpu(query):
-    """TPC-H Q1's and Q6's lineitem scans at 4,096 rows on the card and on
-    the CPU: the same selection and decimal limbs, K1 launched (Q1's twelve
-    payloads take two scatter launches)."""
+    """TPC-H Q1's, Q6's, Q12's and Q19's lineitem scans at 4,096 rows on
+    the card and on the CPU: the same selection, decimal limbs and string
+    codes under the same dictionaries, K1 launched (Q1's sixteen payloads
+    take two scatter launches)."""
     dev = _card()
     from gandiva_tpu_torch import entrypoints as e
 
-    make = e.tpch_q1_scan if query == "q1" else e.tpch_q6_scan
+    make = {"q1": e.tpch_q1_scan, "q6": e.tpch_q6_scan,
+            "q12": e.tpch_q12_scan, "q19": e.tpch_q19_scan}[query]
     cpu = e.lineitem(4096, seed=3, device="cpu")
-    card = e.Batch({k: e.Column(c.data.to(dev), c.validity.to(dev), c.dtype,
-                                extra=None if c.extra is None
-                                else c.extra.to(dev))
-                    for k, c in cpu.columns.items()}, cpu.length)
+    card = cpu.to(dev)
     reset_launches()
     gsel, gout = make(dev).evaluate_device(card)
     assert LAUNCHES["compact"] == (2 if query == "q1" else 1)
@@ -1012,7 +1022,90 @@ def test_tpch_scan_on_card_matches_cpu(query):
     assert int(gsel.count) == c > 0
     assert torch.equal(gsel.indices[:c].cpu(), csel.indices[:c])
     for name in cout.columns:
-        g_, w = gout.column(name), cout.column(name)
-        for a, b in ((g_.data, w.data), (g_.extra, w.extra),
-                     (g_.validity, w.validity)):
-            assert torch.equal(a[:c].cpu(), b[:c])
+        _same_output(gout.column(name), cout.column(name), c)
+
+
+@pytest.mark.parametrize("query", ["q9", "q16"])
+def test_tpch_part_scan_on_card_matches_cpu(query):
+    """Q9's and Q16's PART predicates over 20,000 rows brought in through
+    from_arrow on the card and on the CPU: the same selection and
+    outputs, K1 launched once."""
+    dev = _card()
+    from gandiva_tpu_torch import entrypoints as e
+
+    make = e.tpch_q9_part_scan if query == "q9" else e.tpch_q16_part_scan
+    arrow = e.part_arrow(20000, seed=9)
+    reset_launches()
+    gsel, gout = make(dev).evaluate_device(e.from_arrow(arrow, device=dev))
+    assert LAUNCHES["compact"] == 1
+    csel, cout = make("cpu").evaluate_device(e.from_arrow(arrow,
+                                                          device="cpu"))
+    c = int(csel.count)
+    assert int(gsel.count) == c > 0
+    assert torch.equal(gsel.indices[:c].cpu(), csel.indices[:c])
+    for name in cout.columns:
+        _same_output(gout.column(name), cout.column(name), c)
+
+
+_STRING_CASES = [
+    ("like", ["s", "%a_%"]), ("like", ["s", "a\\%%", "\\"]),
+    ("ilike", ["s", "%É%"]), ("upper", ["s"]), ("substr", ["s", 2, 3]),
+    ("concat", ["s", "t"]), ("less_than", ["s", "t"]), ("equal", ["s", "ab"]),
+    ("hash64", ["s"]), ("hash32", ["s", 9]), ("length", ["s"]),
+    ("castFLOAT8", ["s"]), ("castBIGINT", ["s"]), ("to_date", ["s",
+                                                             "YYYY-MM-DD"]),
+    ("castVARCHAR", ["f"]), ("castVARCHAR", ["d", 5]), ("to_hex", ["s"]),
+    ("levenshtein", ["s", "abc"]), ("castVARBINARY", ["s", 2])]
+
+
+@pytest.mark.parametrize("case", range(len(_STRING_CASES)),
+                         ids=[n for n, _ in _STRING_CASES])
+def test_string_plan_on_card_matches_cpu(case):
+    """One signature of each family of the string registry, and IN over
+    strings, through make_projector on the card and on the CPU at 4,096
+    rows (dictionaries of 300 values with multi-byte and empty strings, 5%
+    nulls): the same codes and dictionaries, or the same bits."""
+    dev = _card()
+    import numpy as np
+    import pyarrow as pa
+
+    import gandiva_tpu_torch as gt
+
+    name, spec = _STRING_CASES[case]
+    B, dt = gt.TreeExprBuilder, gt.dtypes
+    rng = np.random.default_rng(case)
+    n = 4096
+    words = ["", "é", "日本", "2020-03-01", "42", "-3.5"] + [
+        "".join(rng.choice(list("abcÉé日 _%"), rng.integers(1, 9)))
+        for _ in range(294)]
+    valid = rng.random(n) >= 0.05
+    arrow = pa.RecordBatch.from_arrays(
+        [pa.array(np.array(words, dtype=object)[rng.integers(0, 300, n)],
+                  mask=~valid),
+         pa.array(np.array(words[::-1], dtype=object)[rng.integers(0, 300,
+                                                                   n)]),
+         pa.array(rng.standard_normal(n) * 1e3, mask=~valid),
+         pa.array(rng.integers(-10**8, 10**8, n), type=pa.int64()).cast(
+             pa.decimal128(22, 3)).cast(pa.decimal128(12, 3))],
+        names=["s", "t", "f", "d"])
+    cpu = gt.from_arrow(arrow, device="cpu")
+    schema = dt.Schema([dt.Field(k, c.dtype) for k, c in cpu.columns.items()])
+    args = [B.make_field(schema.field(a)) if a in ("s", "t", "f", "d")
+            else B.make_string_literal(a) if isinstance(a, str)
+            else B.make_int64_literal(a) if name in ("substr", "castVARCHAR",
+                                                     "castVARBINARY")
+            else B.make_int32_literal(a) for a in spec]
+    gt.registry.decimal_ops.ensure_registered([a.dtype for a in args])
+    rt = gt.global_registry().lookup_or_raise(
+        name, [a.dtype for a in args]).signature.return_type
+    exprs = [B.make_expression(B.make_function(name, args, rt),
+                               dt.Field("out", rt)),
+             B.make_expression(B.make_in_expression_string(
+                 args[0] if spec[0] == "s" else B.make_field(
+                     schema.field("s")), words[:50]),
+                 dt.Field("in", dt.bool_))]
+    outs = [gt.make_projector(schema, exprs, use_cache=False, device=d)
+            .evaluate_device(b) for d, b in ((dev, cpu.to(dev)),
+                                             ("cpu", cpu))]
+    for col in ("out", "in"):
+        _same_output(outs[0].column(col), outs[1].column(col), n)

@@ -637,6 +637,19 @@ def test_arrow_round_trip_types():
     ref = g.to_arrow(g.from_arrow(batch))
     for name in batch.schema.names:
         assert_same(ref.column(name), port.column(name))
-    with pytest.raises(NotImplementedError):
-        gt.from_arrow(pa.RecordBatch.from_arrays([pa.array(["x"])],
-                                                 names=["s"]), device=CPU)
+    # string, large_string, binary and dictionary columns: dictionary
+    # codes on the device, the same values back
+    strings = pa.RecordBatch.from_arrays(
+        [pa.array(["x", None, "ü€", "", "x"]),
+         pa.array(["a", "b", None, "a", "c"], type=pa.large_string()),
+         pa.array([b"\x00\xff", None, b"", b"\x00\xff", b"z"]),
+         pa.array(["p", "q", None, "q", "p"]).dictionary_encode()],
+        names=["s", "ls", "bin", "dict"])
+    port_b = gt.from_arrow(strings, device=CPU)
+    assert port_b.column("s").data.dtype == torch.int32
+    port = gt.to_arrow(port_b)
+    ref = g.to_arrow(g.from_arrow(strings))
+    for name in strings.schema.names:
+        assert port.column(name).equals(ref.column(name)), name
+        assert port.column(name).to_pylist() == \
+            strings.column(name).to_pylist(), name

@@ -2,10 +2,10 @@
 
 Each listed test module is executed again with ``gandiva_tpu`` (and the
 submodules it imports) standing for ``gandiva_tpu_torch`` on the CPU, and
-the listed test functions are called with their parametrize cases. The
-reference test files stay as they are. Tests of features the port does not
-have yet (strings and the string-typed date and decimal functions,
-profiling, the jit flag's internals) are left out and named in ROADMAP.md.
+the listed test functions are called with their parametrize cases (and
+pytest's ``monkeypatch`` where one takes it). The reference test files
+stay as they are. Tests of features the port does not have yet (profiling,
+the jit flag's internals) are left out and named in ROADMAP.md.
 
 The aggregate, sort and join tests hand the port the reference's (JAX)
 arrays: the stand-ins for ``gandiva_tpu.ops.hash_aggregate``, ``.groupby``,
@@ -23,6 +23,7 @@ stand-in names them only to raise.
 """
 import functools
 import importlib
+import inspect
 import os
 import sys
 import types
@@ -132,6 +133,31 @@ CASES = (
     + [("test_runtime_errors", name, {}) for name in (
         "test_decimal_divide_by_zero_raises",
         "test_cast_decimal_overflow_raises")]
+    + [("test_strings", name, {}) for name in (
+        "test_like", "test_like_underscore_and_escape", "test_in_string",
+        "test_upper_lower_transforms", "test_transform_chain",
+        "test_length_and_substr", "test_string_compare_two_columns",
+        "test_string_compare_literal", "test_concat",
+        "test_starts_ends_strpos", "test_cast_string_to_number",
+        "test_string_hash_partition_consistency",
+        "test_dictionary_changes_between_batches", "test_to_hex_from_hex",
+        "test_chr_space_literals", "test_cast_varchar_numeric",
+        "test_cast_varchar_float32", "test_convert_utf8_round_trip",
+        "test_concat_row_fallback_high_cardinality",
+        "test_concat_row_fallback_through_transform",
+        "test_cast_varchar_computed_numeric",
+        "test_cast_varchar_computed_float_with_nulls",
+        "test_cast_varchar_decimal",
+        "test_like_table_memoized_on_dictionary_identity",
+        "test_dict_distinct_ratio_counter_and_cliff")]
+    + [("test_datetime", name, {}) for name in (
+        "test_to_date_and_is_date", "test_cast_timestamp_from_string",
+        "test_interval_and_alias_signatures_visible")]
+    + [("test_registry_tail", name, {}) for name in (
+        "test_interval_tail_signatures_enumerated",
+        "test_cast_varbinary_string", "test_cast_varbinary_numeric")]
+    + [("test_projector_filter", "test_in_expr_extended_types", {}),
+       ("test_filter_project_fused", "test_fused_with_strings", {})]
 )
 
 
@@ -373,8 +399,8 @@ def _int128_shim() -> types.ModuleType:
 
 
 def _batch_shim() -> types.ModuleType:
-    """The port's Batch, and a Column that takes the reference's (jnp)
-    arrays as CPU tensors."""
+    """The port's Batch and from_arrow (on the CPU), and a Column that
+    takes the reference's (jnp) arrays as CPU tensors."""
     mod = types.ModuleType("gandiva_tpu.batch")
 
     def column(data, validity, dtype, dictionary=None, extra=None):
@@ -382,6 +408,7 @@ def _batch_shim() -> types.ModuleType:
                          _tensor(extra))
 
     mod.Batch, mod.Column = gt.Batch, column
+    mod.from_arrow = functools.partial(gt.from_arrow, device="cpu")
     return mod
 
 
@@ -404,6 +431,7 @@ _STAND_INS = {
     "gandiva_tpu.registry": gt.registry,
     "gandiva_tpu.registry.registry": gt.registry.registry,
     "gandiva_tpu.registry.decimal_ops": gt.registry.decimal_ops,
+    "gandiva_tpu.registry.string_ops": gt.registry.string_ops,
     "gandiva_tpu.plan": _plan_shim(),
     "gandiva_tpu.io": _io_shim(),
     "gandiva_tpu.batch": _batch_shim(),
@@ -451,7 +479,7 @@ def _case_id(stem, name, kwargs) -> str:
 
 @pytest.mark.parametrize("stem,name,kwargs", CASES,
                          ids=[_case_id(*c) for c in CASES])
-def test_reference_case_on_port(stem, name, kwargs):
+def test_reference_case_on_port(stem, name, kwargs, monkeypatch):
     ns = _module(stem)
     for alias, stand_in in (("g", _STAND_INS["gandiva_tpu"]),
                             ("hash_aggregate", _AGG.hash_aggregate),
@@ -460,5 +488,7 @@ def test_reference_case_on_port(stem, name, kwargs):
                             ("merge_sort_u32", _MERGE_PATH.merge_sort_u32),
                             ("join", _JOIN.join)):
         assert alias not in ns or ns[alias] is stand_in, alias
+    if "monkeypatch" in inspect.signature(ns[name]).parameters:
+        kwargs = {**kwargs, "monkeypatch": monkeypatch}
     with _port_as_reference():
         ns[name](**kwargs)

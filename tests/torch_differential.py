@@ -2,10 +2,12 @@
 test_torch_decimal.py, test_torch_plan_io.py): columns made with numpy from
 a seed, given to gandiva_tpu (JAX on the CPU) and to the port (device
 "cpu") as the same state, one expression per package, and the outputs held
-bit for bit, null rows included."""
+bit for bit, null rows included; string and binary outputs, whose codes
+index each engine's own dictionary, are held by their decoded values."""
 import dataclasses
 
 import numpy as np
+import pyarrow as pa
 
 import jax.numpy as jnp
 
@@ -97,18 +99,34 @@ def column(type_name: str, rng, n: int, kind: str = "any"):
     return np.asarray(data), valid, hi
 
 
+def text_column(type_name: str, rng, n: int, values):
+    """(codes, validity, None, dictionary) of a string or binary column of
+    ``n`` rows over the distinct ``values`` (5% nulls, codes 0 there)."""
+    valid = rng.random(n) >= NULL_SHARE
+    codes = np.where(valid, rng.integers(0, len(values), n), 0)
+    typ = pa.string() if type_name == "string" else pa.binary()
+    return codes.astype(np.int32), valid, None, pa.array(values, type=typ)
+
+
 def batches(columns: dict, n: int):
-    """``{name: (type name, data, validity, hi or None)}`` → (gandiva_tpu
-    Batch, port Batch on the CPU) holding the same state."""
+    """``{name: (type name, data, validity, hi or None[, dictionary])}`` →
+    (gandiva_tpu Batch, port Batch on the CPU) holding the same state, a
+    string column's dictionary the same object in both."""
     ref = {}
-    for name, (tn, data, valid, hi) in columns.items():
+    for name, (tn, data, valid, hi, *d) in columns.items():
         ref[name] = GColumn(jnp.asarray(data), jnp.asarray(valid),
-                            dtype_of(g, tn),
+                            dtype_of(g, tn), dictionary=(d or [None])[0],
                             extra=None if hi is None else jnp.asarray(hi))
-    port = gt.from_columns_numpy(
-        {name: (tn, data, valid, hi)
-         for name, (tn, data, valid, hi) in columns.items()}, n, device=CPU)
+    port = gt.from_columns_numpy(columns, n, device=CPU)
     return GBatch(ref, n), port
+
+
+def decoded(col, dictionary=None):
+    """A string or binary column's values row by row (None where null)."""
+    codes = np.asarray(col.data).astype(np.int32)
+    valid = np.asarray(col.validity)
+    d = (col.dictionary if dictionary is None else dictionary).to_pylist()
+    return [d[c] if ok else None for c, ok in zip(codes, valid)]
 
 
 def _bits(a):
@@ -120,10 +138,13 @@ def _bits(a):
 
 def assert_same_column(ref, port, what=""):
     """Bit for bit over every row, null rows included; NaN equals NaN (libm
-    NaN payloads differ), validity equal."""
+    NaN payloads differ), validity equal; strings and binaries by value."""
     rv = np.asarray(ref.validity)
     pv = port.validity.numpy()
     np.testing.assert_array_equal(pv, rv, err_msg=f"{what} validity")
+    if port.dtype.is_varlen:
+        assert decoded(port) == decoded(ref), what
+        return
     rd, pd = np.asarray(ref.data), port.data.numpy()
     if rd.dtype.kind == "f":
         nan = np.isnan(rd)
