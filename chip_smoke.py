@@ -160,11 +160,34 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                 codes under the same dictionary object), and against
                 pyarrow.compute on LINEITEM's first 1,048,576 rows and all
                 of PART.
+ 22. configs[4] — BASELINE configs[4]'s filter→join→agg→sort
+                (parallel.run_pipeline_with_retry, the reference's factors)
+                as TPC-H SF10 ORDERS ⋈ CUSTOMER grouped by market segment
+                over make_mesh(4) on the one card: 15,000,000 orders made on
+                the card (o_custkey as dbgen draws it, uniform and then
+                Zipf(1.3) over the same customers), 1,500,000 customers;
+                exact against pyarrow.acero; rows/s (best of 3), metrics,
+                peak memory, host syncs a call, hot keys, partition
+                balance, the profiler's top 8, launches; K2, K4 with
+                K3's rounds, and K5 against their plain versions on the
+                inputs of each one's largest call in the pipeline;
+ 23. distributed_step — entrypoints.distributed_step over one configs[0]
+                batch of 64Mi rows as 4 partitions, 1024 groups, against
+                pyarrow's group_by; rows/s, launches (K1, K5), syncs; K1
+                and K5 against their plain versions on their largest
+                call's inputs;
+ 24. profile  — the flagship plan's profile (a Chrome trace that must name
+                a CUDA kernel) and cost_analysis, in a fresh process;
+ 25. scaling  — measure_scaling_efficiency and measure_weak_scaling over
+                1, 2 and 4 partitions of the one card at a small size (they
+                run; partitions of one card measure no scaling efficiency).
 Then one {"kernels": [...]} line (K1's launches by path include every
-scan), and last {"ok": true, "device": {...}}.
+scan and distributed_step; K2-K5's the configs[4] pipeline), and last
+{"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -419,6 +442,61 @@ def hold_k5(got, want, kinds, what: str) -> float:
     return err
 
 
+def drive_generic_groupby(gt, dev, g, aggs, runs: int):
+    """Phase 9b: ``hash_aggregate`` past 1024 groups (no K5) over N_GENERIC
+    rows of 3000 keys drawn from ``g``, best of ``runs`` synchronized walls,
+    against pyarrow's group_by. Returns (rows/s, walls, groups). It takes
+    the package as ``gt``, so one process can time another tree's."""
+    import pyarrow as pa
+
+    from gandiva_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+
+    gen_keys = torch.randint(0, 3000, (N_GENERIC,), generator=g,
+                             device=dev) * 1_000_003 - 7
+    gen_vals = torch.randn(N_GENERIC, generator=g, dtype=torch.float64,
+                           device=dev)
+
+    def generic_path():
+        return gt.ops.hash_aggregate(gen_keys, aggs,
+                                     {"v": (gen_vals, None)}, max_groups=4096)
+
+    reset_launches()
+    gen = generic_path()                                  # warm-up
+    torch.cuda.synchronize()
+    gen_walls = []
+    for _ in range(runs):
+        t = time.perf_counter()
+        gen = generic_path()
+        torch.cuda.synchronize()
+        gen_walls.append(time.perf_counter() - t)
+    if LAUNCHES["aggregate"] != 0:
+        raise AssertionError("the generic group-by launched K5")
+    gen_rows_s = N_GENERIC / min(gen_walls)
+    cnt = int(gen["group_count"])
+    order = torch.argsort(gen["keys"][:cnt])
+    got_np = {k: v[:cnt][order].cpu().numpy() for k, v in gen.items()
+              if v.dim()}
+    oracle = pa.table({"k": gen_keys.cpu().numpy(),
+                       "v": gen_vals.cpu().numpy()}).group_by("k").aggregate(
+        [("v", "sum"), ("v", "count"), ("v", "min"), ("v", "max")]
+    ).sort_by("k")
+    if cnt != oracle.num_rows or bool(gen["overflow"]):
+        raise AssertionError(f"generic group-by: {cnt} groups, pyarrow "
+                             f"{oracle.num_rows}")
+    for col, key in (("k", "keys"), ("v_count", "agg:v:count"),
+                     ("v_min", "agg:v:min"), ("v_max", "agg:v:max")):
+        if not np.array_equal(oracle.column(col).to_numpy(), got_np[key]):
+            raise AssertionError(f"generic group-by: {key} != pyarrow {col}")
+    np.testing.assert_allclose(got_np["agg:v:sum"],
+                               oracle.column("v_sum").to_numpy(),
+                               rtol=AGG_RTOL)
+    log(f"n={N_GENERIC}: {cnt} groups equal to pyarrow group_by (sums "
+        f"within rtol {AGG_RTOL}); walls_s="
+        f"{[round(w, 6) for w in gen_walls]} rows/s={gen_rows_s:.6g}, no K5 "
+        "launch")
+    return gen_rows_s, gen_walls, cnt
+
+
 def plain_merge_sort(words, w_log2):
     """``merge_sort``'s steps through K4's and K3's plain versions."""
     from gandiva_tpu_torch.ops.kernels.merge_path import (merge_round_plain,
@@ -441,15 +519,17 @@ def hold_sort(got, want, what: str) -> float:
     return float((got[0].long() - want[0].long()).abs().max())
 
 
-def sort_rounds_against_plain(words, what: str, every_round: bool = True
-                              ) -> float:
-    """K4 and then K3's rounds on ``words``, each held against its plain
-    version on the same input; with ``every_round`` false only the first and
-    last rounds are. Returns the largest absolute difference."""
+def sort_rounds_against_plain(words, what: str, every_round: bool = True,
+                              w_log2: int = None) -> float:
+    """K4 and then K3's rounds on ``words`` (tile 2^w_log2, by default
+    ``tile_log2``'s), each held against its plain version on the same
+    input; with ``every_round`` false only the first and last rounds are.
+    Returns the largest absolute difference."""
     from gandiva_tpu_torch.ops.kernels import merge_path as k3
     from gandiva_tpu_torch.ops.kernels import sort_bitonic as k4
 
-    w_log2 = k4.tile_log2(words.shape[0])
+    if w_log2 is None:
+        w_log2 = k4.tile_log2(words.shape[0])
     got = k4.block_sort_cuda(words, w_log2)
     torch.cuda.synchronize()
     err = hold_sort(got, k4.block_sort_plain(words, w_log2), f"{what} K4")
@@ -1417,6 +1497,383 @@ def drive_string_scans(gt, dev, smi: str) -> dict:
     return launches
 
 
+# -- phase 22: configs[4], TPC-H SF10 ORDERS ⋈ CUSTOMER over 4 partitions ---
+
+ORDERS_SF10 = 15_000_000         # TPC-H v3.0.1 §4.2.3: SF × 1,500,000
+CUSTOMER_SF10 = 1_500_000        # SF × 150,000
+MKTSEGMENTS = 5                  # c_mktsegment's five values
+PIPE_PARTITIONS = 4              # the layout of a 4-card deployment
+PIPE_THRESHOLD = 25_000_000      # o_totalprice > 250,000.00, in cents
+PIPE_ZIPF = 1.3                  # configs[3]'s skew
+N_STEP = 64 << 20                # phase 23: one configs[0] batch
+STEP_PARTITIONS = 4
+STEP_GROUPS = 1024
+SCALE_ROWS, SCALE_BUILD = 1 << 20, 1 << 17   # phase 25's strong scaling
+WEAK_ROWS, WEAK_BUILD = 1 << 18, 1 << 15     # ... and weak, a partition
+
+
+def orders_customer(dev, seed: int, zipf: bool):
+    """SF10's ORDERS (o_custkey, o_totalprice in cents as int64) and
+    CUSTOMER (c_custkey, c_mktsegment as a code in [0, 5)) made on the
+    card. o_custkey is drawn, as dbgen draws it, over [1, 1,500,000]
+    without the multiples of 3: uniform, or Zipf(1.3) over the same keys
+    (configs[3]'s skew). o_totalprice is uniform in [90,000, 50,000,000]
+    cents (reduced: not summed from lineitems)."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    n_keys = CUSTOMER_SF10 * 2 // 3          # customers that place orders
+    j = zipf_keys(ORDERS_SF10, n_keys, g) if zipf else torch.randint(
+        0, n_keys, (ORDERS_SF10,), generator=g, device=dev)
+    o_custkey = 3 * (j // 2) + 1 + j % 2     # 1, 2, 4, 5, 7, ...
+    o_totalprice = torch.randint(90_000, 50_000_001, (ORDERS_SF10,),
+                                 generator=g, device=dev)
+    c_custkey = torch.arange(1, CUSTOMER_SF10 + 1, device=dev)
+    c_mktsegment = torch.randint(0, MKTSEGMENTS, (CUSTOMER_SF10,),
+                                 generator=g, device=dev)
+    return o_custkey, o_totalprice, c_custkey, c_mktsegment
+
+
+def acero_configs4(tables):
+    """The query by pyarrow.acero on host copies: filter, hash join,
+    aggregate, order by."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+
+    ok, amt, ck, seg = (t.cpu().numpy() for t in tables)
+    orders = pa.table({"k": ok, "amt": amt})
+    orders = orders.filter(pc.greater(orders.column("amt"), PIPE_THRESHOLD))
+    joined = orders.join(pa.table({"k": ck, "seg": seg}), keys="k",
+                         join_type="inner")
+    agg = joined.group_by("seg").aggregate([("amt", "sum"),
+                                            ("amt", "count")])
+    agg = agg.sort_by("seg")
+    return (agg.column("seg").to_numpy(), agg.column("amt_sum").to_numpy(),
+            agg.column("amt_count").to_numpy(), joined.num_rows)
+
+
+def clone_args(x):
+    """``x`` with every tensor in it cloned (tuples, named tuples, lists)."""
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*map(clone_args, x))
+    if isinstance(x, (list, tuple)):
+        return type(x)(map(clone_args, x))
+    return x
+
+
+@contextlib.contextmanager
+def keep_largest_inputs(kept: dict):
+    """While open, the CUDA entries of K1, K2, K4 and K5 keep in
+    ``kept[name]`` clones of the arguments of their call with the most rows,
+    so each can be held against its plain version at the shapes a path
+    gives it."""
+    from gandiva_tpu_torch.ops.kernels import aggregate as k5
+    from gandiva_tpu_torch.ops.kernels import compaction as k1
+    from gandiva_tpu_torch.ops.kernels import compaction_fragnet as k2
+    from gandiva_tpu_torch.ops.kernels import sort_bitonic as k4
+
+    entries = [("compact", k1, "compact_columns_cuda"),
+               ("compact_fragnet", k2, "compact_fragnet_cuda"),
+               ("sort_block", k4, "block_sort_cuda"),
+               ("aggregate", k5, "aggregate_cuda")]
+    saved = [getattr(mod, attr) for _, mod, attr in entries]
+
+    def recording(name, fn):
+        def call(*args):
+            if name not in kept or \
+                    args[0].shape[-1] > kept[name][0].shape[-1]:
+                kept[name] = clone_args(args)
+            return fn(*args)
+        return call
+
+    for (name, mod, attr), fn in zip(entries, saved):
+        setattr(mod, attr, recording(name, fn))
+    try:
+        yield kept
+    finally:
+        for (_, mod, attr), fn in zip(entries, saved):
+            setattr(mod, attr, fn)
+
+
+def hold_kept_kernels(kept: dict, what: str, need) -> dict:
+    """The kernels named in ``need`` (K1 ``compact``, K2
+    ``compact_fragnet``, K4 ``sort_block`` with K3's rounds, K5
+    ``aggregate``) on the inputs ``keep_largest_inputs`` kept, each against
+    its plain version. Returns the largest absolute difference of each
+    (K4 and K3 under ``sort``)."""
+    from gandiva_tpu_torch.ops.kernels import aggregate as k5
+    from gandiva_tpu_torch.ops.kernels import compaction as k1
+    from gandiva_tpu_torch.ops.kernels import compaction_fragnet as k2
+
+    missing = set(need) - kept.keys()
+    if missing:
+        raise AssertionError(f"{what}: no launch of {sorted(missing)}")
+    errs = {}
+    for name, cuda, plain in (
+            ("compact", k1.compact_columns_cuda, k1.compact_columns_plain),
+            ("compact_fragnet", k2.compact_fragnet_cuda,
+             k2.compact_fragnet_plain)):
+        if name in need:
+            mask, cols = kept[name]
+            errs[name] = hold(cuda(mask, cols), plain(mask, cols),
+                              f"{name} {what}")
+            log(f"{what}: {name} matches plain on its largest call "
+                f"({mask.shape[0]} rows, {int(mask.sum())} kept, "
+                f"{[c.dtype for c in cols]})")
+    if "sort_block" in need:
+        words, w_log2 = kept["sort_block"]
+        errs["sort"] = sort_rounds_against_plain(
+            words, f"{what} largest sort", w_log2=w_log2)
+    if "aggregate" in need:
+        keys, code, vcols, max_groups = kept["aggregate"]
+        errs["aggregate"] = hold_k5(
+            k5.aggregate_cuda(keys, code, vcols, max_groups),
+            k5.aggregate_plain(keys, code, vcols, max_groups),
+            [c.kind for c in vcols], f"K5 {what}")
+        log(f"{what}: K5 matches plain on its largest call ({keys.shape[0]} "
+            f"rows, {len(vcols)} columns, max_groups {max_groups})")
+    return errs
+
+
+def drive_configs4(gt, dev, smi: str):
+    """BASELINE configs[4] as TPC-H SF10 ORDERS ⋈ CUSTOMER grouped by market
+    segment, through ``run_pipeline_with_retry`` over ``make_mesh(4)`` on
+    the one card with the reference's factors, uniform and then Zipf(1.3)
+    o_custkey: exact against pyarrow.acero, rows/s (best of 3 synchronized
+    walls), the pipeline's metrics, peak memory, host syncs a call, hot
+    keys, partition balance, the profiler's top 8 and busy share, and each
+    kernel's launches in the first (uniform) call. In each run, K2, K4 with
+    K3's rounds, and K5 are held against their plain versions on the
+    inputs of their largest call in one more pipeline call. Returns the
+    first call's launches and each kernel's largest difference."""
+    from gandiva_tpu_torch import parallel
+    from gandiva_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+
+    mesh = parallel.make_mesh(PIPE_PARTITIONS, device=dev)
+    launches, report = None, {}
+    errs = {"compact_fragnet": 0.0, "sort": 0.0, "aggregate": 0.0}
+    for name, zipf in (("uniform", False), ("zipf", True)):
+        tables = orders_customer(dev, 22 + zipf, zipf)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        if launches is None:
+            reset_launches()
+        keys, sums, counts, metrics = parallel.run_pipeline_with_retry(
+            mesh, *tables, filter_threshold=PIPE_THRESHOLD)
+        if launches is None:
+            launches = {k: LAUNCHES[k] for k in LAUNCHES}
+        peak = torch.cuda.max_memory_allocated()
+        walls = [metrics["wall_time_s"]]
+        for _ in range(2):
+            walls.append(parallel.run_pipeline_with_retry(
+                mesh, *tables, filter_threshold=PIPE_THRESHOLD)[3][
+                    "wall_time_s"])
+        want_seg, want_sum, want_count, joined = acero_configs4(tables)
+        if not (np.array_equal(keys, want_seg)
+                and np.array_equal(sums, want_sum)
+                and np.array_equal(counts, want_count)
+                and metrics["join_out"] == joined):
+            raise AssertionError(f"configs[4] {name}: differs from acero: "
+                                 f"{keys, sums, counts} against "
+                                 f"{want_seg, want_sum, want_count}")
+        fn = parallel.build_filter_join_agg_sort(
+            mesh, ORDERS_SF10 // PIPE_PARTITIONS,
+            CUSTOMER_SF10 // PIPE_PARTITIONS,
+            shuffle_factor=metrics["shuffle_factor"],
+            out_factor=metrics["out_factor"],
+            filter_threshold=PIPE_THRESHOLD)
+        syncs = count_syncs(lambda: parallel.run_pipeline(fn, *tables, mesh))
+        # partition balance: the joined rows each partition received, the
+        # largest over the mean; this call also keeps the kernels' inputs
+        with keep_largest_inputs({}) as kept:
+            per = [int(x) for x in fn(*(parallel.shard(mesh, x)
+                                        for x in tables))[5]["join_out"]]
+        balance = max(per) * len(per) / max(sum(per), 1)
+        for k, e in hold_kept_kernels(
+                kept, f"configs[4] {name}",
+                ("compact_fragnet", "sort_block", "aggregate")).items():
+            errs[k] = max(errs[k], e)
+        del kept
+        busy, _ = profile_call(
+            lambda: parallel.run_pipeline(fn, *tables, mesh), top=8)
+        ok = parallel.shard(mesh, tables[0])
+        keep = [a > PIPE_THRESHOLD
+                for a in parallel.shard(mesh, tables[1])]
+        _, hot_valid = parallel.detect_hot_keys(ok, keep, mesh, 64)
+        n_hot = int(hot_valid.sum())
+        if zipf and n_hot < 1:
+            raise AssertionError("configs[4] zipf: no hot key found")
+        rows_s = ORDERS_SF10 / min(walls)
+        log(f"configs[4] {name} ({smi}): {rows_s:.6g} rows/s, walls_s="
+            f"{[round(w, 6) for w in walls]}; {len(keys)} groups exact "
+            f"against pyarrow.acero; metrics {json.dumps(metrics)}; "
+            f"max_memory_allocated={peak} (the path's own {peak - before}; "
+            "reckoned 15-25 GB from the capacities); host syncs a call "
+            f"{syncs}; hot keys {n_hot}; joined rows by partition {per} "
+            f"(largest / mean {balance:.4f})")
+        report[name] = {"rows_per_s": rows_s, "walls_s": walls,
+                        "metrics": metrics, "max_memory_allocated": peak,
+                        "own_memory": peak - before, "syncs": syncs,
+                        "hot_keys": n_hot, "join_out_by_partition": per,
+                        "device_busy_share": busy,
+                        "balance": balance}
+        del tables, ok, keep
+    if min(launches[k] for k in ("sort_block", "merge_path",
+                                 "aggregate")) == 0:
+        raise AssertionError(f"configs[4]: launches {launches}")
+    log(f"configs[4] launches in one call: {launches}")
+    log(json.dumps({"configs4": {
+        "card": smi, "orders": ORDERS_SF10, "customers": CUSTOMER_SF10,
+        "partitions": PIPE_PARTITIONS, "cards": mesh.num_cards,
+        "launches": launches, "max_abs_err": errs, **report}}))
+    return launches, errs
+
+
+# -- phase 23: distributed_step over configs[0]'s inputs ---------------------
+
+def drive_distributed_step(gt, dev, smi: str):
+    """``entrypoints.distributed_step`` on one configs[0] batch of 64Mi rows
+    made on the card (``a`` int64 in [0, 1000) with 5% nulls, ``b`` f64) as
+    4 partitions, 1024 groups, a shuffle capacity of the rows a
+    partition: held against pyarrow's group_by on the filtered rows (f64
+    sums at rtol AGG_RTOL), rows/s (best of 3), launches, syncs; K1 and K5
+    held against their plain versions on their largest call's inputs in
+    one more call. Returns the first call's launches and each kernel's
+    largest difference."""
+    import pyarrow as pa
+
+    from gandiva_tpu_torch import parallel
+    from gandiva_tpu_torch.entrypoints import distributed_step
+    from gandiva_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(23)
+    a = torch.randint(0, 1000, (N_STEP,), generator=g, device=dev)
+    b = torch.rand(N_STEP, generator=g, dtype=torch.float64, device=dev)
+    valid = torch.rand(N_STEP, generator=g, device=dev) >= 0.05
+    mesh = parallel.make_mesh(STEP_PARTITIONS, device=dev)
+    per = N_STEP // STEP_PARTITIONS
+    fn = distributed_step(mesh, per, num_groups=STEP_GROUPS)
+    args = [parallel.shard(mesh, x) for x in (a, b, valid)]
+    torch.cuda.synchronize()
+    reset_launches()
+    keys, sums, counts, gcounts, total, overflow = fn(*args)
+    torch.cuda.synchronize()
+    launches = {k: LAUNCHES[k] for k in LAUNCHES}
+    walls = []
+    for _ in range(3):
+        t = time.perf_counter()
+        out = fn(*args)
+        int(out[4])
+        walls.append(time.perf_counter() - t)
+    syncs = count_syncs(lambda: fn(*args))
+    with keep_largest_inputs({}) as kept:
+        fn(*args)
+    errs = hold_kept_kernels(kept, "distributed_step",
+                             ("compact", "aggregate"))
+    del kept
+    if bool(overflow):
+        raise AssertionError("distributed_step: overflow")
+    got = {}
+    for p in range(mesh.local):
+        c = int(gcounts[p])
+        for k, s, n in zip(keys[p][:c].tolist(), sums[p][:c].tolist(),
+                           counts[p][:c].tolist()):
+            if k in got:
+                raise AssertionError(f"key {k} on two partitions")
+            got[k] = (s, n)
+    keep = (valid & (a > 500)).cpu().numpy()
+    ah, bh = a.cpu().numpy()[keep], b.cpu().numpy()[keep]
+    want = pa.table({"k": ah, "v": bh * 2.0 + ah.astype(np.float64)}) \
+        .group_by("k").aggregate([("v", "sum"), ("v", "count")])
+    wk = want.column("k").to_numpy()
+    ws = want.column("v_sum").to_numpy()
+    wc = want.column("v_count").to_numpy()
+    if set(got) != set(wk.tolist()) or int(total) != int(keep.sum()):
+        raise AssertionError("distributed_step: groups differ from pyarrow")
+    gs = np.array([got[k][0] for k in wk.tolist()])
+    gc = np.array([got[k][1] for k in wk.tolist()])
+    if not np.array_equal(gc, wc):
+        raise AssertionError("distributed_step: counts differ")
+    np.testing.assert_allclose(gs, ws, rtol=AGG_RTOL, atol=0)
+    err = float(np.abs(gs - ws).max())
+    if min(launches["compact"], launches["aggregate"]) == 0:
+        raise AssertionError(f"distributed_step: launches {launches}")
+    rows_s = N_STEP / min(walls)
+    log(f"distributed_step ({smi}): {rows_s:.6g} rows/s, walls_s="
+        f"{[round(w, 6) for w in walls]}; {len(got)} groups, {int(total)} "
+        f"rows, equal to pyarrow (sums max abs err {err:.3g}); launches "
+        f"{launches}; host syncs a call {syncs}")
+    log(json.dumps({"distributed_step": {
+        "card": smi, "rows": N_STEP, "partitions": STEP_PARTITIONS,
+        "groups": len(got), "rows_per_s": rows_s, "walls_s": walls,
+        "launches": launches, "syncs": syncs, "max_abs_err": err,
+        "kernels_max_abs_err": errs}}))
+    return launches, errs
+
+
+# -- phase 24: profile in a fresh process ------------------------------------
+
+PROFILE_CODE = """
+import json, sys
+import gandiva_tpu_torch as gt
+from gandiva_tpu_torch.entrypoints import flagship_plan, flagship_stream
+plan = flagship_plan("cuda")
+_, make = flagship_stream("cuda")
+cols = make(1, 1 << 20, seed=24)
+batch = gt.Batch({n: gt.Column(d[0], v[0], t) for (n, (d, v)), t in zip(
+    cols.items(), (gt.dtypes.int64, gt.dtypes.float64))}, 1 << 20)
+print(json.dumps({"trace_dir": plan.profile(batch, trace_dir=sys.argv[1]),
+                  "cost": plan.cost_analysis(batch)}))
+"""
+
+
+def profile_fresh_process(smi: str) -> dict:
+    """The flagship plan's ``profile`` and ``cost_analysis`` in a fresh
+    process (a long-lived one drops a call's first kernels, PERF.md §7):
+    the Chrome trace must parse and name at least one CUDA kernel."""
+    trace_dir = os.path.join(ROOT, "build", "profile_trace")
+    r = subprocess.run([sys.executable, "-c", PROFILE_CODE, trace_dir],
+                       cwd=ROOT, capture_output=True, text=True, timeout=300)
+    if r.returncode:
+        raise AssertionError(f"profile subprocess failed:\n{r.stderr[-3000:]}")
+    out = json.loads(r.stdout.strip().splitlines()[-1])
+    with open(os.path.join(out["trace_dir"], "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = sorted({e["name"] for e in events
+                      if e.get("cat") == "kernel"})
+    if not kernels:
+        raise AssertionError("profile: the trace names no CUDA kernel")
+    log(f"profile ({smi}): {len(events)} trace events, {len(kernels)} "
+        f"distinct CUDA kernels, e.g. {kernels[:4]}; cost_analysis "
+        f"{json.dumps(out['cost'])}")
+    return {"events": len(events), "kernels": kernels, "cost": out["cost"]}
+
+
+# -- phase 25: the scaling harnesses -----------------------------------------
+
+def drive_scaling(dev, smi: str) -> dict:
+    """``measure_scaling_efficiency`` and ``measure_weak_scaling`` over 1, 2
+    and 4 partitions of the one card at a small size: they run on the card.
+    Partitions of one card share it, so these rows measure no scaling
+    efficiency."""
+    from gandiva_tpu_torch import parallel
+
+    strong = parallel.measure_scaling_efficiency(
+        [1, 2, 4], SCALE_ROWS, SCALE_BUILD, device=dev)
+    weak = parallel.measure_weak_scaling([1, 2, 4], WEAK_ROWS, WEAK_BUILD,
+                                         device=dev)
+    for r in strong + weak:
+        if not (r["wall_s"] > 0 and r["n_cards"] == 1):
+            raise AssertionError(f"scaling row {r}")
+    log(f"scaling harnesses ({smi}; partitions of ONE card, so no scaling "
+        f"efficiency is measured): strong {json.dumps(strong)}; weak "
+        f"{json.dumps(weak)}")
+    return {"strong": strong, "weak": weak}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1957,50 +2414,8 @@ def main() -> int:
     # -- 9b. the generic group-by (past 1024 groups: no K5) --------------
     phase("hash_aggregate, generic path (10M rows, 3000 keys, max_groups "
           "4096)")
-    gen_keys = torch.randint(0, 3000, (N_GENERIC,), generator=g,
-                             device=dev) * 1_000_003 - 7
-    gen_vals = torch.randn(N_GENERIC, generator=g, dtype=torch.float64,
-                           device=dev)
-
-    def generic_path():
-        return gt.ops.hash_aggregate(gen_keys, aggs,
-                                     {"v": (gen_vals, None)}, max_groups=4096)
-
-    reset_launches()
-    gen = generic_path()                                  # warm-up
-    torch.cuda.synchronize()
-    gen_walls = []
-    for _ in range(runs):
-        t = time.perf_counter()
-        gen = generic_path()
-        torch.cuda.synchronize()
-        gen_walls.append(time.perf_counter() - t)
-    if LAUNCHES["aggregate"] != 0:
-        raise AssertionError("the generic group-by launched K5")
-    gen_rows_s = N_GENERIC / min(gen_walls)
-    cnt = int(gen["group_count"])
-    order = torch.argsort(gen["keys"][:cnt])
-    got_np = {k: v[:cnt][order].cpu().numpy() for k, v in gen.items()
-              if v.dim()}
-    oracle = pa.table({"k": gen_keys.cpu().numpy(),
-                       "v": gen_vals.cpu().numpy()}).group_by("k").aggregate(
-        [("v", "sum"), ("v", "count"), ("v", "min"), ("v", "max")]
-    ).sort_by("k")
-    if cnt != oracle.num_rows or bool(gen["overflow"]):
-        raise AssertionError(f"generic group-by: {cnt} groups, pyarrow "
-                             f"{oracle.num_rows}")
-    for col, key in (("k", "keys"), ("v_count", "agg:v:count"),
-                     ("v_min", "agg:v:min"), ("v_max", "agg:v:max")):
-        if not np.array_equal(oracle.column(col).to_numpy(), got_np[key]):
-            raise AssertionError(f"generic group-by: {key} != pyarrow {col}")
-    np.testing.assert_allclose(got_np["agg:v:sum"],
-                               oracle.column("v_sum").to_numpy(),
-                               rtol=AGG_RTOL)
-    log(f"n={N_GENERIC}: {cnt} groups equal to pyarrow group_by (sums "
-        f"within rtol {AGG_RTOL}); walls_s="
-        f"{[round(w, 6) for w in gen_walls]} rows/s={gen_rows_s:.6g}, no K5 "
-        "launch")
-    del gen, gen_keys, gen_vals, oracle, got_np
+    gen_rows_s, gen_walls, cnt = drive_generic_groupby(gt, dev, g, aggs,
+                                                       runs)
     log(json.dumps({"agg_path": {
         "rows_per_s": agg_rows_s, "walls_s": agg_walls, "rows": N_AGG,
         "groups": AGG_GROUPS, "max_memory_allocated": agg_peak,
@@ -2652,13 +3067,38 @@ def main() -> int:
           "Q16 over PART; SF10)")
     k1_by_path.update(drive_string_scans(gt, dev, smi))
 
+    # -- 22. configs[4]: SF10 ORDERS ⋈ CUSTOMER over 4 partitions ---------
+    phase("main path: configs[4] filter→join→agg→sort, TPC-H SF10 ORDERS ⋈ "
+          "CUSTOMER as 4 partitions of one card")
+    pipe_launches, pipe_errs = drive_configs4(gt, dev, smi)
+    k2_err = max(k2_err, pipe_errs["compact_fragnet"])
+    sort_err = max(sort_err, pipe_errs["sort"])
+    k5_err = max(k5_err, pipe_errs["aggregate"])
+
+    # -- 23. distributed_step ---------------------------------------------
+    phase("main path: distributed_step over one configs[0] batch as 4 "
+          "partitions")
+    step_launches, step_errs = drive_distributed_step(gt, dev, smi)
+    max_err = max(max_err, step_errs["compact"])
+    k5_err = max(k5_err, step_errs["aggregate"])
+    k1_by_path["distributed_step"] = step_launches["compact"]
+
+    # -- 24. profile in a fresh process -----------------------------------
+    phase("profile and cost_analysis of the flagship plan, fresh process")
+    profile_fresh_process(smi)
+
+    # -- 25. the scaling harnesses ----------------------------------------
+    phase("the scaling harnesses over 1, 2 and 4 partitions of one card")
+    drive_scaling(dev, smi)
+
     # -- the kernels line, then the last line ----------------------------
     # each path's own count, read just after it ran; ``launches`` is the
     # count of the path that brought the kernel in
     def by_path(name):
         return {"configs[2] sort_columns": sort_launches[name],
                 "configs[3] join": join_launches[name],
-                "configs[3] join_stream": join_stream_launches[name]}
+                "configs[3] join_stream": join_stream_launches[name],
+                "configs[4] pipeline": pipe_launches[name]}
 
     log(json.dumps({"kernels": [{
         "name": "compact",
@@ -2682,7 +3122,8 @@ def main() -> int:
         "launches": join_stream_launches["compact_fragnet"],
         "launches_by_path": {
             "configs[3] join": join_launches["compact_fragnet"],
-            "configs[3] join_stream": join_stream_launches["compact_fragnet"]},
+            "configs[3] join_stream": join_stream_launches["compact_fragnet"],
+            "configs[4] pipeline": pipe_launches["compact_fragnet"]},
         "matches_plain": True,
         "max_abs_err": k2_err,
         "ms": k2_cold["k2_ms"],
@@ -2696,7 +3137,9 @@ def main() -> int:
         "source": "gandiva_tpu_torch/csrc/aggregate.cu",
         "replaces": "gandiva_tpu/ops/kernels/agg_pallas.py:147",
         "launches": agg_launches,
-        "launches_by_path": {"configs[1] hash_aggregate": agg_launches},
+        "launches_by_path": {"configs[1] hash_aggregate": agg_launches,
+                             "configs[4] pipeline": pipe_launches["aggregate"],
+                             "distributed_step": step_launches["aggregate"]},
         "matches_plain": True,
         "max_abs_err": k5_err,
         "ms": k5_ms,

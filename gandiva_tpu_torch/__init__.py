@@ -25,7 +25,11 @@ streaming I/O (``io``); the hash aggregate with its group-id assignment,
 hashes and key normalization, the sort, and the hash join (``ops.join``,
 ``join_multi``, ``join_stream``, ``build_join_table``, ``probe_chunk``,
 ``gather_payload``, ``probe_diagnostics``, ``JoinResult``, ``JoinTable``;
-ops, utils). Profiling and distribution follow in later slices.
+ops, utils); the plans' ``profile`` (a torch.profiler Chrome trace) and
+``cost_analysis`` (the port's own operation and byte count); and the
+distribution layer (``parallel``: the partition mesh, the all-to-all
+shuffle, the distributed join / aggregate / sort, the configs[4] pipeline,
+``entrypoints.distributed_step``).
 """
 from __future__ import annotations
 
@@ -53,7 +57,7 @@ from .compiler.selection import SelectionMode, SelectionVector
 from .compiler.projector import (Filter, FilterProject, Projector,
                                  make_filter, make_filter_project,
                                  make_projector)
-from . import io, native, ops
+from . import io, native, ops, parallel
 from .plan import (Plan, PlanError, dump_plan, load_plan,
                    make_filter_from_plan, make_projector_from_plan)
 
@@ -81,7 +85,7 @@ __all__ = [
     "ExpressionValidationError", "EvaluationError",
     "Plan", "PlanError", "load_plan", "dump_plan",
     "make_projector_from_plan", "make_filter_from_plan",
-    "io", "native", "ops",
+    "io", "native", "ops", "parallel",
 ]
 
 __version__ = "0.1.0"

@@ -7,7 +7,8 @@ the reference's rules:
 
 - default (NULL_IF_NULL): output validity = AND of input validities;
 - if/else: a NULL condition takes the else branch; result validity follows the
-  branch actually taken (pyarrow tests/test_gandiva.py:330-373);
+  branch actually taken (pyarrow tests/test_gandiva.py:330-373); string and
+  binary branches select codes into one merged dictionary;
 - boolean and/or: Kleene short-circuit — ``false AND null = false``,
   ``true OR null = true``, otherwise null if any input null;
 - IN: membership over a literal set, validity propagated from the eval subtree.
@@ -285,7 +286,12 @@ class ExprDecomposer:
         sel = cond.value
         if cond.validity is not None:
             sel = torch.logical_and(sel, cond.validity)
-        if isinstance(then_v.value, tuple):  # decimal limb pairs
+        dict_thunk = None
+        if node.dtype.is_varlen:
+            then_codes, else_codes, dict_thunk = self._merge_dictionaries(
+                then_v, else_v, node.dtype)
+            value = torch.where(sel, then_codes, else_codes)
+        elif isinstance(then_v.value, tuple):  # decimal limb pairs
             value = tuple(torch.where(sel, t, e)
                           for t, e in zip(then_v.value, else_v.value))
         else:
@@ -296,7 +302,50 @@ class ExprDecomposer:
             cap, dev = self.ctx.capacity, self.ctx.device
             validity = torch.where(sel, as_valid_mask(then_v, cap, dev),
                                    as_valid_mask(else_v, cap, dev))
-        return Val(value, validity, node.dtype)
+        return Val(value, validity, node.dtype, dict_thunk=dict_thunk)
+
+    def _branch_dictionary(self, v: Val, arrow_type):
+        """A string branch's (dictionary thunk, codes): a column's or a
+        computed string's own; a literal's one entry at code 0; a null
+        literal's empty dictionary."""
+        if v.dict_thunk is not None:
+            return v.dict_thunk, v.value
+        import pyarrow as pa
+
+        entries = pa.array([] if v.literal is None else [v.literal],
+                           type=arrow_type)
+        zero = self._const(("zero", dt.int32), lambda: np.zeros(
+            (), dtype=np.int32))
+        return (lambda batch, _d=entries: _d), zero
+
+    def _merge_dictionaries(self, then_v: Val, else_v: Val, dtype):
+        """The branches' codes remapped into one dictionary: their
+        distinct values, the then-branch's first. Returns (then codes,
+        else codes, the merged dictionary's thunk); the two remap tables
+        are host tables memoized on the batch's dictionaries."""
+        import pyarrow as pa
+
+        arrow_type = pa.string() if dtype.kind is dt.TypeKind.STRING \
+            else pa.binary()
+        branches = [self._branch_dictionary(v, arrow_type)
+                    for v in (then_v, else_v)]
+
+        def merged(batch):
+            values = [x for thunk, _ in branches
+                      for x in thunk(batch).to_pylist()]
+            return pa.array(list(dict.fromkeys(values)), type=arrow_type)
+
+        codes = []
+        for thunk, branch_codes in branches:
+            def remap(batch, _thunk=thunk):
+                at = {x: i for i, x in enumerate(merged(batch).to_pylist())}
+                return at_least_one(np.array(
+                    [at[x] for x in _thunk(batch).to_pylist()],
+                    dtype=np.int32), 0)
+
+            table = self.ctx.add_table(remap, cache_on_dicts=True)
+            codes.append(gather_by_code(table, branch_codes))
+        return codes[0], codes[1], merged
 
     def _boolean(self, node: BooleanNode) -> Val:
         kids = [self.decompose(c) for c in node.children]

@@ -16,6 +16,10 @@ gandiva_tpu.compiler.projector:
                                         the batch's dictionaries
     DumpIR                              a text dump of the decomposed plan
                                         (``.hlo`` / ``.llvm_ir``)
+    profiling                           ``profile``: a torch.profiler Chrome
+                                        trace of one evaluation;
+                                        ``cost_analysis``: the port's own
+                                        count of its operations and bytes
     expression cache (cache.h)          the make_* plan cache
 
 Every plan has an explicit ``device`` (default: the card). Arrow input is
@@ -266,10 +270,97 @@ class _CompiledPlan:
     def hlo(self) -> str:
         return self.dump_hlo()
 
+    def _evaluate_once(self, batch: Batch):
+        return self._run(self._cols_of(batch), batch.length,
+                         self._next_seed(), batch=batch)
+
+    def profile(self, batch, trace_dir: Optional[str] = None) -> str:
+        """Trace one evaluation over ``batch`` with ``torch.profiler`` (the
+        host's operators, and the card's kernels when the plan is on one)
+        and write it as a Chrome trace, ``trace.json``, into ``trace_dir``
+        or a fresh temporary directory; returns the directory. The
+        runtime-side sibling of ``dump_hlo``."""
+        import os
+        import tempfile
+
+        from torch.profiler import ProfilerActivity, profile
+
+        if trace_dir is None:
+            trace_dir = tempfile.mkdtemp(prefix="gandiva_tpu_torch_trace_")
+        os.makedirs(trace_dir, exist_ok=True)
+        batch = self._as_batch(batch)
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        with profile(activities=activities) as prof:
+            self._evaluate_once(batch)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
+        return trace_dir
+
+    def cost_analysis(self, batch) -> Dict[str, int]:
+        """The cost of one evaluation over ``batch`` at its shapes, as the
+        port counts it — not XLA's cost model, which the reference returns.
+        Every torch operation the decomposed plan runs is counted as torch
+        dispatches it: ``ops`` (operations that are not views),
+        ``bytes read`` / ``bytes written`` (each tensor argument read once,
+        each output written once), ``bytes accessed`` (their sum) and
+        ``flops`` (one operation an output element of every elementwise
+        operation); ``kernel launches`` counts the hand-written kernels'
+        launches (``ops.kernels.LAUNCHES``), whose bytes the byte counts
+        leave out."""
+        from ..ops.kernels import LAUNCHES
+
+        batch = self._as_batch(batch)
+        before = sum(LAUNCHES.values())
+        with _op_tally() as tally:
+            self._evaluate_once(batch)
+        cost = dict(tally.counts)
+        cost["bytes accessed"] = cost["bytes read"] + cost["bytes written"]
+        cost["kernel launches"] = sum(LAUNCHES.values()) - before
+        return cost
+
     @property
     def llvm_ir(self) -> str:
         """Name-compatible alias for pyarrow's Projector.llvm_ir."""
         return self.dump_hlo()
+
+
+def _tensors(tree):
+    from torch.utils._pytree import tree_leaves
+
+    return [t for t in tree_leaves(tree) if isinstance(t, torch.Tensor)]
+
+
+def _nbytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in _tensors(tree))
+
+
+def _op_tally():
+    """A torch dispatch mode that tallies the operations run under it."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class OpTally(TorchDispatchMode):
+        """Counts every dispatched torch operation that is not a view."""
+
+        def __init__(self):
+            super().__init__()
+            self.counts = {"ops": 0, "flops": 0, "bytes read": 0,
+                           "bytes written": 0}
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if not func.is_view:
+                c = self.counts
+                c["ops"] += 1
+                c["bytes read"] += _nbytes((args, kwargs))
+                c["bytes written"] += _nbytes(out)
+                if torch.Tag.pointwise in func.tags:
+                    c["flops"] += sum(t.numel() for t in _tensors(out))
+            return out
+
+    return OpTally()
 
 
 class Projector(_CompiledPlan):

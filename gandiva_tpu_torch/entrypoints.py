@@ -7,6 +7,12 @@ castFLOAT8(a)``) run through the real expression pipeline as one function.
 ``flagship_stream`` — the same query over K device-resident batches with no
 host sync between batches, each batch reduced to a checksum on the device.
 
+``distributed_step`` — the multi-partition execution step: per partition
+filter → hash-partition shuffle (all-to-all over the mesh) → grouped
+aggregation → row stats summed over the mesh. The shape of every
+distributed query the engine runs (data parallel over a 1-axis partition
+mesh, ``parallel/``).
+
 ``tpch_q1_scan`` / ``tpch_q6_scan`` / ``tpch_q12_scan`` /
 ``tpch_q19_scan`` — the LINEITEM scans of TPC-H Q1, Q6, Q12 and Q19
 (filter and projections, no join, no aggregation) as FilterProject plans
@@ -128,6 +134,62 @@ def flagship_stream(device=DEFAULT_DEVICE):
         return {"a": (a, a_valid), "b": (b, ones)}
 
     return fn, make_inputs
+
+
+def distributed_step(mesh, shuffle_capacity: int, num_groups: int = 64):
+    """The distributed query step over ``mesh`` (a ``parallel.make_mesh``;
+    its device is the plans').
+
+    Per partition: the configs[0] filter (kernel K1 on a card) and its
+    projection of the selected rows → shuffle by key hash → ``hash_aggregate``
+    (GROUP BY key, sum and count of the projection; K5 on a card at up to
+    1024 groups) over the received rows; then the received row count
+    summed and the overflow flags max-reduced over the mesh. Returns
+    ``fn(keys, vals, valid)`` on lists with one tensor per held partition
+    (``parallel.shard``) → (group keys, sums, counts, group counts — each a
+    per-partition list —, total_rows, overflow — each one tensor). Keys are
+    co-located after the hash shuffle, so the partitions' groups are
+    disjoint: no cross-partition combine."""
+    from .ops.hash_aggregate import hash_aggregate
+    from .parallel.shuffle import shuffle_by_key
+
+    filt, proj = _flagship_plans(mesh.device)
+
+    def fn(keys, vals, valid):
+        sel_keys, sel_vals, sel_ok = [], [], []
+        for k, v, ok in zip(keys, vals, valid):
+            cols = {"a": (k, ok), "b": (v, ok)}
+            n = int(k.shape[0])
+            # 1. filter the partition, project its selected rows
+            sel_idx, sel_count = filt._run(cols, n, 0)
+            ((pval, pvalid),) = proj._run_selected(cols, 0, sel_idx,
+                                                   sel_count)
+            row_ok = torch.arange(n, device=k.device) < sel_count
+            idx = torch.where(row_ok, sel_idx, 0).long()
+            sel_keys.append(k.index_select(0, idx))
+            sel_vals.append(pval)
+            sel_ok.append(row_ok & pvalid)
+        # 2. shuffle the filtered rows by key hash
+        flat, fvalid, overflow = shuffle_by_key(
+            sel_keys, sel_ok, {"key": sel_keys, "val": sel_vals}, mesh,
+            shuffle_capacity)
+        # 3. aggregate each partition's received rows
+        res = [hash_aggregate(flat["key"][i],
+                              [("val", "sum"), ("val", "count")],
+                              {"val": (flat["val"][i], None)},
+                              row_valid=fvalid[i], max_groups=num_groups,
+                              group_null_keys=False)
+               for i in range(mesh.local)]
+        # 4. row stats over the mesh
+        total_rows = mesh.psum([f.sum(dtype=torch.int64) for f in fvalid])
+        agg_overflow = mesh.pmax([r["overflow"] for r in res])
+        return ([r["keys"][:num_groups] for r in res],
+                [r["agg:val:sum"][:num_groups] for r in res],
+                [r["agg:val:count"][:num_groups] for r in res],
+                [r["group_count"] for r in res], total_rows,
+                overflow | agg_overflow)
+
+    return fn
 
 
 # ---------------------------------------------------------------------------

@@ -3,8 +3,8 @@ aggregate (with its group-id assignment), the sort (``SortKey``,
 ``sort_permutation``, ``sort_columns``, with the key normalization the
 group-by shares) and the hash join (``join``, ``join_multi``,
 ``join_stream``, ``build_join_table`` / ``probe_chunk``,
-``gather_payload``, ``probe_diagnostics``); distribution follows in a later
-slice of the port."""
+``gather_payload``, ``probe_diagnostics``); the distributed operators
+over them are in ``gandiva_tpu_torch.parallel``."""
 from .compaction import (compact_best, compact_fragnet, compact_mask,
                          compact_sort, compact_values)
 from .groupby import distinct_small, group_ids, group_ids_multi

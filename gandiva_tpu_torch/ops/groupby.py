@@ -5,15 +5,23 @@ gandiva_tpu.ops.groupby).
 re-read rounds, as the reference does:
 
   round i: unresolved rows probe slot (h(key) + i·step) mod T;
-           rows whose slot is unoccupied write their key there (index_put_:
-           one writer wins);
+           rows whose slot is unoccupied write their key there (one writer
+           wins);
            every unresolved row re-reads: if the slot now holds its key it
            resolves to that slot; otherwise it probes on.
 
 Occupancy is a separate bool table, so no key value serves as a sentinel.
-Which of two racing writers wins is the device's choice (it differs from
-XLA's), so gids are a partition of the rows whose numbering may differ from
-the reference's; the key set, the count and the overflow flag are exact.
+Which of two racing writers wins is the device's choice (``index_put_``),
+so gids are a partition of the rows whose numbering may differ from the
+reference's; the key set, the count and the overflow flag are exact. With
+``deterministic=True`` the highest row index wins, as the last writer does
+in XLA's scatter on the CPU, so slots, gids and the key order equal the
+reference's on any device (the distributed hot-key detection needs the
+same answer on every process; it costs an atomic max a row and round).
+Its caller's sample may fill the table. Once every slot is taken no row can
+claim one; a row still unresolved then settles where its key already is or
+nowhere, so with ``deterministic`` one lookup in the sorted table ends the
+loop with the slots the remaining rounds would give.
 
 ``distinct_small`` finds the distinct keys of a low-cardinality column in
 ascending order and assigns gids by ``searchsorted`` on that table, O(N)
@@ -52,7 +60,7 @@ def key_to_i64(keys: torch.Tensor) -> torch.Tensor:
 
 
 def group_ids(keys: torch.Tensor, valid=None, max_groups: int = 4096,
-              table_factor: int = 4):
+              table_factor: int = 4, deterministic: bool = False):
     """Assign dense group ids to ``keys``.
 
     Returns (gid[N] int32, unique_keys[T] int64, group_count, overflow):
@@ -61,8 +69,11 @@ def group_ids(keys: torch.Tensor, valid=None, max_groups: int = 4096,
       order, tail zero;
     - group_count: 0-d int32; overflow: 0-d bool, set when the probe budget
       ran out (the caller retries with a larger ``max_groups``).
+    ``deterministic``: the highest row index wins a contended slot, so the
+    numbering is the reference's (module docstring).
     The loop tests on the host after each round whether a row is still
-    unresolved (one sync per round; about two rounds at T ≥ 4·G).
+    unresolved, and with ``deterministic`` whether the table is full (one
+    sync per round; about two rounds at T ≥ 4·G).
     """
     n = keys.shape[0]
     dev = keys.device
@@ -77,14 +88,25 @@ def group_ids(keys: torch.Tensor, valid=None, max_groups: int = 4096,
     step = (hash32(keys, 0x9E37) % T) | 1
     slot_of = torch.full((n,), T, dtype=torch.int64, device=dev)
     dump = torch.full((n,), T, dtype=torch.int64, device=dev)
+    rows = torch.arange(n, device=dev) if deterministic else None
     for _ in range(T):
-        if not bool(unresolved.any()):
+        if deterministic:
+            pending, full = torch.stack([unresolved.any(),
+                                         table_occ[:T].all()]).tolist()
+        else:
+            pending, full = bool(unresolved.any()), False
+        if not pending:
+            break
+        if full:
+            slot_of, unresolved = _settle_in_full_table(
+                table_key[:T], keys, unresolved, slot_of)
             break
         slot = torch.where(unresolved, pos, dump)  # parked rows: the dump
         claim = unresolved & ~table_occ[slot]
-        claim_slot = torch.where(claim, slot, dump)
-        table_key.index_put_((claim_slot,), keys)
-        table_occ.index_put_((claim_slot,),
+        won = _highest_claimer(claim, slot, rows, T) if deterministic \
+            else torch.where(claim, slot, dump)
+        table_key.index_put_((won,), keys)
+        table_occ.index_put_((won,),
                              torch.ones((), dtype=torch.bool, device=dev))
         settled = unresolved & table_occ[slot] & (table_key[slot] == keys)
         slot_of = torch.where(settled, slot, slot_of)
@@ -103,6 +125,30 @@ def group_ids(keys: torch.Tensor, valid=None, max_groups: int = 4096,
     uniq.index_put_((torch.where(filled, rank, T).to(torch.int64),),
                     table_key[:T])
     return gid.to(torch.int32), uniq[:T], group_count, overflow
+
+
+def _highest_claimer(claim, slot, rows, T: int):
+    """The slot each row writes: its own where it is the highest row index
+    claiming that slot, else the dump slot T. Rows that claim nothing reduce
+    into 1024 spare slots past the dump, so they do not all contend for one
+    address."""
+    spare = T + 1 + (rows & 1023)
+    target = torch.where(claim, slot, spare)
+    winner = torch.full((T + 1025,), -1, dtype=torch.int64, device=slot.device)
+    winner.scatter_reduce_(0, target, rows, "amax")
+    return torch.where(claim & (winner[target] == rows), slot, T)
+
+
+def _settle_in_full_table(table_keys, keys, unresolved, slot_of):
+    """Settle each unresolved row in the slot that holds its key, if one
+    does: in a full table each key holds one slot, and an odd stride visits
+    every slot within T rounds, so this is where the loop would put it."""
+    sorted_keys, order = torch.sort(table_keys)
+    at = torch.searchsorted(sorted_keys, keys).clamp(
+        max=sorted_keys.shape[0] - 1)
+    found = unresolved & (sorted_keys[at] == keys)
+    return (torch.where(found, order[at], slot_of),
+            unresolved & ~found)
 
 
 def group_ids_multi(key_columns, valids=None, max_groups: int = 4096,

@@ -15,9 +15,11 @@ configs[3] — 1B×10M skewed probe/build). The design is the reference's:
   along their chains; large probes first resolve a sampled set of hot keys
   without touching the table and compact only the cold rows (K2 again);
 - output expansion: rows explode into a fixed-capacity (probe_idx,
-  build_idx) pair buffer through exclusive-cumsum offsets, a scatter of run
-  starts and a cummax fill; a unique build whose every probe row matches
-  takes the identity instead; capacity overflow is reported, not raised;
+  build_idx) pair buffer through exclusive-cumsum offsets, each pair slot
+  finding its probe row by a binary search of the rows' running ends (the
+  reference scatters run starts and fills by cummax: the same rows); a
+  unique build whose every probe row matches takes the identity instead;
+  capacity overflow is reported, not raised;
 - right/full joins: matched sorted build rows by ±1 marks and a cumsum,
   then the unmatched build rows appended.
 
@@ -240,16 +242,15 @@ def _general_expand(how, lo, ln, probe_kv, probe_exists, perm, C):
     if np_ == 0:
         none = _full(C, -1, torch.int32, dev)
         return none, none.clone(), total
-    # each pair slot takes the last probe row starting at or before it
-    slot_probe = _full(C + 1, -1, torch.int32, dev)
-    first = torch.where((emit > 0) & (offsets < C), offsets, C)
-    slot_probe.scatter_reduce_(0, first.long(),
-                               torch.arange(np_, dtype=torch.int32,
-                                            device=dev), "amax")
-    slot_probe = torch.cummax(slot_probe[:C], 0).values
+    # each pair slot takes the probe row whose pairs [offset, offset + emit)
+    # hold it: the first row whose running end passes the slot (a binary
+    # search; a scatter of run starts would send every row that emits
+    # nothing to one dump slot, all of them contending for it)
     r = torch.arange(C, dtype=torch.int32, device=dev)
+    slot_probe = torch.searchsorted(offsets + emit, r, right=True).clamp(
+        max=np_ - 1).to(torch.int32)
     in_probe_part = r < total
-    p = slot_probe.clamp(0, np_ - 1).long()
+    p = slot_probe.long()
     # one packed 12-byte row gather instead of three element gathers
     g = torch.stack([offsets, cnt, lo], 1).index_select(0, p)
     j = r - g[:, 0]

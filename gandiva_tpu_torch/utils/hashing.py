@@ -6,7 +6,8 @@ add on uint32, so the 32-bit lanes are computed in int64 and masked to
 32 bits: ``hash32`` returns int64 values in [0, 2^32), ``hash64`` the int64
 bit pattern of the uint64 hash. 64-bit inputs (int64, uint64, float64) hash
 as their (lo, hi) 32-bit halves; floats hash by bit pattern with -0.0 taken
-as +0.0 (SQL equality). ``partition_of`` comes with the distribution slice.
+as +0.0 (SQL equality). ``partition_of`` is the engine-wide partitioning
+function of the distribution layer (``parallel/``).
 """
 from __future__ import annotations
 
@@ -65,3 +66,12 @@ def hash64(x: torch.Tensor, seed=0) -> torch.Tensor:
     lo = hash32(x, seed & _M32)
     hi = hash32(x, ((seed >> 32) & _M32) ^ 0xDEAD_BEEF)
     return (hi << 32) | lo
+
+
+def partition_of(keys: torch.Tensor, num_partitions: int, seed=0
+                 ) -> torch.Tensor:
+    """Partition id in [0, num_partitions) for each key, as int32 — the
+    engine-wide partitioning function (tables co-partition iff they use the
+    same seed). The reference takes ``hash32 % P`` on uint32; ``hash32``
+    here is already the unsigned value in int64, so ``%`` sees no sign."""
+    return (hash32(keys, seed) % num_partitions).to(torch.int32)

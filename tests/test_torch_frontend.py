@@ -172,6 +172,13 @@ def _plain(table):
             if not any(t.is_decimal for t in pt)}
 
 
+def _modules(registry, prefix):
+    """Each entry's implementing module, named as in the reference."""
+    return {(n, tuple(map(str, pt))):
+            f.impl.__module__.replace(prefix, "gandiva_tpu.")
+            for (n, pt), f in registry._table.items()}
+
+
 def test_signatures_match_reference():
     """The port's registry is the reference's, string and binary entries
     included. Entries with a decimal parameter register on demand and are
@@ -180,15 +187,14 @@ def test_signatures_match_reference():
     ref = _plain(_table(g_registry()))
     assert port == ref
     assert any(_names_text(k, rt) for k, rt in port.items())
-    # every function a port entry names comes from the same module
-    def modules(registry, prefix):
-        return {(n, tuple(map(str, pt))):
-                f.impl.__module__.replace(prefix, "gandiva_tpu.")
-                for (n, pt), f in registry._table.items()}
-
-    ref_mods = modules(g_registry(), "gandiva_tpu.")
-    assert all(ref_mods[k] == m for k, m in
-               modules(gt_registry(), "gandiva_tpu_torch.").items())
+    # every function a port entry names comes from the same module; decimal
+    # entries register on demand, so whatever ran earlier in the process may
+    # have registered some in one package only: compare the entries both hold
+    port_mods = _modules(gt_registry(), "gandiva_tpu_torch.")
+    ref_mods = _modules(g_registry(), "gandiva_tpu.")
+    shared = port_mods.keys() & ref_mods.keys()
+    assert shared >= port.keys()
+    assert all(ref_mods[k] == port_mods[k] for k in shared)
     # every alias resolves the same way
     assert gt_registry()._aliases == g_registry()._aliases
 
@@ -215,7 +221,7 @@ _DECIMALS = [(9, 2), (18, 4), (28, 6), (38, 10), (15, 2), (3, 2), (1, 0)]
 def test_decimal_signatures_match_reference():
     """After ``ensure_registered`` over the same decimal argument types,
     both packages hold the same decimal signatures for them,
-    castVARCHAR(decimal) included."""
+    castVARCHAR(decimal) included, each implemented in the same module."""
     from gandiva_tpu.registry import decimal_ops as g_dec
     from gandiva_tpu_torch.registry import decimal_ops as t_dec
 
@@ -238,6 +244,9 @@ def test_decimal_signatures_match_reference():
     port = ours(gt)
     assert port == ours(g)
     assert len(port) == 7 * 16 + 49 * 11
+    port_mods = _modules(gt.global_registry(), "gandiva_tpu_torch.")
+    ref_mods = _modules(g.global_registry(), "gandiva_tpu.")
+    assert all(port_mods[k] == ref_mods[k] for k in port)
 
 
 def test_get_registered_function_signatures():
@@ -259,12 +268,12 @@ def test_configuration_matches_reference():
 
 
 def test_import_is_jax_free():
-    """The package, its entry points, its native runtime (loaded and run)
-    and chip_smoke.py import nothing of JAX or gandiva_tpu, and no file of
-    gandiva_tpu is mapped into the process (its prebuilt host library
-    among them)."""
+    """The package, its entry points, its distribution layer, its native
+    runtime (loaded and run) and chip_smoke.py import nothing of JAX or
+    gandiva_tpu, and no file of gandiva_tpu is mapped into the process (its
+    prebuilt host library among them)."""
     code = ("import sys, gandiva_tpu_torch, gandiva_tpu_torch.entrypoints, "
-            "chip_smoke, pyarrow as pa; "
+            "gandiva_tpu_torch.parallel, chip_smoke, pyarrow as pa; "
             "from gandiva_tpu_torch import native; "
             "assert native.like_match(pa.array(['ab']), 'a%').all(); "
             "bad = [m for m in sys.modules if m == 'jax' or "

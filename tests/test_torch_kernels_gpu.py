@@ -1109,3 +1109,76 @@ def test_string_plan_on_card_matches_cpu(case):
                                              ("cpu", cpu))]
     for col in ("out", "in"):
         _same_output(outs[0].column(col), outs[1].column(col), n)
+
+
+@pytest.mark.parametrize("num_hot", [0, 8])
+def test_pipeline_on_the_card_matches_the_cpu(num_hot):
+    """The configs[4] pipeline over 4 partitions of the card against the
+    same pipeline on the CPU: groups, sums, counts and metrics equal; the
+    card run launches K4 and K5 (K3 only past one tile of build rows)."""
+    import numpy as np
+
+    from gandiva_tpu_torch import parallel
+
+    dev = _card()
+    rng = np.random.default_rng(num_hot)
+    total, btotal = 1 << 15, 1 << 11
+    inputs = ((rng.zipf(1.4, total) % (btotal * 2)).astype(np.int64),
+              rng.integers(1, 100, total).astype(np.int64),
+              rng.permutation(btotal * 2)[:btotal].astype(np.int64),
+              rng.integers(0, 7, btotal).astype(np.int64))
+    out = {}
+    for d in ("cpu", dev):
+        reset_launches()
+        out[str(d)] = parallel.run_pipeline_with_retry(
+            parallel.make_mesh(4, device=d), *inputs, num_groups=16,
+            num_hot=num_hot, hot_capacity=64)
+    cpu, card = out["cpu"], out[str(dev)]
+    assert min(LAUNCHES["sort_block"], LAUNCHES["aggregate"]) > 0, LAUNCHES
+    for a, b in zip(cpu[:3], card[:3]):
+        np.testing.assert_array_equal(a, b)
+    for k in ("rows_in", "filter_out", "join_out", "agg_groups",
+              "bytes_shuffled", "retries"):
+        assert cpu[3][k] == card[3][k], k
+
+
+def test_distributed_step_on_the_card_matches_the_cpu():
+    from gandiva_tpu_torch import parallel
+    from gandiva_tpu_torch.entrypoints import distributed_step
+
+    dev = _card()
+    g = torch.Generator()
+    g.manual_seed(5)
+    n = 1 << 16
+    cols = (torch.randint(0, 1000, (n,), generator=g),
+            torch.rand(n, generator=g, dtype=torch.float64),
+            torch.rand(n, generator=g) >= 0.05)
+    res = {}
+    for d in ("cpu", dev):
+        mesh = parallel.make_mesh(4, device=d)
+        res[str(d)] = distributed_step(mesh, n // 4, num_groups=1024)(
+            *(parallel.shard(mesh, c) for c in cols))
+    cpu, card = res["cpu"], res[str(dev)]
+    assert int(cpu[4]) == int(card[4]) and not bool(card[5])
+    for p in range(4):
+        c = int(cpu[3][p])
+        assert c == int(card[3][p])
+        ck, gk = cpu[0][p][:c], card[0][p][:c].cpu()
+        co, go = torch.sort(ck).indices, torch.sort(gk).indices
+        assert torch.equal(ck[co], gk[go])
+        assert torch.equal(cpu[2][p][:c][co], card[2][p][:c].cpu()[go])
+        torch.testing.assert_close(card[1][p][:c].cpu()[go], cpu[1][p][:c][co],
+                                   rtol=1e-9, atol=0)
+
+
+def test_nccl_mesh_matches_one_process(tmp_path):
+    """With two or more cards: NCCL processes, one card each, dividing a
+    4-partition mesh give row-identical pipeline, shuffle and sort results
+    to one process holding all four partitions on one card."""
+    from test_torch_multiprocess_mesh import run_mesh_workers
+
+    _card()
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        pytest.skip("needs two or more cards for NCCL between processes")
+    run_mesh_workers(tmp_path, 4 if cards >= 4 else 2, "cuda", timeout=300)

@@ -3,9 +3,11 @@
 Each listed test module is executed again with ``gandiva_tpu`` (and the
 submodules it imports) standing for ``gandiva_tpu_torch`` on the CPU, and
 the listed test functions are called with their parametrize cases (and
-pytest's ``monkeypatch`` where one takes it). The reference test files
-stay as they are. Tests of features the port does not have yet (profiling,
-the jit flag's internals) are left out and named in ROADMAP.md.
+pytest's ``monkeypatch`` and ``tmp_path`` where one takes them). The
+reference test files stay as they are. Tests that jit or shard_map the
+reference (the jit flag's internals, the distribution tests) are left out
+and named in ROADMAP.md; ``tests/test_torch_parallel.py`` holds the port's
+distribution against the reference's shard_map bodies instead.
 
 The aggregate, sort and join tests hand the port the reference's (JAX)
 arrays: the stand-ins for ``gandiva_tpu.ops.hash_aggregate``, ``.groupby``,
@@ -158,6 +160,7 @@ CASES = (
         "test_cast_varbinary_string", "test_cast_varbinary_numeric")]
     + [("test_projector_filter", "test_in_expr_extended_types", {}),
        ("test_filter_project_fused", "test_fused_with_strings", {})]
+    + [("test_projector_filter", "test_profile_and_cost_analysis", {})]
 )
 
 
@@ -479,7 +482,7 @@ def _case_id(stem, name, kwargs) -> str:
 
 @pytest.mark.parametrize("stem,name,kwargs", CASES,
                          ids=[_case_id(*c) for c in CASES])
-def test_reference_case_on_port(stem, name, kwargs, monkeypatch):
+def test_reference_case_on_port(stem, name, kwargs, monkeypatch, tmp_path):
     ns = _module(stem)
     for alias, stand_in in (("g", _STAND_INS["gandiva_tpu"]),
                             ("hash_aggregate", _AGG.hash_aggregate),
@@ -488,7 +491,38 @@ def test_reference_case_on_port(stem, name, kwargs, monkeypatch):
                             ("merge_sort_u32", _MERGE_PATH.merge_sort_u32),
                             ("join", _JOIN.join)):
         assert alias not in ns or ns[alias] is stand_in, alias
-    if "monkeypatch" in inspect.signature(ns[name]).parameters:
+    params = inspect.signature(ns[name]).parameters
+    if "monkeypatch" in params:
         kwargs = {**kwargs, "monkeypatch": monkeypatch}
+    if "tmp_path" in params:
+        kwargs = {**kwargs, "tmp_path": tmp_path}
     with _port_as_reference():
         ns[name](**kwargs)
+
+
+def test_profile_writes_a_chrome_trace(tmp_path):
+    """The trace that ``profile`` writes parses as Chrome trace JSON and
+    holds the evaluation's operators; ``cost_analysis`` counts the plan's
+    one add over the batch."""
+    import json
+
+    import pyarrow as pa
+
+    schema = gt.dtypes.Schema([gt.dtypes.Field("a", gt.dtypes.int64)])
+    B = gt.TreeExprBuilder
+    expr = B.make_expression(
+        B.make_function("add", [B.make_field(schema.field("a")),
+                                B.make_int64_literal(1)], gt.dtypes.int64),
+        gt.dtypes.Field("out", gt.dtypes.int64))
+    proj = gt.make_projector(schema, [expr], use_cache=False, device="cpu")
+    batch = pa.RecordBatch.from_arrays([pa.array(np.arange(1000))],
+                                       names=["a"])
+    d = proj.profile(batch, trace_dir=str(tmp_path / "trace"))
+    with open(os.path.join(d, "trace.json")) as f:
+        trace = json.load(f)
+    names = {e.get("name", "") for e in trace["traceEvents"]}
+    assert any("add" in n for n in names), sorted(names)[:20]
+    cost = proj.cost_analysis(batch)
+    assert cost["ops"] >= 1 and cost["flops"] >= 1000
+    assert cost["bytes accessed"] == cost["bytes read"] + cost["bytes written"]
+    assert cost["bytes written"] >= 8000
