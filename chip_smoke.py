@@ -5,7 +5,8 @@
 Phases (any failure exits non-zero; there is no CPU fallback):
   1. device   — the card's name and power limit (nvidia-smi), device count;
   2. build    — nvcc every csrc/*.cu for sm_90a, in parallel, printing the
-                -Xptxas -v register / shared-memory / spill lines;
+                -Xptxas -v register / shared-memory / spill lines, and the
+                entry points' generated plan sources beside them;
   3. kernels  — K1 (stream compaction) against its plain torch version on
                 the card, bit-exact on [:count]: 64Mi rows with the
                 flagship payloads (f64 + bool) at five densities, and a
@@ -180,10 +181,26 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                 a CUDA kernel) and cost_analysis, in a fresh process;
  25. scaling  — measure_scaling_efficiency and measure_weak_scaling over
                 1, 2 and 4 partitions of the one card at a small size (they
-                run; partitions of one card measure no scaling efficiency).
+                run; partitions of one card measure no scaling efficiency);
+ 26. plan compiler — every registry signature with an emitter compiled
+                (eight generated kernels) against the eager route on the
+                card over 1,048,576 rows with nulls and hazard rows; then
+                configs[0]'s flagship_stream, TPC-H Q1, Q6, Q12 and Q19
+                over SF10 LINEITEM, Q9 and Q16 over SF10 PART and
+                distributed_step, each compiled against optimize=False
+                at full size, bit for bit (selection, count, values,
+                validities); rows/s of both routes (best of 3), the
+                generated kernel's time beside its byte bound and the
+                eager route's time over the same nodes, launches a call
+                on each route, and cold and warm Make times.
+Phases 5-25 run the plans as Make builds them: compiled on the card
+(Configuration.optimize, the default), apart from phases 18 and 20, which
+hold every signature's own eager route. Phase 2 also builds the entry
+points' generated plans and phase 26's, with the kernels, in parallel.
 Then one {"kernels": [...]} line (K1's launches by path include every
-scan and distributed_step; K2-K5's the configs[4] pipeline), and last
-{"ok": true, "device": {...}}.
+scan and distributed_step; K2-K5's the configs[4] pipeline; the plan
+kernel's every path of phase 26), and last {"ok": true, "device":
+{...}}.
 """
 from __future__ import annotations
 
@@ -683,7 +700,9 @@ def same_column(got, want) -> bool:
 def hold_registry(gt, dev) -> dict:
     """Every registry case through make_projector on the card and on the
     CPU over N_REGISTRY rows; any difference fails. Returns the count of
-    signatures held by family."""
+    signatures held by family. The plans are eager (optimize off): this
+    holds each signature's own torch route; phase 26 holds the compiled
+    one."""
     rng = np.random.default_rng(18)
     cases = registry_cases(gt)
     columns = {}                # (type, position, amount) → both batches
@@ -714,6 +733,7 @@ def hold_registry(gt, dev) -> dict:
             batch = gt.Batch({f"a{i}": columns[(t, i, amount)][k]
                               for i, t in enumerate(params)}, N_REGISTRY)
             outs.append(gt.make_projector(dt.Schema(fields), [expr],
+                                          config=eager_config(gt),
                                           use_cache=False, device=d)
                         .evaluate_device(batch).column("out"))
         if not same_column(*outs):
@@ -1106,7 +1126,8 @@ def hold_string_registry(gt, dev) -> dict:
     dictionaries of STRING_DICT values, 5% nulls: codes, bits and
     dictionaries equal; any difference fails. Each LIKE plan evaluates
     twice on the card, and its table_builds must not grow. Returns the
-    count held by family."""
+    count held by family. The plans are eager (optimize off), as in
+    phase 18."""
     rng = np.random.default_rng(20)
     cases = string_cases(gt)
     B, dt = gt.TreeExprBuilder, gt.dtypes
@@ -1124,6 +1145,7 @@ def hold_string_registry(gt, dev) -> dict:
         outs = []
         for d, batch in ((dev, cpu.to(dev)), ("cpu", cpu)):
             plan = gt.make_projector(dt.Schema(fields), [expr],
+                                     config=eager_config(gt),
                                      use_cache=False, device=d)
             outs.append(plan.evaluate_device(batch).column("out"))
             if d is dev and name in ("like", "ilike"):
@@ -1874,6 +1896,459 @@ def drive_scaling(dev, smi: str) -> dict:
     return {"strong": strong, "weak": weak}
 
 
+# -- phase 26: the plan compiler ---------------------------------------------
+
+EMIT_BATCHES = 8                 # sources the emitter hold builds
+INT_TYPES = ("int8", "int16", "int32", "int64", "uint8", "uint16", "uint32",
+             "uint64")
+FLOAT_HAZARDS = [np.nan, np.inf, -np.inf, 0.0, -0.0, 1.5, 2.5, -2.5,
+                 0.49999999999999994, 2.0 ** 63, -2.0 ** 63, 2.0 ** 64,
+                 -1e300, 1e300, 2.0 ** 31, 127.5, -128.5, 255.5, 65535.5,
+                 -0.5, 4294967295.5, 9.2e18, -9.3e18, 1.8e19]
+
+
+def eager_config(gt):
+    """Configuration.optimize off: every node a torch call."""
+    return gt.ConfigurationBuilder().with_optimize(False).build()
+
+
+def emitter_signatures(gt):
+    """(name, parameter type names, return type name) of every registry
+    entry with an emitter (compiler/codegen.py), decimals at DEC_TYPES,
+    every pair of them for the binary functions."""
+    from gandiva_tpu_torch.registry import decimal_ops
+
+    reg = gt.global_registry()
+    decs = [gt.batch.parse_dtype(t) for t in DEC_TYPES]
+    for a in decs:
+        for b in decs:
+            decimal_ops.ensure_registered([a, b])
+    sigs = set()
+    for f in list(reg._table.values()):
+        params = tuple(map(str, f.signature.param_types))
+        if f.emit is None or not {p for p in params
+                                  if p.startswith("decimal")} <= set(
+                                      DEC_TYPES):
+            continue
+        sigs.add((f.signature.name, params, str(f.signature.return_type)))
+    return sorted(sigs)
+
+
+def emitter_plans(gt):
+    """The emitter signatures in EMIT_BATCHES Projectors' (schema,
+    expressions): the arguments are columns x_<type>, y_<type>."""
+    B, dt = gt.TreeExprBuilder, gt.dtypes
+    sigs = emitter_signatures(gt)
+    out = []
+    for part in range(EMIT_BATCHES):
+        batch_sigs = sigs[part::EMIT_BATCHES]
+        types = sorted({t for _, params, _ in batch_sigs for t in params})
+        schema = dt.Schema([dt.Field(f"{side}_{t}", gt.batch.parse_dtype(t))
+                            for t in types for side in "xy"])
+        exprs = []
+        for i, (name, params, ret) in enumerate(batch_sigs):
+            args = [B.make_field(schema.field(f"{'xy'[j]}_{t}"))
+                    for j, t in enumerate(params)]
+            rt = gt.batch.parse_dtype(ret)
+            exprs.append(B.make_expression(B.make_function(name, args, rt),
+                                           dt.Field(f"o{i}", rt)))
+        out.append((schema, exprs))
+    return out
+
+
+def emitter_column(t: str, side: str, n: int, rng):
+    """``registry_column``'s values (full-range integers, 5% nulls) with
+    hazard rows first, all valid: 0, ±1, MIN and MAX (MIN / -1), every
+    shift amount from -2 to the width + 1 in the right operand; NaN, ±inf,
+    ±0.0, halves and values past every integer range; a string column's
+    codes over a three-value dictionary."""
+    import pyarrow as pa
+
+    if t in ("string", "binary"):
+        valid = rng.random(n) >= REGISTRY_NULLS
+        codes = np.where(valid, rng.integers(0, 3, n), 0).astype(np.int32)
+        typ = pa.string() if t == "string" else pa.binary()
+        return codes, valid, None, pa.array(["a", "bb", ""], type=typ)
+    data, valid, hi = registry_column(t, n, rng, amount=False)
+    if t in INT_TYPES:
+        info = np.iinfo(np.dtype(t))
+        w = info.bits
+        vals = ([0, 1, -1, info.min, info.max, info.min, info.max, 5, -7,
+                 info.min, 100, 3] + [info.max - k for k in range(w + 4)]
+                if side == "x" else
+                [0, 0, -1, -1, -1, 0, 1, 2, 3, info.max, info.min, -3]
+                + list(range(-2, w + 2)))
+        h = np.array([v % (1 << w) if info.min == 0 else v for v in vals],
+                     dtype=np.dtype(t))
+    elif t in ("float32", "float64"):
+        with np.errstate(over="ignore"):
+            h = np.array(FLOAT_HAZARDS[::1 if side == "x" else -1],
+                         dtype=np.dtype(t))
+    else:
+        return data, valid, hi
+    data[:len(h)] = h
+    valid[:len(h)] = True
+    return data, valid, hi
+
+
+def columns_equal(got, want) -> tuple:
+    """Two card columns: (equal, rows whose bits differ only as NaN
+    payloads). Validity, data bits (NaN equal to NaN) and the high limb."""
+    want = gt_column_cpu(want)
+    if not same_column(got, want):
+        return False, 0
+    g, w = got.data.cpu(), want.data
+    return True, int((bits(g) != bits(w)).sum()) if g.numel() else 0
+
+
+def gt_column_cpu(c):
+    import gandiva_tpu_torch as gt
+
+    return gt.Column(c.data.cpu(), c.validity.cpu(), c.dtype,
+                     extra=None if c.extra is None else c.extra.cpu(),
+                     dictionary=c.dictionary)
+
+
+def plan_sources(gt):
+    """The generated sources of the entry points' plans and of the emitter
+    hold's Projectors, made as Make makes them (for a parallel build)."""
+    from gandiva_tpu_torch import entrypoints as e
+    from gandiva_tpu_torch.compiler import codegen
+
+    plans = [*e._flagship_plans("cpu"), e.flagship_plan("cpu")] + [
+        make("cpu") for make in (e.tpch_q1_scan, e.tpch_q6_scan,
+                                 e.tpch_q12_scan, e.tpch_q19_scan,
+                                 e.tpch_q9_part_scan, e.tpch_q16_part_scan)]
+    progs = [codegen.generate(p._roots, p._mask_root) for p in plans]
+    progs += [codegen.generate([x.root for x in exprs])
+              for _, exprs in emitter_plans(gt)]
+    return [p.source for p in progs if p.kernels]
+
+
+def count_launches(fn) -> int:
+    """What one call of ``fn`` launches on the card: the torch operations
+    whose output lies on the card (kernels and copies; allocations, views
+    and reads to the host left out) and the hand-written and generated
+    kernels (``LAUNCHES``)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    from gandiva_tpu_torch.ops.kernels import LAUNCHES
+
+    skip = {"aten::empty", "aten::empty_like", "aten::empty_strided",
+            "aten::_local_scalar_dense"}
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if not func.is_view and func._schema.name not in skip and any(
+                    isinstance(t, torch.Tensor) and t.is_cuda
+                    for t in tree_leaves(out)):
+                Count.n += 1
+            return out
+
+    before = sum(LAUNCHES.values())
+    torch.cuda.synchronize()
+    with Count():
+        fn()
+    torch.cuda.synchronize()
+    return Count.n + sum(LAUNCHES.values()) - before
+
+
+def best_wall(fn, runs: int = 3) -> float:
+    walls = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+    return min(walls)
+
+
+def kernel_region(comp, eager, cols, length: int, bw: float,
+                  batch=None) -> dict:
+    """The compiled plan's generated kernel(s) alone (the library's
+    launches recorded on one call and replayed), its bytes (each operand
+    read or written once) and bound at ``bw``, beside the eager route's
+    time for the same nodes (``_run`` with no finish: no compaction)."""
+    lib = comp._library
+    calls = []
+    replay = lib.run
+
+    def record(*a):
+        calls.append(a)
+        return replay(*a)
+
+    def region(plan):
+        return plan._run(cols, length, 0, finish=lambda ctx, outs: outs,
+                         batch=batch)
+
+    lib.run = record
+    comp._bytes = {"plan bytes read": 0, "plan bytes written": 0}
+    try:
+        keep = region(comp)
+    finally:
+        del lib.run
+        nbytes, comp._bytes = comp._bytes, None
+    torch.cuda.synchronize()
+    kernel_ms = time_ms(lambda: [replay(*a) for a in calls], iters=20)
+    compiled_ms = time_ms(lambda: region(comp), iters=10)
+    eager_ms = time_ms(lambda: region(eager), iters=5)
+    del keep
+    total = nbytes["plan bytes read"] + nbytes["plan bytes written"]
+    return {"kernel_ms": kernel_ms, "kernels": len(calls),
+            "compiled_region_ms": compiled_ms, "eager_region_ms": eager_ms,
+            "bytes": total, "bound_ms": total / bw * 1e3, **nbytes}
+
+
+def hold_emitters(gt, dev) -> dict:
+    """Every emitter signature compiled against the eager route on the
+    card, over N_REGISTRY rows with nulls and hazard rows, in
+    EMIT_BATCHES Projectors (one generated kernel each): values,
+    validities and high limbs equal, floats by their bits with NaN equal
+    to NaN (rows whose NaN payloads differ are counted)."""
+    from gandiva_tpu_torch.ops.kernels import LAUNCHES
+
+    rng = np.random.default_rng(26)
+    t0 = time.perf_counter()
+    held, nan_rows = 0, 0
+    for schema, exprs in emitter_plans(gt):
+        cols = {}
+        for f in schema:
+            t, side = str(f.dtype), f.name[0]
+            cols[f.name] = (t, *emitter_column(t, side, N_REGISTRY, rng))
+        batch = gt.from_columns_numpy(cols, N_REGISTRY, device=dev)
+        comp = gt.make_projector(schema, exprs, use_cache=False, device=dev)
+        eager = gt.make_projector(schema, exprs, config=eager_config(gt),
+                                  use_cache=False, device=dev)
+        if comp._program.count("eager") or comp._program.kernels != 1:
+            raise AssertionError("an emitter signature stayed eager")
+        before = LAUNCHES["plan"]
+        got = comp.evaluate_device(batch)
+        if LAUNCHES["plan"] - before != 1:
+            raise AssertionError("the emitter plan did not launch once")
+        want = eager.evaluate_device(batch)
+        for e in exprs:
+            n = e.result_field.name
+            ok, nan = columns_equal(got.column(n), want.column(n))
+            if not ok:
+                raise AssertionError(f"{e.root.to_string()[:120]}: "
+                                     "compiled differs from eager")
+            nan_rows += nan
+            held += 1
+    log(f"{held} emitter signatures held, compiled against eager on the "
+        f"card, at {N_REGISTRY} rows ({REGISTRY_NULLS:.0%} nulls, hazard "
+        f"rows) in {EMIT_BATCHES} generated kernels; rows differing only "
+        f"as NaN payloads: {nan_rows}; {time.perf_counter() - t0:.1f}s")
+    return {"signatures": held, "nan_payload_rows": nan_rows}
+
+
+def hold_scan(sel_out_c, sel_out_e, what: str) -> None:
+    """A FilterProject's compiled outputs against its eager ones: count,
+    indices and every output column on [:count], bit for bit (NaN equal
+    to NaN), a string's dictionary the same object."""
+    (sc, oc), (se, oe) = sel_out_c, sel_out_e
+    c = int(se.count)
+    if int(sc.count) != c or not torch.equal(sc.indices[:c], se.indices[:c]):
+        raise AssertionError(f"{what}: selection differs from eager")
+    for name in oe.columns:
+        g, w = oc.column(name), oe.column(name)
+        cut = [gt_column_cpu(type(g)(x.data[:c], x.validity[:c], x.dtype,
+                                     extra=None if x.extra is None
+                                     else x.extra[:c],
+                                     dictionary=x.dictionary))
+               for x in (g, w)]
+        if not same_column(*cut) or g.dictionary is not w.dictionary:
+            raise AssertionError(f"{what}: {name} differs from eager")
+
+
+def make_times(gt, make, eager_cfg) -> dict:
+    """Seconds to make the plans ``make()`` returns: cold (their libraries
+    deleted and out of memory: one nvcc each), from the libraries on disk,
+    from this process's memo, and eager (optimize off: nothing built)."""
+    import unittest.mock
+
+    from gandiva_tpu_torch.compiler import jit
+
+    paths = [p._library.path for p in make() if p._library is not None]
+    for path in paths:
+        jit._MEMO.pop(path, None)
+        path.unlink()
+    times = {}
+    for key in ("cold", "disk", "memo"):
+        if key == "disk":
+            for path in paths:
+                jit._MEMO.pop(path, None)
+        t = time.perf_counter()
+        make()
+        times[key] = time.perf_counter() - t
+    with unittest.mock.patch.object(gt.ConfigurationBuilder, "_default",
+                                    eager_cfg):
+        t = time.perf_counter()
+        make()
+        times["eager"] = time.perf_counter() - t
+    return times
+
+
+def drive_plan_compiler(gt, dev, smi: str) -> dict:
+    """The plan compiler on the card: every emitter signature, then
+    configs[0]'s flagship_stream, TPC-H Q1, Q6, Q12, Q19 (SF10 LINEITEM),
+    Q9, Q16 (SF10 PART) and distributed_step, each compiled against its
+    eager route at full size, bit for bit; rows/s of both routes (best of
+    3), the generated kernel's time beside its byte bound, the eager
+    route's time for the same nodes, launches a call on each route, and
+    cold (nothing built) and warm Make times. Returns {path: report} and
+    the plan kernel's launches by path."""
+    import unittest.mock
+
+    from gandiva_tpu_torch import entrypoints as e, parallel
+    from gandiva_tpu_torch.compiler import jit
+    from gandiva_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+
+    emitters = hold_emitters(gt, dev)
+    bw = peak_bandwidth(torch.cuda.get_device_name(0))
+    eager_cfg = eager_config(gt)
+
+    def eager_of(plan):
+        return gt.make_filter_project(plan.schema, plan.condition,
+                                      plan.exprs, config=eager_cfg,
+                                      use_cache=False, device=dev)
+
+    report, by_path = {}, {}
+
+    def routes(what, comp_call, eager_call, rows, region, make,
+               kernel=True):
+        make_s = make_times(gt, make, eager_cfg)
+        reset_launches()
+        comp_call()
+        by_path[f"phase 26 {what}"] = LAUNCHES["plan"]
+        if bool(LAUNCHES["plan"]) != kernel:
+            raise AssertionError(f"{what}: the generated kernel launched "
+                                 f"{LAUNCHES['plan']} times")
+        r = {"rows": rows,
+             "compiled_rows_per_s": rows / best_wall(comp_call),
+             "eager_rows_per_s": rows / best_wall(eager_call),
+             "compiled_launches": count_launches(comp_call),
+             "eager_launches": count_launches(eager_call)}
+        if region is not None:
+            r.update(region)
+        r["make_s"] = make_s
+        report[what] = r
+        log(f"{what} ({smi}): compiled {r['compiled_rows_per_s']:.6g} "
+            f"rows/s, eager {r['eager_rows_per_s']:.6g} rows/s; launches a "
+            f"call {r['compiled_launches']} / {r['eager_launches']}"
+            + ("" if region is None else
+               f"; generated kernel {region['kernel_ms']:.4f} ms "
+               f"({region['kernels']} launch) against a {region['bytes']} B "
+               f"bound of {region['bound_ms']:.4f} ms "
+               f"({region['bound_ms'] / region['kernel_ms']:.1%}); the same "
+               f"nodes: compiled {region['compiled_region_ms']:.4f} ms, "
+               f"eager {region['eager_region_ms']:.4f} ms")
+            + f"; Make s {json.dumps(make_s)}")
+
+    # configs[0]: flagship_stream, 4 batches of 64Mi rows
+    fn_c, make_inputs = e.flagship_stream(dev)
+    fp = e.flagship_plan(dev)
+    fp_e = eager_of(fp)
+    run_e = fp_e.stream_fn(e.flagship_checksum)
+
+    def fn_e(cols):
+        return torch.sum(run_e(cols))
+
+    cols = make_inputs(STREAM_K, N_BIG, seed=26)
+    for (ic, cc, pc), (ie, ce, pe) in zip(fp.stream_fn()(cols),
+                                          fp_e.stream_fn()(cols)):
+        hold((ic, pc, cc), (ie, pe, ce), "configs[0] compiled vs eager")
+    if int(fn_c(cols)) != int(fn_e(cols)):
+        raise AssertionError("configs[0]: checksums differ")
+    first = {n: (d[0], v[0]) for n, (d, v) in cols.items()}
+    routes("configs[0] flagship_stream", lambda: fn_c(cols),
+           lambda: fn_e(cols), STREAM_K * N_BIG,
+           kernel_region(fp, fp_e, first, N_BIG, bw),
+           lambda: [e.flagship_plan(dev)])
+    del cols, first
+
+    # the LINEITEM scans at SF10
+    n = e.LINEITEM_SF10_ROWS
+    batch = e.lineitem(n, seed=26, device=dev)
+    for q, make in (("Q1", e.tpch_q1_scan), ("Q6", e.tpch_q6_scan),
+                    ("Q12", e.tpch_q12_scan), ("Q19", e.tpch_q19_scan)):
+        comp = make(dev)
+        eag = eager_of(comp)
+        hold_scan(comp.evaluate_device(batch), eag.evaluate_device(batch),
+                  f"TPC-H {q}")
+        routes(f"TPC-H {q} scan", lambda: comp.evaluate_device(batch),
+               lambda: eag.evaluate_device(batch), n,
+               kernel_region(comp, eag, comp._cols_of(batch), n, bw,
+                             batch), lambda: [make(dev)])
+    del batch
+
+    # the PART scans at SF10 (Q9's plan has no compiled node: no kernel)
+    part = e.part(e.PART_SF10_ROWS, seed=26, device=dev)
+    for q, make in (("Q9", e.tpch_q9_part_scan),
+                    ("Q16", e.tpch_q16_part_scan)):
+        comp = make(dev)
+        eag = eager_of(comp)
+        hold_scan(comp.evaluate_device(part), eag.evaluate_device(part),
+                  f"TPC-H {q}")
+        region = None if comp._library is None else kernel_region(
+            comp, eag, comp._cols_of(part), e.PART_SF10_ROWS, bw, part)
+        routes(f"TPC-H {q} part scan", lambda: comp.evaluate_device(part),
+               lambda: eag.evaluate_device(part), e.PART_SF10_ROWS, region,
+               lambda: [make(dev)], kernel=region is not None)
+    del part
+
+    # distributed_step: one configs[0] batch as 4 partitions
+    g = torch.Generator(device=dev)
+    g.manual_seed(26)
+    a = torch.randint(0, 1000, (N_STEP,), generator=g, device=dev)
+    b = torch.rand(N_STEP, generator=g, dtype=torch.float64, device=dev)
+    valid = torch.rand(N_STEP, generator=g, device=dev) >= 0.05
+    mesh = parallel.make_mesh(STEP_PARTITIONS, device=dev)
+    per = N_STEP // STEP_PARTITIONS
+    step_c = e.distributed_step(mesh, per, num_groups=STEP_GROUPS)
+    with unittest.mock.patch.object(gt.ConfigurationBuilder, "_default",
+                                    eager_cfg):
+        step_e = e.distributed_step(mesh, per, num_groups=STEP_GROUPS)
+        filt_e, proj_e = e._flagship_plans(dev)
+    filt_c, proj_c = e._flagship_plans(dev)
+    args = [parallel.shard(mesh, x) for x in (a, b, valid)]
+    for k, v, ok in zip(*args):
+        cols = {"a": (k, ok), "b": (v, ok)}
+        (ic, cc), (ie, ce) = (f._run(cols, per, 0) for f in (filt_c, filt_e))
+        hold((ic, [], cc), (ie, [], ce), "distributed_step filter")
+        pc, pe = (p._run_selected(cols, 0, ie, ce) for p in (proj_c, proj_e))
+        c = int(ce)
+        for (vc, mc), (ve, me) in zip(pc, pe):
+            if not (torch.equal(bits(vc[:c]), bits(ve[:c]))
+                    and torch.equal(mc[:c], me[:c])):
+                raise AssertionError("distributed_step: projection differs")
+    oc, oe = step_c(*args), step_e(*args)
+    for p in range(mesh.local):             # groups by key, sums at rtol
+        c = int(oe[3][p])
+        if int(oc[3][p]) != c:
+            raise AssertionError("distributed_step: group counts differ")
+        (kc, sc, nc), (ke, se, ne) = (
+            [x[p][:c][torch.argsort(o[0][p][:c])] for x in o[:3]]
+            for o in (oc, oe))
+        if not (torch.equal(kc, ke) and torch.equal(nc, ne) and
+                torch.allclose(sc, se, rtol=AGG_RTOL, atol=0)):
+            raise AssertionError("distributed_step: groups differ")
+    if int(oc[4]) != int(oe[4]):
+        raise AssertionError("distributed_step: row totals differ")
+    routes("distributed_step", lambda: int(step_c(*args)[4]),
+           lambda: int(step_e(*args)[4]), N_STEP, None,
+           lambda: e._flagship_plans(dev))
+    del a, b, valid, args
+
+    log(json.dumps({"plan_compiler": {"card": smi, "emitters": emitters,
+                                      **report}}))
+    return report, by_path
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1911,8 +2386,17 @@ def main() -> int:
     # -- 2. build --------------------------------------------------------
     phase("build")
     t = time.perf_counter()
-    build_logs = build.build_all(variants=[
-        ("compaction_fragnet", d) for d in K2_VARIANTS])
+    from concurrent.futures import ThreadPoolExecutor
+
+    from gandiva_tpu_torch.compiler import jit
+    sources = plan_sources(gt)
+    with ThreadPoolExecutor(1) as pool:     # the plans' nvccs meanwhile
+        plans_built = pool.submit(jit.build_all, sources)
+        build_logs = build.build_all(variants=[
+            ("compaction_fragnet", d) for d in K2_VARIANTS])
+        plans_built.result()
+    log(f"{len(sources)} generated plan sources built (the entry points' "
+        f"plans and phase 26's emitter Projectors)")
     for name, text in build_logs.items():
         source, _, defines = name.partition(" ")
         log(f"-- csrc/{source}.cu {defines}")
@@ -2078,6 +2562,7 @@ def main() -> int:
     if not np.array_equal(sel1.to_numpy(), exp_idx) or not out1.equals(out):
         raise AssertionError("Filter + Projector(selection) != FilterProject")
     arrow_launches = LAUNCHES["compact"]
+    arrow_plan_launches = LAUNCHES["plan"]
     log(f"{ARROW_ROWS} rows: {len(exp_idx)} selected, equal to "
         f"pyarrow.compute; Filter + Projector(selection) equal to fused; "
         f"K1 launches {arrow_launches}")
@@ -2099,6 +2584,7 @@ def main() -> int:
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t)
     stream_launches = LAUNCHES["compact"]
+    stream_plan_launches = LAUNCHES["plan"]
     peak = torch.cuda.max_memory_allocated()
     rows_s = STREAM_K * N_BIG / min(walls)
     log(f"K={STREAM_K} n={N_BIG}: walls_s={[round(w, 6) for w in walls]} "
@@ -2107,6 +2593,9 @@ def main() -> int:
         f"max_memory_allocated={peak}")
     if stream_launches != (1 + runs) * STREAM_K:
         raise AssertionError("the stream did not launch K1 once per batch")
+    if stream_plan_launches != (1 + runs) * STREAM_K:
+        raise AssertionError("the stream did not launch its generated "
+                             "kernel once per batch")
     busy, _ = profile_call(lambda: fn(cols))
 
     plan = flagship_plan(dev)
@@ -3091,6 +3580,12 @@ def main() -> int:
     phase("the scaling harnesses over 1, 2 and 4 partitions of one card")
     drive_scaling(dev, smi)
 
+    # -- 26. the plan compiler --------------------------------------------
+    phase("the plan compiler: every emitter, and the entry points' plans "
+          "compiled against eager")
+    plan_report, plan_by_path = drive_plan_compiler(gt, dev, smi)
+    flagship_region = plan_report["configs[0] flagship_stream"]
+
     # -- the kernels line, then the last line ----------------------------
     # each path's own count, read just after it ran; ``launches`` is the
     # count of the path that brought the kernel in
@@ -3177,6 +3672,26 @@ def main() -> int:
         "bound_ms": k3_bound_ms,
         "bound_by": "bytes",
         "library_ms": k3_library_ms,
+    }, {
+        # the plan compiler's kernel, generated per plan; it replaces XLA's
+        # fusion of the plan, not a Pallas kernel. plain_ms is the eager
+        # route over the same nodes; no one PyTorch call computes a plan
+        "name": "plan",
+        "route": "cuda (generated)",
+        "source": "gandiva_tpu_torch/compiler/codegen.py",
+        "replaces": "gandiva_tpu/compiler/projector.py:70",
+        "launches": arrow_plan_launches + stream_plan_launches,
+        "launches_by_path": {
+            "configs[0] Arrow entry point": arrow_plan_launches,
+            "configs[0] flagship_stream": stream_plan_launches,
+            **plan_by_path},
+        "matches_plain": True,
+        "max_abs_err": 0.0,
+        "ms": flagship_region["kernel_ms"],
+        "plain_ms": flagship_region["eager_region_ms"],
+        "bound_ms": flagship_region["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}), flush=True)

@@ -5,14 +5,29 @@ python surface gandiva.pyx:591-626): ``optimize`` (default True) and
 ``dump_ir`` (default False), as a small frozen object threaded through the
 compile entry points — never global mutable state (SURVEY.md §5.6).
 
-The engine runs eagerly: every registry function is a torch call issued as the
-plan is evaluated, so there is no optimization pipeline to switch.
-``optimize`` is accepted for API parity and has no effect. ``dump_ir`` keeps a
-text dump of the decomposed plan on the plan object (``.hlo`` / ``.llvm_ir``).
+``optimize=True`` (the default) compiles a plan on the card at Make: its
+expression trees become one generated CUDA kernel (compiler/codegen.py,
+built by compiler/jit.py), launched once per evaluation, as the JAX package
+installs ``jax.jit``; the nodes without an emitter stay eager around it.
+``optimize=False`` evaluates every node eagerly, a torch call per
+registry function. Results are identical either way. On the CPU both run
+the eager route. Compiled plans are cached on disk under ``build/plans/``
+at the root of the checkout (``plan_cache_dir``), the counterpart of the
+JAX package's ``enable_persistent_cache``. ``dump_ir`` keeps a text dump
+of the plan on the plan object (``.hlo`` / ``.llvm_ir``: the generated
+source of a compiled plan, the decomposed signatures of an eager one).
 """
 from __future__ import annotations
 
 import dataclasses
+from pathlib import Path
+
+
+def plan_cache_dir() -> Path:
+    """Where compiled plan libraries and their sources are kept, by the
+    hash of the source and the flags: ``build/plans/`` at the root of the
+    checkout."""
+    return Path(__file__).resolve().parents[2] / "build" / "plans"
 
 
 @dataclasses.dataclass(frozen=True)

@@ -7,15 +7,26 @@ and gandiva::Filter (filter.h, libgandiva.pxd:242-256): compile once per
 gandiva_tpu.compiler.projector:
 
     validation + signature resolution   at Make time (validator.py)
-    evaluation                          eager torch calls on whole columns
-                                        (decomposer.py), on the plan's device
+    LLVMGenerator + Engine (ORC JIT)    with Configuration.optimize on the
+                                        card: one generated CUDA kernel for
+                                        the plan (codegen.py), built by nvcc
+                                        at Make and cached (jit.py)
+    precompiled bitcode inlining        the registry's emitters, inlined
+                                        into the generated row body
+    evaluation                          the generated kernel, with the nodes
+                                        that have no emitter evaluated
+                                        eagerly around it; otherwise (and on
+                                        the CPU) eager torch calls on whole
+                                        columns (decomposer.py)
     stream compaction                   kernel K1 (ops/kernels/compaction.py)
     function holders (LIKE tables,      host tables built per distinct
     dictionary ranks, string IN sets)   dictionary value at evaluate time,
                                         memoized per plan on the identity of
                                         the batch's dictionaries
-    DumpIR                              a text dump of the decomposed plan
-                                        (``.hlo`` / ``.llvm_ir``)
+    DumpIR                              the generated source of a compiled
+                                        plan, a text dump of the decomposed
+                                        plan otherwise (``.hlo`` /
+                                        ``.llvm_ir``)
     profiling                           ``profile``: a torch.profiler Chrome
                                         trace of one evaluation;
                                         ``cost_analysis``: the port's own
@@ -34,13 +45,15 @@ import torch
 from .. import dtypes as dt
 from ..batch import Batch, Column, column_to_arrow, from_arrow
 from ..device import DEFAULT_DEVICE, resolve_device
-from ..expr.nodes import (BooleanNode, Condition, Expression, FunctionNode,
-                          IfNode, InNode, Node)
+from ..expr.nodes import Condition, Expression, FunctionNode, Node
 from ..ops.compaction import compact_best
+from ..ops.kernels import LAUNCHES
+from ..registry.numeric import torch_dtype
 from ..registry.registry import (EvaluationError,
                                  ExpressionValidationError, Val,
                                  global_registry)
-from . import validator
+from . import codegen, jit, validator
+from .codegen import children as _children
 from .config import Configuration, ConfigurationBuilder
 from .decomposer import ExprDecomposer, TraceContext, as_valid_mask
 from .selection import (SelectionMode, SelectionVector,
@@ -86,33 +99,190 @@ def _condition_mask(ctx: TraceContext, v: Val):
     return mask
 
 
-def _children(node: Node):
-    if isinstance(node, FunctionNode):
-        return node.args
-    if isinstance(node, IfNode):
-        return (node.condition, node.then_node, node.else_node)
-    if isinstance(node, BooleanNode):
-        return node.children
-    if isinstance(node, InNode):
-        return (node.eval_expr,)
-    return ()
+class _KeyedDecomposer(ExprDecomposer):
+    """The decomposer of a compiled plan's eager nodes: each node has a key
+    (its root's index, then its child indices, as codegen numbers them),
+    and a node whose Val is in ``known`` (a kernel's output or an eager
+    node already evaluated) is not evaluated again."""
+
+    def __init__(self, ctx: TraceContext):
+        super().__init__(ctx)
+        self.known: Dict[codegen.Key, Val] = {}
+        self._at = [(), 0]              # (parent key, next child index)
+
+    def decompose_at(self, key: codegen.Key, node: Node) -> Val:
+        saved, self._at = self._at, [key[:-1], key[-1]]
+        try:
+            return self.decompose(node)
+        finally:
+            self._at = saved
+
+    def decompose(self, node: Node) -> Val:
+        parent, j = self._at
+        self._at[1] += 1
+        key = parent + (j,)
+        if key in self.known:
+            return self.known[key]
+        saved, self._at = self._at, [key, 0]
+        try:
+            return super().decompose(node)
+        finally:
+            self._at = saved
+
+
+def _pointer(t: torch.Tensor, dtype: torch.dtype):
+    """A kernel operand's (tensor, is a broadcast scalar): a 0-d or
+    stride-0 tensor is read at its first element by every row."""
+    if t.dtype != dtype:
+        t = t.to(dtype)
+    if t.dim() == 0 or t.stride(0) == 0:
+        return t, True
+    return t.contiguous(), False
 
 
 class _CompiledPlan:
-    """Shared evaluate machinery for Projector, Filter and FilterProject."""
+    """Shared evaluate machinery for Projector, Filter and FilterProject.
+    ``mask_root``: the first root is a condition (Filter, FilterProject)."""
 
     def __init__(self, schema: dt.Schema, roots: Sequence,
-                 config: Configuration, device):
+                 config: Configuration, device, mask_root: bool = False):
         self.schema = schema
         self.config = config
         self.device = resolve_device(device)
         self._roots = tuple(roots)
+        self._mask_root = mask_root
         self._consts: Dict[Any, torch.Tensor] = {}
         self._table_memo: Dict[str, Any] = {}
         self._error_messages: List[str] = []
         self._seed = 0
+        self._bytes: Optional[Dict[str, int]] = None
         # per-operator observability (SURVEY.md §5.5): host-side counters
         self.stats = {"evaluations": 0, "rows_in": 0, "rows_out": 0}
+        # Configuration.optimize on the card: the generated kernel, built
+        # now (jax.jit's counterpart); a failed build raises
+        self._program: Optional[codegen.Program] = None
+        self._library: Optional[jit.Library] = None
+        if config.optimize and self.device.type == "cuda":
+            self._compile("cuda")
+
+    def _compile(self, backend: str) -> None:
+        self._program = codegen.generate(self._roots, self._mask_root,
+                                         self.config.raise_errors)
+        self._library = (jit.load(self._program.source, backend)
+                         if self._program.kernels else None)
+
+    # ---- the compiled route ------------------------------------------------
+    def _run_program(self, ctx: TraceContext) -> List[Val]:
+        """Evaluate the roots on the compiled route: each stage's eager
+        nodes, children first, then its kernel; returns the roots' Vals.
+        Error sites, the kernel's and the eager nodes', are put in the
+        decomposer's post-order, the order the eager route records them."""
+        prog = self._program
+        dec = _KeyedDecomposer(ctx)
+        sites = []
+        flags = None
+        if ctx.check_errors and prog.sites:
+            flags = torch.zeros(-(-len(prog.sites) // 32), dtype=torch.int32,
+                                device=ctx.device)
+        for stage in prog.stages:
+            for key in stage.eager:
+                n0 = len(ctx.error_flags)
+                dec.known[key] = dec.decompose_at(key, prog.nodes[key])
+                sites += [(prog.post[key], j - n0, ctx.error_flags[j],
+                           ctx.error_messages[j])
+                          for j in range(n0, len(ctx.error_flags))]
+            if stage.launches:
+                self._launch(stage, ctx, dec.known, flags)
+        outs = [dec.decompose_at((i,), root)
+                for i, root in enumerate(self._roots)]
+        if flags is not None:
+            sites += [(post, sub, ((flags[j >> 5] >> (j & 31)) & 1).bool(),
+                       message)
+                      for j, (post, sub, message) in enumerate(prog.sites)]
+        sites.sort(key=lambda s: s[:2])
+        ctx.error_flags = [s[2] for s in sites]
+        ctx.error_messages = [s[3] for s in sites]
+        if self._mask_root and prog.kinds[(0,)] == "compiled":
+            ctx.length = ctx.capacity      # the kernel applied the length
+        return outs
+
+    def _launch(self, stage: codegen.Stage, ctx: TraceContext, known,
+                flags) -> None:
+        """One stage's kernel over the plan's columns and ``known`` Vals;
+        its outputs join ``known``."""
+        cap, dev = ctx.capacity, ctx.device
+        keep, ptrs, scalar = [], [], []
+
+        def operand(t, dtype):
+            if t is None:
+                ptrs.append(None)
+                scalar.append(False)
+                return
+            t, s = _pointer(t, dtype)
+            if t.device != dev:
+                raise ValueError(f"kernel operand on {t.device}, plan on "
+                                 f"{dev}")
+            keep.append(t)
+            ptrs.append(t.data_ptr())
+            scalar.append(s)
+
+        for port in stage.inputs:
+            kind, ref = port.ref
+            v = ctx.columns[ref] if kind == "field" else known[ref]
+            limbs = v.value if isinstance(v.value, tuple) else (v.value,)
+            store = torch.int64 if port.dtype.is_decimal else \
+                torch_dtype(port.dtype)
+            if not port.hi_read:             # a decimal used mod 2^64
+                limbs = (None, limbs[1])
+            for limb in limbs:
+                operand(limb, store)
+            operand(v.validity, torch.bool)
+        n_in = len(keep)
+        for port in stage.outputs:
+            if port.mask:
+                mask = torch.empty(cap, dtype=torch.bool, device=dev)
+                known[port.ref[1]] = Val(mask, None, dt.bool_)
+                operand(mask, torch.bool)
+                continue
+            t = port.dtype
+            store = torch.int64 if t.is_decimal else torch_dtype(t)
+            limbs = [torch.empty(cap, dtype=store, device=dev)
+                     for _ in range(port.limbs)]
+            valid = torch.empty(cap, dtype=torch.bool, device=dev)
+            known[port.ref[1]] = Val(tuple(limbs) if t.is_decimal
+                                     else limbs[0], valid, t)
+            for limb in limbs:
+                operand(limb, store)
+            operand(valid, torch.bool)
+        length = ctx.length
+        len_ptr, len_bytes = None, 8
+        if isinstance(length, torch.Tensor):
+            if length.dtype not in (torch.int32, torch.int64):
+                length = length.to(torch.int64)
+            keep.append(length)
+            len_ptr, len_bytes, length = (length.data_ptr(),
+                                          length.element_size(), 0)
+        cuda = dev.type == "cuda"
+        args = (stage.index, ptrs, scalar, len_ptr, len_bytes, int(length),
+                cap, None if flags is None else flags.data_ptr())
+        if cuda:
+            blocks = min(-(-cap // codegen.THREADS), 16 * torch.cuda
+                         .get_device_properties(dev).multi_processor_count)
+            with torch.cuda.device(dev):     # the launcher's current card
+                self._library.run(*args, blocks,
+                                  torch.cuda.current_stream(dev).cuda_stream)
+            LAUNCHES["plan"] += int(cap > 0)  # no rows: nothing launched
+        else:
+            self._library.run(*args, 0, None)
+        if self._bytes is not None:         # each distinct operand once
+            seen = set()
+            for i, t in enumerate(keep):
+                if t.data_ptr() in seen:
+                    continue
+                seen.add(t.data_ptr())
+                side = "read" if i < n_in else "written"
+                self._bytes[f"plan bytes {side}"] += \
+                    t.numel() * t.element_size()
 
     # ---- evaluation ----------------------------------------------------
     def _make_vals(self, cols) -> Dict[str, Val]:
@@ -177,8 +347,11 @@ class _CompiledPlan:
                            tables=None if batch is None
                            else self._tables_for(batch))
         ctx.columns = self._make_vals(cols)
-        dec = ExprDecomposer(ctx)
-        outs = [dec.decompose(r) for r in self._roots]
+        if self._program is not None:
+            outs = self._run_program(ctx)
+        else:
+            dec = ExprDecomposer(ctx)
+            outs = [dec.decompose(r) for r in self._roots]
         res = (finish or self._finish)(ctx, outs)
         if ctx.table_builds:
             self.stats["table_builds"] = (self.stats.get("table_builds", 0)
@@ -248,9 +421,13 @@ class _CompiledPlan:
 
     # ---- introspection -------------------------------------------------
     def dump_hlo(self, batch: Optional[Batch] = None) -> str:
-        """Text dump of the decomposed plan — the DumpIR analogue: each root
-        with the registry signature and null rule every function resolved
-        to. ``batch`` is accepted for parity and not needed."""
+        """The DumpIR analogue: a compiled plan's generated source (its
+        head lists every node's route), as the JAX package returns its
+        StableHLO text; otherwise a text dump of the decomposed plan, each
+        root with the registry signature and null rule every function
+        resolved to. ``batch`` is accepted for parity and not needed."""
+        if self._program is not None:
+            return self._program.source
         reg = global_registry()
         lines = [f"{type(self).__name__} on {self.device}"]
         for i, root in enumerate(self._roots):
@@ -308,17 +485,26 @@ class _CompiledPlan:
         each output written once), ``bytes accessed`` (their sum) and
         ``flops`` (one operation an output element of every elementwise
         operation); ``kernel launches`` counts the hand-written kernels'
-        launches (``ops.kernels.LAUNCHES``), whose bytes the byte counts
-        leave out."""
-        from ..ops.kernels import LAUNCHES
-
+        launches (``ops.kernels.LAUNCHES``; the generated kernel's under
+        ``plan``), whose bytes the byte counts leave out. A compiled plan
+        also reports its kernels' own ``plan bytes read`` / ``plan bytes
+        written`` (each operand once, a broadcast one as one element) and
+        how many of its nodes compiled and stayed eager."""
         batch = self._as_batch(batch)
         before = sum(LAUNCHES.values())
-        with _op_tally() as tally:
-            self._evaluate_once(batch)
+        self._bytes = {"plan bytes read": 0, "plan bytes written": 0}
+        try:
+            with _op_tally() as tally:
+                self._evaluate_once(batch)
+        finally:
+            kernel_bytes, self._bytes = self._bytes, None
         cost = dict(tally.counts)
         cost["bytes accessed"] = cost["bytes read"] + cost["bytes written"]
         cost["kernel launches"] = sum(LAUNCHES.values()) - before
+        if self._program is not None:
+            cost.update(kernel_bytes)
+            cost["compiled nodes"] = self._program.count("compiled")
+            cost["eager nodes"] = self._program.count("eager")
         return cost
 
     @property
@@ -450,7 +636,8 @@ class Filter(_CompiledPlan):
             raise ExpressionValidationError(
                 f"filter condition must be boolean, got {ct}")
         self.condition = condition
-        super().__init__(schema, [condition.root], config, device)
+        super().__init__(schema, [condition.root], config, device,
+                         mask_root=True)
 
     @staticmethod
     def make(schema: dt.Schema, condition: Condition,
@@ -501,7 +688,7 @@ class FilterProject(_CompiledPlan):
         self.condition = condition
         self.exprs = tuple(exprs)
         super().__init__(schema, [condition.root] + [e.root for e in exprs],
-                         config, device)
+                         config, device, mask_root=True)
 
     @staticmethod
     def make(schema, condition, exprs, config=None,

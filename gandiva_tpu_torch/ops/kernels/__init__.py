@@ -8,12 +8,15 @@ for a later group of eight payloads: one per call for up to eight. K5
 counts one per launch of its three-kernel sequence: one per call for up to
 four value columns. K4 (``sort_block``) counts one per sort; K3
 (``merge_path``) one per merge round, ⌈log2 ⌈n / W⌉⌉ of them per sort,
-each round two launches (its partition pass and its merge).
+each round two launches (its partition pass and its merge). ``plan``
+counts the plan compiler's generated kernels (compiler/jit.py), one per
+launch: one per evaluation of a one-stage plan.
 """
 from typing import Dict
 
 LAUNCHES: Dict[str, int] = {"compact": 0, "compact_fragnet": 0,
-                            "aggregate": 0, "sort_block": 0, "merge_path": 0}
+                            "aggregate": 0, "sort_block": 0, "merge_path": 0,
+                            "plan": 0}
 
 
 def reset_launches() -> None:

@@ -25,7 +25,8 @@ import torch
 
 from .. import dtypes as dt
 from ..utils import int128 as i128
-from .numeric import _isnotnull, _isnull, rows_evaluated
+from .numeric import (_isnotnull, _isnull, emit_isnotnull, emit_isnull,
+                      rows_evaluated)
 from .registry import (ExpressionValidationError, Nullability, Val,
                        global_registry)
 
@@ -94,6 +95,100 @@ def _zero_div(ctx, args, bh, bl):
     zero_div = (bh == 0) & (bl == 0)
     ctx.add_error(zero_div & rows_evaluated(args), "divide by zero error")
     return zero_div, torch.where(zero_div, torch.ones_like(bl), bl)
+
+
+# ---------------------------------------------------------------------------
+# emitters: the arithmetic below as C++ on one __int128 a row, for the plan
+# compiler (compiler/codegen.py; helpers in csrc/plan_prelude.h), with the
+# limb route's bits: products and upscales wrap mod 2^128, downscales and
+# divisions round half away from zero as utils/int128 does
+# ---------------------------------------------------------------------------
+
+def _emit_rescale(x: str, from_scale: int, to_scale: int) -> str:
+    from ..compiler.codegen import pow10
+
+    if to_scale == from_scale:
+        return x
+    if to_scale > from_scale:
+        return f"gt_mul_pow10({x}, {pow10(to_scale - from_scale)})"
+    return f"gt_div_pow10_round({x}, {pow10(from_scale - to_scale)})"
+
+
+def _lo64(x: str) -> str:
+    """A decimal's low limb, the int64 its value is when it fits."""
+    return f"(int64_t)(uint64_t)(gt_u128)({x})"
+
+
+def _emit_addsub(sub: bool):
+    def emit(g, args, rt):
+        a, b = args
+        out_t = result_type("subtract" if sub else "add", a.dtype, b.dtype)
+        op = "gt_i128_sub" if sub else "gt_i128_add"
+        return (f"{op}({_emit_rescale(a.v, a.dtype.scale, out_t.scale)}, "
+                f"{_emit_rescale(b.v, b.dtype.scale, out_t.scale)})")
+
+    def low_args(types, j, low):
+        # a sum's low word needs only its operands' low words, unless an
+        # operand is rounded down to the result's scale
+        out_t = result_type("subtract" if sub else "add", *types)
+        return low and types[j].scale <= out_t.scale
+
+    emit.low_args = low_args
+    return emit
+
+
+def _emit_multiply(g, args, rt):
+    a, b = args
+    out_t = result_type("multiply", a.dtype, b.dtype)
+    raw_scale = a.dtype.scale + b.dtype.scale
+    if _fits_int64(a.dtype) and _fits_int64(b.dtype):
+        p = f"gt_mul_i64({_lo64(a.v)}, {_lo64(b.v)})"
+    elif _fits_int64(b.dtype):
+        p = f"gt_mul128_i64({a.v}, {_lo64(b.v)})"
+    else:
+        p = f"gt_mul128_i64({b.v}, {_lo64(a.v)})"
+    return _emit_rescale(p, raw_scale, out_t.scale)
+
+
+# an operand that fits int64 enters the product as its low word only
+_emit_multiply.low_args = lambda types, j, low: _fits_int64(types[j])
+
+
+def _emit_negative(g, args, rt):
+    return f"gt_i128_neg({args[0].v})"
+
+
+_emit_negative.low_args = lambda types, j, low: low
+
+
+def _emit_divide(g, args, rt):
+    a, b = args
+    out_t = result_type("divide", a.dtype, b.dtype)
+    delta = out_t.scale + b.dtype.scale - a.dtype.scale
+    x = _emit_rescale(a.v, 0, max(delta, 0))
+    if delta < 0:
+        x = _emit_rescale(x, -delta, 0)
+    g.error(f"{b.v} == 0", args, "divide by zero error")
+    return f"gt_dec_divide({x}, {a.v}, {b.v})"
+
+
+def _emit_mod(g, args, rt):
+    a, b = args
+    out_t = result_type("mod", a.dtype, b.dtype)
+    ra = g.tmp("gt_i128", _emit_rescale(a.v, a.dtype.scale, out_t.scale))
+    rb = g.tmp("gt_i128", _emit_rescale(b.v, b.dtype.scale, out_t.scale))
+    g.error(f"{rb} == 0", args, "divide by zero error")
+    return f"gt_dec_mod({ra}, {rb})"
+
+
+def _emit_cmp(op: str):
+    def emit(g, args, rt):
+        a, b = args
+        scale = max(a.dtype.scale, b.dtype.scale)
+        return (f"({_emit_rescale(a.v, a.dtype.scale, scale)} {op} "
+                f"{_emit_rescale(b.v, b.dtype.scale, scale)})")
+
+    return emit
 
 
 # ---------------------------------------------------------------------------
@@ -335,21 +430,28 @@ for _t in (dt.int32, dt.int64, dt.float32, dt.float64):
 
 
 def register_decimal_for(t1: dt.DataType, t2: dt.DataType):
-    """The binary signatures of one concrete (t1, t2) pair."""
-    for name, impl in [("add", _addsub(False)), ("subtract", _addsub(True)),
-                       ("multiply", _multiply), ("divide", _divide),
-                       ("mod", _mod)]:
+    """The binary signatures of one concrete (t1, t2) pair. The multiply
+    of two operands over 18 digits (the 256-bit product) has no emitter."""
+    wide = not (_fits_int64(t1) or _fits_int64(t2))
+    for name, impl, emit in [
+            ("add", _addsub(False), _emit_addsub(False)),
+            ("subtract", _addsub(True), _emit_addsub(True)),
+            ("multiply", _multiply, None if wide else _emit_multiply),
+            ("divide", _divide, _emit_divide), ("mod", _mod, _emit_mod)]:
         if _R.lookup(name, [t1, t2]) is None:
-            _R.register(name, [t1, t2], result_type(name, t1, t2), impl)
-    for name, op in [
-        ("equal", lambda c: c == 0), ("not_equal", lambda c: c != 0),
-        ("less_than", lambda c: c < 0),
-        ("less_than_or_equal_to", lambda c: c <= 0),
-        ("greater_than", lambda c: c > 0),
-        ("greater_than_or_equal_to", lambda c: c >= 0),
+            _R.register(name, [t1, t2], result_type(name, t1, t2), impl,
+                        emit=emit)
+    for name, op, c in [
+        ("equal", lambda c: c == 0, "=="), ("not_equal", lambda c: c != 0,
+                                            "!="),
+        ("less_than", lambda c: c < 0, "<"),
+        ("less_than_or_equal_to", lambda c: c <= 0, "<="),
+        ("greater_than", lambda c: c > 0, ">"),
+        ("greater_than_or_equal_to", lambda c: c >= 0, ">="),
     ]:
         if _R.lookup(name, [t1, t2]) is None:
-            _R.register(name, [t1, t2], dt.bool_, _cmp_impl(op))
+            _R.register(name, [t1, t2], dt.bool_, _cmp_impl(op),
+                        emit=_emit_cmp(c))
 
 
 def _cast_varchar_decimal(ctx, args):
@@ -360,17 +462,21 @@ def _cast_varchar_decimal(ctx, args):
 def register_decimal_unary(t: dt.DataType):
     """The unary signatures of one concrete decimal type."""
     register_cast_decimal_from(t)
-    for name, f in (("isnull", _isnull), ("isnotnull", _isnotnull)):
+    for name, f, emit in (("isnull", _isnull, emit_isnull),
+                          ("isnotnull", _isnotnull, emit_isnotnull)):
         if _R.lookup(name, [t]) is None:
             _R.register(name, [t], dt.bool_, f,
-                        nullability=Nullability.NULL_NEVER)
+                        nullability=Nullability.NULL_NEVER, emit=emit)
     for params in ([t], [t, dt.int64]):
         if _R.lookup("castVARCHAR", params) is None:
             _R.register("castVARCHAR", params, dt.string,
                         _cast_varchar_decimal)
+    for name, impl, emit in (
+            ("abs", _abs_impl, lambda g, a, rt: f"gt_i128_abs({a[0].v})"),
+            ("negative", _negative, _emit_negative)):
+        if _R.lookup(name, [t]) is None:
+            _R.register(name, [t], t, impl, emit=emit)
     specs = [
-        ("abs", _abs_impl, t),
-        ("negative", _negative, t),
         ("castBIGINT", _cast_bigint, dt.int64),
         ("castFLOAT8", _cast_float8, dt.float64),
         ("ceiling", _round_family("ceiling"), dt.decimal128(t.precision, 0)),

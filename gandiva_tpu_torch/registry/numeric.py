@@ -145,6 +145,57 @@ def convert(x, src: dt.DataType, target: dt.DataType):
 
 
 # --------------------------------------------------------------------------
+# emitters: the same functions as C++ text for the plan compiler
+# (compiler/codegen.py); the helpers are csrc/plan_prelude.h's
+# --------------------------------------------------------------------------
+
+def ctype(t: dt.DataType) -> str:
+    from ..compiler.codegen import ctype as c
+
+    return c(t)
+
+
+def emit_call(helper: str):
+    """``helper<T>(args...)`` with T the first argument's C type."""
+    def emit(g, args, rt):
+        vals = ", ".join(a.v for a in args)
+        return f"{helper}<{ctype(args[0].dtype)}>({vals})"
+    return emit
+
+
+def emit_op(op: str):
+    """``(T)(a op b)``, or ``(T)(op a)`` for one argument: an operation
+    that neither wraps nor traps in T (bitwise, compares)."""
+    def emit(g, args, rt):
+        if len(args) == 1:
+            return f"({ctype(rt)})({op}{args[0].v})"
+        return f"({ctype(rt)})({args[0].v} {op} {args[1].v})"
+    return emit
+
+
+def _emit_identity(g, args, rt):
+    return args[0].v
+
+
+def _emit_divmod(helper: str):
+    def emit(g, args, rt):
+        if not args[0].dtype.is_float:
+            g.error(f"{args[1].v} == 0", args, "divide by zero error")
+        return emit_call(helper)(g, args, rt)
+    return emit
+
+
+def emit_to_float(src: dt.DataType, target: dt.DataType, x: str) -> str:
+    """``to_float``: numeric (or bool) → float with one rounding."""
+    return f"gt_to_float<{ctype(target)}, {ctype(src)}>({x})"
+
+
+def emit_float_to_int(src: dt.DataType, target: dt.DataType, x: str) -> str:
+    """``float_to_int``: truncate, saturate, NaN → 0."""
+    return f"gt_float_to_int<{ctype(target)}, {ctype(src)}>({x})"
+
+
+# --------------------------------------------------------------------------
 # arithmetic  (reference: precompiled/arithmetic_ops.cc)
 # --------------------------------------------------------------------------
 
@@ -156,9 +207,12 @@ def _wrap1(f):
     return lambda ctx, args: f(args[0].value)
 
 
-_R.register_many("add", _same2(NUMERIC), _wrap2(lambda a, b: a + b))
-_R.register_many("subtract", _same2(NUMERIC), _wrap2(lambda a, b: a - b))
-_R.register_many("multiply", _same2(NUMERIC), _wrap2(lambda a, b: a * b))
+_R.register_many("add", _same2(NUMERIC), _wrap2(lambda a, b: a + b),
+                 emit=emit_call("gt_add"))
+_R.register_many("subtract", _same2(NUMERIC), _wrap2(lambda a, b: a - b),
+                 emit=emit_call("gt_sub"))
+_R.register_many("multiply", _same2(NUMERIC), _wrap2(lambda a, b: a * b),
+                 emit=emit_call("gt_mul"))
 
 
 def rows_evaluated(args):
@@ -214,7 +268,8 @@ def _divide(ctx, args):
     return torch.where(b == 0, torch.zeros_like(q), q)
 
 
-_R.register_many("divide", _same2(NUMERIC), _divide, aliases=["div"])
+_R.register_many("divide", _same2(NUMERIC), _divide, aliases=["div"],
+                 emit=_emit_divmod("gt_div"))
 
 
 def _mod(ctx, args):
@@ -226,19 +281,26 @@ def _mod(ctx, args):
     return torch.where(b == 0, torch.zeros_like(r), r)
 
 
-_R.register_many("mod", _same2(INTS + FLOATS), _mod, aliases=["modulo", "%"])
+_R.register_many("mod", _same2(INTS + FLOATS), _mod, aliases=["modulo", "%"],
+                 emit=_emit_divmod("gt_mod"))
 
 _R.register_many("negative", _un(SIGNED_INT + FLOATS),
-                 _wrap1(lambda a: -a))
-_R.register_many("positive", _un(NUMERIC), _wrap1(lambda a: a))
-_R.register_many("abs", _un(SIGNED_INT + FLOATS), _wrap1(torch.abs))
+                 _wrap1(lambda a: -a), emit=emit_call("gt_neg"))
+_R.register_many("positive", _un(NUMERIC), _wrap1(lambda a: a),
+                 emit=_emit_identity)
+_R.register_many("abs", _un(SIGNED_INT + FLOATS), _wrap1(torch.abs),
+                 emit=emit_call("gt_abs"))
 _R.register_many("abs", _un([dt.uint8, dt.uint16, dt.uint32, dt.uint64]),
-                 _wrap1(lambda a: a))
+                 _wrap1(lambda a: a), emit=_emit_identity)
 
-_R.register_many("bitwise_and", _same2(INTS), _wrap2(lambda a, b: a & b))
-_R.register_many("bitwise_or", _same2(INTS), _wrap2(lambda a, b: a | b))
-_R.register_many("bitwise_xor", _same2(INTS), _wrap2(lambda a, b: a ^ b))
-_R.register_many("bitwise_not", _un(INTS), _wrap1(lambda a: ~a))
+_R.register_many("bitwise_and", _same2(INTS), _wrap2(lambda a, b: a & b),
+                 emit=emit_op("&"))
+_R.register_many("bitwise_or", _same2(INTS), _wrap2(lambda a, b: a | b),
+                 emit=emit_op("|"))
+_R.register_many("bitwise_xor", _same2(INTS), _wrap2(lambda a, b: a ^ b),
+                 emit=emit_op("^"))
+_R.register_many("bitwise_not", _un(INTS), _wrap1(lambda a: ~a),
+                 emit=emit_op("~"))
 
 
 def _shift(left: bool):
@@ -260,8 +322,10 @@ def _shift(left: bool):
     return impl
 
 
-_R.register_many("shift_left", _same2(INTS), _shift(left=True))
-_R.register_many("shift_right", _same2(INTS), _shift(left=False))
+_R.register_many("shift_left", _same2(INTS), _shift(left=True),
+                 emit=emit_call("gt_shl"))
+_R.register_many("shift_right", _same2(INTS), _shift(left=False),
+                 emit=emit_call("gt_shr"))
 
 # pow: gandiva registers power(float64, float64)
 _R.register_many("power", _same2(FLOATS), _wrap2(torch.pow),
@@ -279,22 +343,25 @@ def _cmp(f):
     return impl
 
 
-def _register_cmp(name, f, aliases=()):
+def _register_cmp(name, f, op, aliases=()):
+    # over numeric and date/time types; unsigned ones compare as their C
+    # unsigned types, so the emitter needs no sign flip
     _R.register_many(name, _same2(ORDERED, dt.bool_), _cmp(f),
-                     aliases=aliases)
+                     aliases=aliases, emit=emit_op(op))
     # bool supports equality only — gandiva exposes equal on bool too
     if name in ("equal", "not_equal"):
         _R.register_many(name, _same2(EQ_ONLY_EXTRA, dt.bool_), _wrap2(f),
-                         aliases=aliases)
+                         aliases=aliases, emit=emit_op(op))
 
 
-_register_cmp("equal", lambda a, b: a == b, aliases=["eq", "same", "=="])
-_register_cmp("not_equal", lambda a, b: a != b, aliases=["ne", "!="])
-_register_cmp("less_than", lambda a, b: a < b, aliases=["lt", "<"])
-_register_cmp("less_than_or_equal_to", lambda a, b: a <= b,
+_register_cmp("equal", lambda a, b: a == b, "==",
+              aliases=["eq", "same", "=="])
+_register_cmp("not_equal", lambda a, b: a != b, "!=", aliases=["ne", "!="])
+_register_cmp("less_than", lambda a, b: a < b, "<", aliases=["lt", "<"])
+_register_cmp("less_than_or_equal_to", lambda a, b: a <= b, "<=",
               aliases=["le", "lte", "<="])
-_register_cmp("greater_than", lambda a, b: a > b, aliases=["gt", ">"])
-_register_cmp("greater_than_or_equal_to", lambda a, b: a >= b,
+_register_cmp("greater_than", lambda a, b: a > b, ">", aliases=["gt", ">"])
+_register_cmp("greater_than_or_equal_to", lambda a, b: a >= b, ">=",
               aliases=["ge", "gte", ">="])
 
 
@@ -304,7 +371,7 @@ _register_cmp("greater_than_or_equal_to", lambda a, b: a >= b,
 
 _R.register(
     "not", [dt.bool_], dt.bool_,
-    lambda ctx, args: torch.logical_not(args[0].value))
+    lambda ctx, args: torch.logical_not(args[0].value), emit=emit_op("!"))
 
 
 def _ref_arr(v: Val):
@@ -355,20 +422,32 @@ def _isnotfalse(ctx, args):
     return Val(torch.logical_not(r.value), None, dt.bool_)
 
 
+def emit_null_never(f):
+    """A null-never emitter: ``f(value, validity)`` → the C value."""
+    return lambda g, args, rt: (f(args[0].v, args[0].m), None)
+
+
+emit_isnull = emit_null_never(lambda v, m: f"!({m})")
+emit_isnotnull = emit_null_never(lambda v, m: f"({m})")
+
 for _t in NUMERIC + TEMPORAL + [dt.bool_, dt.string, dt.binary]:
     _R.register("isnull", [_t], dt.bool_, _isnull,
-                nullability=Nullability.NULL_NEVER)
+                nullability=Nullability.NULL_NEVER, emit=emit_isnull)
     _R.register("isnotnull", [_t], dt.bool_, _isnotnull,
-                nullability=Nullability.NULL_NEVER)
+                nullability=Nullability.NULL_NEVER, emit=emit_isnotnull)
 
 _R.register("istrue", [dt.bool_], dt.bool_, _istrue,
-            nullability=Nullability.NULL_NEVER)
+            nullability=Nullability.NULL_NEVER,
+            emit=emit_null_never(lambda v, m: f"({v}) && ({m})"))
 _R.register("isfalse", [dt.bool_], dt.bool_, _isfalse,
-            nullability=Nullability.NULL_NEVER)
+            nullability=Nullability.NULL_NEVER,
+            emit=emit_null_never(lambda v, m: f"!({v}) && ({m})"))
 _R.register("isnottrue", [dt.bool_], dt.bool_, _isnottrue,
-            nullability=Nullability.NULL_NEVER)
+            nullability=Nullability.NULL_NEVER,
+            emit=emit_null_never(lambda v, m: f"!(({v}) && ({m}))"))
 _R.register("isnotfalse", [dt.bool_], dt.bool_, _isnotfalse,
-            nullability=Nullability.NULL_NEVER)
+            nullability=Nullability.NULL_NEVER,
+            emit=emit_null_never(lambda v, m: f"!(!({v}) && ({m}))"))
 
 
 def _valid_or_ones(v: Val):
@@ -390,11 +469,21 @@ def _is_not_distinct_from(ctx, args):
     return Val(torch.logical_not(r.value), None, dt.bool_)
 
 
+def _emit_distinct(negate: bool):
+    def emit(g, args, rt):
+        a, b = args
+        d = f"(({a.m}) && ({b.m})) ? ({a.v} != {b.v}) : (({a.m}) != ({b.m}))"
+        return (f"!({d})" if negate else d), None
+    return emit
+
+
 for _t in NUMERIC + TEMPORAL + [dt.bool_]:
     _R.register("is_distinct_from", [_t, _t], dt.bool_, _is_distinct_from,
-                nullability=Nullability.NULL_NEVER)
+                nullability=Nullability.NULL_NEVER,
+                emit=_emit_distinct(False))
     _R.register("is_not_distinct_from", [_t, _t], dt.bool_,
-                _is_not_distinct_from, nullability=Nullability.NULL_NEVER)
+                _is_not_distinct_from, nullability=Nullability.NULL_NEVER,
+                emit=_emit_distinct(True))
 
 
 def _nvl(ctx, args):
@@ -409,9 +498,16 @@ def _nvl(ctx, args):
     return Val(out, outv, a.dtype)
 
 
+def _emit_nvl(g, args, rt):
+    a, b = args
+    valid = None if b.m == "true" else f"({a.m}) || ({b.m})"
+    return f"({a.m}) ? {a.v} : {b.v}", valid
+
+
 for _t in NUMERIC + TEMPORAL + [dt.bool_]:
     _R.register("nvl", [_t, _t], _t, _nvl,
-                nullability=Nullability.NULL_INTERNAL, aliases=["coalesce2"])
+                nullability=Nullability.NULL_INTERNAL, aliases=["coalesce2"],
+                emit=_emit_nvl)
 
 
 # --------------------------------------------------------------------------
@@ -447,8 +543,15 @@ _MATH1 = {
     "degrees": torch.rad2deg, "radians": torch.deg2rad,
 }
 
+def _emit_sqrt(g, args, rt):
+    return f"sqrt({emit_to_float(args[0].dtype, dt.float64, args[0].v)})"
+
+
+# of the math functions only sqrt, correctly rounded in IEEE arithmetic on
+# the card as on the host, compiles; the rest stay eager
 for _name, _f in _MATH1.items():
-    _R.register_many(_name, _un(NUMERIC, dt.float64), _mathfn(_f))
+    _R.register_many(_name, _un(NUMERIC, dt.float64), _mathfn(_f),
+                     emit=_emit_sqrt if _name == "sqrt" else None)
 
 _R.register_many("atan2", _same2(FLOATS, dt.float64),
                  lambda ctx, args: torch.atan2(_to_f64(args[0]),

@@ -30,6 +30,15 @@ Kernel calling convention
   constant — holder-style functions (like, to_date) require it.
 - ``ctx`` is the TraceContext: gives access to per-batch host tables
   (``ctx.add_table``) and the row-validity context.
+
+Emitters
+--------
+An entry may also carry ``emit``: the C++ text of the same function for one
+row, which the plan compiler (compiler/codegen.py) inlines into a plan's
+generated kernel, as Gandiva's registry points at precompiled bitcode that
+its JIT inlines. An entry without one stays eager inside a compiled plan.
+``emit`` computes exactly what ``impl`` does, bit for bit (the protocol is
+in codegen.py's docstring).
 """
 from __future__ import annotations
 
@@ -71,6 +80,8 @@ class NativeFunction:
     # impl wants the tree-declared return type (casts whose target is
     # parameterized, e.g. castDECIMAL → decimal(p, s) of the node)
     needs_return_type: bool = False
+    # the row's C++ text for the plan compiler, or None (stays eager)
+    emit: Optional[Callable] = None
 
     @property
     def name(self) -> str:
@@ -89,22 +100,25 @@ class FunctionRegistry:
                  return_type, impl: Callable,
                  nullability: Nullability = Nullability.NULL_IF_NULL,
                  aliases: Sequence[str] = (),
-                 needs_return_type: bool = False):
+                 needs_return_type: bool = False,
+                 emit: Optional[Callable] = None):
         sig = FunctionSignature(name, tuple(param_types), return_type)
         key = (name, sig.param_types)
         if key in self._table:
             raise ValueError(f"duplicate registration: {sig}")
         self._table[key] = NativeFunction(sig, impl, nullability,
-                                          needs_return_type)
+                                          needs_return_type, emit)
         for a in aliases:
             self._aliases.setdefault(a, name)
 
     def register_many(self, name: str, type_combos, impl: Callable,
                       nullability: Nullability = Nullability.NULL_IF_NULL,
-                      aliases: Sequence[str] = ()):
+                      aliases: Sequence[str] = (),
+                      emit: Optional[Callable] = None):
         """``type_combos``: iterable of (param_types, return_type)."""
         for param_types, ret in type_combos:
-            self.register(name, param_types, ret, impl, nullability, aliases)
+            self.register(name, param_types, ret, impl, nullability, aliases,
+                          emit=emit)
 
     # -- lookup ------------------------------------------------------------
     def canonical_name(self, name: str) -> str:

@@ -1182,3 +1182,163 @@ def test_nccl_mesh_matches_one_process(tmp_path):
     if cards < 2:
         pytest.skip("needs two or more cards for NCCL between processes")
     run_mesh_workers(tmp_path, 4 if cards >= 4 else 2, "cuda", timeout=300)
+
+
+# ---------------------------------------------------------------------------
+# the plan compiler: generated kernels against the eager route on the card
+# ---------------------------------------------------------------------------
+
+def _eager(gt):
+    return gt.ConfigurationBuilder().with_optimize(False).build()
+
+
+def _hold_plan_outputs(got, want):
+    (gsel, gout), (wsel, wout) = got, want
+    c = int(wsel.count)
+    assert int(gsel.count) == c
+    assert torch.equal(gsel.indices[:c], wsel.indices[:c])
+    for name in wout.columns:
+        _same_output(gout.column(name), _column_cpu(wout.column(name)), c)
+
+
+def _column_cpu(c):
+    import gandiva_tpu_torch as gt
+
+    return gt.Column(c.data.cpu(), c.validity.cpu(), c.dtype,
+                     extra=None if c.extra is None else c.extra.cpu(),
+                     dictionary=c.dictionary)
+
+
+@pytest.mark.parametrize("name", ["configs[0]", "q1", "q6", "q12", "q19",
+                                  "q9", "q16"])
+def test_compiled_plan_on_card_matches_eager(name):
+    """The entry points' plans compiled (the default) against the same
+    plans with optimize off, on the card: one generated kernel a call
+    (none for Q9's, whose one node is eager), the same selection and
+    outputs bit for bit."""
+    dev = _card()
+    import numpy as np
+
+    import gandiva_tpu_torch as gt
+    from gandiva_tpu_torch import entrypoints as e
+
+    if name == "configs[0]":
+        rng = np.random.default_rng(1)
+        batch = gt.from_columns_numpy(
+            {"a": ("int64", rng.integers(0, 1000, 100_003),
+                   rng.random(100_003) >= 0.05),
+             "b": ("float64", rng.random(100_003),
+                   np.ones(100_003, dtype=bool))}, 100_003, device=dev)
+        make = e.flagship_plan
+    elif name in ("q9", "q16"):
+        batch = e.part(20000, seed=2, device=dev)
+        make = getattr(e, f"tpch_{name}_part_scan")
+    else:
+        batch = e.lineitem(100_003, seed=2, device=dev)
+        make = getattr(e, f"tpch_{name}_scan")
+    comp = make(dev)
+    eager = gt.make_filter_project(comp.schema, comp.condition, comp.exprs,
+                                   config=_eager(gt), use_cache=False,
+                                   device=dev)
+    reset_launches()
+    got = comp.evaluate_device(batch)
+    assert LAUNCHES["plan"] == (0 if name == "q9" else 1)
+    want = eager.evaluate_device(batch)
+    assert LAUNCHES["plan"] == (0 if name == "q9" else 1)
+    _hold_plan_outputs(got, want)
+    if name != "q9":
+        assert "__global__" in comp.dump_hlo()
+
+
+@pytest.mark.parametrize("part", range(8))
+def test_emitters_compiled_on_card_match_eager(part):
+    """Every emitter signature (chip_smoke.emitter_plans' eighth ``part``)
+    compiled against the eager route on the card at 4,096 rows with nulls
+    and hazard rows; floats by their bits, NaN equal to NaN."""
+    dev = _card()
+    import numpy as np
+
+    import gandiva_tpu_torch as gt
+    from chip_smoke import emitter_column, emitter_plans, same_column
+
+    schema, exprs = emitter_plans(gt)[part]
+    rng = np.random.default_rng(part)
+    cols = {f.name: (str(f.dtype), *emitter_column(str(f.dtype), f.name[0],
+                                                   4096, rng))
+            for f in schema}
+    batch = gt.from_columns_numpy(cols, 4096, device=dev)
+    comp = gt.make_projector(schema, exprs, use_cache=False, device=dev)
+    assert comp._program.count("eager") == 0
+    got = comp.evaluate_device(batch)
+    want = gt.make_projector(schema, exprs, config=_eager(gt),
+                             use_cache=False,
+                             device=dev).evaluate_device(batch)
+    for e in exprs:
+        n = e.result_field.name
+        assert same_column(got.column(n), _column_cpu(want.column(n))), \
+            e.root.to_string()
+
+
+def test_compiled_routes_on_card_match_eager():
+    """A Projector over a selection (the length a device scalar),
+    stream_fn, and raise_errors' first message, compiled against eager
+    on the card."""
+    dev = _card()
+    import numpy as np
+
+    import gandiva_tpu_torch as gt
+    from gandiva_tpu_torch import entrypoints as e
+
+    filt, proj = e._flagship_plans(dev)
+    rng = np.random.default_rng(3)
+    n = 50_001
+    batch = gt.from_columns_numpy(
+        {"a": ("int64", rng.integers(0, 1000, n), rng.random(n) >= 0.05),
+         "b": ("float64", rng.random(n), np.ones(n, dtype=bool))}, n,
+        device=dev)
+    sel = filt.evaluate(batch)
+    outs = [gt.make_projector(filt.schema, proj.exprs,
+                              gt.SelectionMode.UINT32, config=cfg,
+                              use_cache=False, device=dev)
+            .evaluate(batch, selection=sel)[0] for cfg in (None, _eager(gt))]
+    assert outs[0].equals(outs[1])
+    fp = e.flagship_plan(dev)
+    fp_e = gt.make_filter_project(fp.schema, fp.condition, fp.exprs,
+                                  config=_eager(gt), use_cache=False,
+                                  device=dev)
+    cols = {k: (c.data[None], c.validity[None])
+            for k, c in batch.columns.items()}
+    (gi, gc, gp), = fp.stream_fn()(cols)
+    (wi, wc, wp), = fp_e.stream_fn()(cols)
+    c = int(wc)
+    assert int(gc) == c and torch.equal(gi[:c], wi[:c])
+    for x, y in zip(gp, wp):
+        assert torch.equal(_bits(x[:c]), _bits(y[:c]))
+    B, dt = gt.TreeExprBuilder, gt.dtypes
+    schema = dt.Schema([dt.Field("a", dt.int64), dt.Field("f", dt.float64)])
+    exprs = [B.make_expression(B.make_function("castDECIMAL", [
+                 B.make_field(schema.field("f"))], dt.decimal128(4, 2)),
+                 dt.Field("c", dt.decimal128(4, 2))),
+             B.make_expression(B.make_function("divide", [
+                 B.make_field(schema.field("a")),
+                 B.make_field(schema.field("a"))], dt.int64),
+                 dt.Field("q", dt.int64))]
+    bad = gt.from_columns_numpy(
+        {"a": ("int64", np.array([1, 0, 2]), np.ones(3, dtype=bool)),
+         "f": ("float64", np.array([1.0, 2.0, 1e9]), np.ones(3, dtype=bool))},
+        3, device=dev)
+    messages = []
+    for cfg in (gt.ConfigurationBuilder().with_raise_errors(True).build(),
+                gt.ConfigurationBuilder().with_raise_errors(True)
+                .with_optimize(False).build()):
+        with pytest.raises(gt.EvaluationError) as err:
+            gt.make_projector(schema, exprs, config=cfg, use_cache=False,
+                              device=dev).evaluate_device(bad)
+        messages.append(str(err.value))
+    assert messages == ["castDECIMAL: overflow"] * 2
+    empty = gt.from_columns_numpy(
+        {"a": ("int64", np.zeros(0, dtype=np.int64), np.zeros(0, bool)),
+         "b": ("float64", np.zeros(0), np.zeros(0, bool))}, 0, device=dev)
+    reset_launches()
+    sel, out = fp.evaluate_device(empty)
+    assert int(sel.count) == 0 and LAUNCHES["plan"] == 0
