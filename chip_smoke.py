@@ -127,16 +127,18 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                 (floats by their bits); prints the count held by family;
                 then int128 division by 10^2 and 10^10 by the port's
                 limb route and by divmod128: equal bits, and both times;
- 19. TPC-H    — the lineitem scans of TPC-H Q1 and Q6 (make_filter_project,
-                entrypoints.tpch_q1_scan / tpch_q6_scan) over SF10's
+ 19. TPC-H    — the lineitem scans of TPC-H Q1, Q6 and Q7
+                (make_filter_project, entrypoints.tpch_q1_scan /
+                tpch_q6_scan / tpch_q7_scan) over SF10's
                 59,986,052 LINEITEM rows made on the card (decimal(15,2)
                 money columns, a date32 ship date): rows/s of one
                 synchronized evaluate_device (best of 3), survivors, K1
                 launches, peak device memory, the profiler's top 8 and busy
                 share, a call's host clock split around K1 and the count's
                 sync; the selection and every output exact against plain
-                int64 on the card, and the first 1,048,576 rows against
-                pyarrow.compute (Q6, and Q1's outputs but its charge);
+                int64 on the card (Q7's l_year by the calendar), and the
+                first 1,048,576 rows against pyarrow.compute (Q6, Q7's
+                year and volume, and Q1's outputs but its charge);
  20. strings  — every signature that names a string or binary type (the
                 string registry's, aliases included, the string-typed date
                 functions, castVARCHAR(decimal) at four precisions) through
@@ -183,16 +185,20 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                 1, 2 and 4 partitions of the one card at a small size (they
                 run; partitions of one card measure no scaling efficiency);
  26. plan compiler — every registry signature with an emitter compiled
-                (eight generated kernels) against the eager route on the
-                card over 1,048,576 rows with nulls and hazard rows; then
-                configs[0]'s flagship_stream, TPC-H Q1, Q6, Q12 and Q19
+                (sixteen generated kernels) against the eager route on the
+                card over 1,048,576 rows with nulls and hazard rows, bit
+                for bit (the math functions and the date/time, hash and
+                rounding families among them); then
+                configs[0]'s flagship_stream, TPC-H Q1, Q6, Q7, Q12 and Q19
                 over SF10 LINEITEM, Q9 and Q16 over SF10 PART and
                 distributed_step, each compiled against optimize=False
                 at full size, bit for bit (selection, count, values,
                 validities); rows/s of both routes (best of 3), the
                 generated kernel's time beside its byte bound and the
                 eager route's time over the same nodes, launches a call
-                on each route, and cold and warm Make times.
+                on each route, and cold and warm Make times; Q7's plan is
+                one generated kernel, then K1, whose time on Q7's mask is
+                printed beside its bound.
 Phases 5-25 run the plans as Make builds them: compiled on the card
 (Configuration.optimize, the default), apart from phases 18 and 20, which
 hold every signature's own eager route. Phase 2 also builds the entry
@@ -794,14 +800,26 @@ def time_pow10_division(dev) -> dict:
     return times
 
 
-# -- phase 19: the TPC-H Q1 and Q6 lineitem scans ---------------------------
+# -- phase 19: the TPC-H Q1, Q6 and Q7 lineitem scans -----------------------
+
+def plain_year(days: torch.Tensor) -> torch.Tensor:
+    """The calendar year of each day since 1970-01-01, by a search over
+    the first days of the years 1900 .. 2100 (Python's calendar)."""
+    import datetime
+
+    firsts = torch.tensor([(datetime.date(y, 1, 1)
+                            - datetime.date(1970, 1, 1)).days
+                           for y in range(1900, 2101)], device=days.device)
+    return 1900 + torch.searchsorted(firsts, days.long(), right=True) - 1
+
 
 def tpch_plain(batch, query: str):
     """The scan's selection and outputs in plain int64 on the card, at each
     output's result scale (no output of these scans reduces its scale):
     Q1 disc_price = ep·(100 − disc) at scale 4, charge = ep·(100 −
     disc)·(100 + tax) at scale 6, and its two flags' codes; Q6 revenue =
-    ep·disc at scale 4."""
+    ep·disc at scale 4; Q7 l_year by the calendar, volume = ep·(100 −
+    disc) at scale 4."""
     from gandiva_tpu_torch import entrypoints as e
 
     c = {k: batch.column(k).data for k in batch.columns}
@@ -814,6 +832,9 @@ def tpch_plain(batch, query: str):
                 "l_quantity": qty, "l_extendedprice": ep,
                 "disc_price": ep * (100 - disc),
                 "charge": ep * (100 - disc) * (100 + tax)}
+    elif query == "Q7":
+        keep = (ship >= e.Q7_FROM) & (ship <= e.Q7_TO)
+        outs = {"l_year": plain_year(ship), "volume": ep * (100 - disc)}
     else:
         keep = ((ship >= e.Q6_FROM) & (ship < e.Q6_TO) & (disc >= 5)
                 & (disc <= 7) & (qty < 2400))
@@ -823,9 +844,10 @@ def tpch_plain(batch, query: str):
 
 def hold_tpch_prefix(gt, plan, batch, query: str) -> int:
     """The scan over the first N_TPCH_PREFIX rows against pyarrow.compute
-    on the same rows (after to_arrow): the selection, and Q6's revenue
-    and Q1's first three outputs (Q1's charge, of precision 49 before
-    adjustment, is past pyarrow's decimal128)."""
+    on the same rows (after to_arrow): the selection, and Q6's revenue,
+    Q7's l_year (``pyarrow.compute.year``) and volume, and Q1's first
+    three outputs (Q1's charge, of precision 49 before adjustment, is past
+    pyarrow's decimal128)."""
     import datetime
     import decimal
 
@@ -850,6 +872,12 @@ def hold_tpch_prefix(gt, plan, batch, query: str) -> int:
                              day(e.Q1_SHIPDATE - e.Q1_DELTA))
         want = [col["l_returnflag"], col["l_linestatus"], col["l_quantity"],
                 col["l_extendedprice"],
+                pc.multiply(col["l_extendedprice"],
+                            pc.subtract(dec("1", 1, 0), col["l_discount"]))]
+    elif query == "Q7":
+        keep = pc.and_(pc.greater_equal(col["l_shipdate"], day(e.Q7_FROM)),
+                       pc.less_equal(col["l_shipdate"], day(e.Q7_TO)))
+        want = [pc.year(col["l_shipdate"]),
                 pc.multiply(col["l_extendedprice"],
                             pc.subtract(dec("1", 1, 0), col["l_discount"]))]
     else:
@@ -916,8 +944,8 @@ def host_split(plan, batch) -> dict:
 
 
 def drive_tpch(gt, dev, smi: str) -> dict:
-    """TPC-H Q1's and Q6's scans over SF10's 59,986,052 LINEITEM rows made
-    on the card: rows/s of one synchronized evaluate_device (best of 3),
+    """TPC-H Q1's, Q6's and Q7's scans over SF10's 59,986,052 LINEITEM rows
+    made on the card: rows/s of one synchronized evaluate_device (best of 3),
     survivors, K1 launches, peak memory, the profiler's top 8 and busy
     share, a call's host clock split (``host_split``); every output held
     exactly against plain int64 on the card, and the first N_TPCH_PREFIX
@@ -934,7 +962,8 @@ def drive_tpch(gt, dev, smi: str) -> dict:
     log(f"{n} LINEITEM rows resident: {resident} B")
     launches, report = {}, {}
     for query, make, per_call in (("Q1", e.tpch_q1_scan, 2),
-                                  ("Q6", e.tpch_q6_scan, 1)):
+                                  ("Q6", e.tpch_q6_scan, 1),
+                                  ("Q7", e.tpch_q7_scan, 1)):
         plan = make(dev)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -961,9 +990,10 @@ def drive_tpch(gt, dev, smi: str) -> dict:
         for name, w in want.items():
             c = out.column(name)
             w = w[idx]
-            hi_ok = (c.dictionary is batch.column(name).dictionary
-                     if c.extra is None
-                     else torch.equal(c.extra[:count], w >> 63))
+            hi_ok = (torch.equal(c.extra[:count], w >> 63)
+                     if c.extra is not None
+                     else c.dictionary is batch.column(name).dictionary
+                     if name in batch.columns else True)
             if not (torch.equal(c.data[:count], w) and hi_ok
                     and bool(c.validity[:count].all())):
                 raise AssertionError(f"{query}: {name} differs from plain")
@@ -982,7 +1012,7 @@ def drive_tpch(gt, dev, smi: str) -> dict:
                     if "count_kernel" in r[2] or "scatter_kernel" in r[2])
         if device_us:
             log(f"   K1 {k1_us / device_us:.1%} of the device time, the rest"
-                f" (date compare, decimal int128 chain, copies) "
+                f" (the generated kernel, copies) "
                 f"{1 - k1_us / device_us:.1%}")
         host = host_split(plan, batch)
         log(f"{query} call, host clock (median of 7): " + ", ".join(
@@ -1898,7 +1928,7 @@ def drive_scaling(dev, smi: str) -> dict:
 
 # -- phase 26: the plan compiler ---------------------------------------------
 
-EMIT_BATCHES = 8                 # sources the emitter hold builds
+EMIT_BATCHES = 16                # sources the emitter hold builds
 INT_TYPES = ("int8", "int16", "int32", "int64", "uint8", "uint16", "uint32",
              "uint64")
 FLOAT_HAZARDS = [np.nan, np.inf, -np.inf, 0.0, -0.0, 1.5, 2.5, -2.5,
@@ -1915,7 +1945,8 @@ def eager_config(gt):
 def emitter_signatures(gt):
     """(name, parameter type names, return type name) of every registry
     entry with an emitter (compiler/codegen.py), decimals at DEC_TYPES,
-    every pair of them for the binary functions."""
+    every pair of them for the binary functions; castDECIMAL, whose return
+    type is the tree's, to the first and the last of DEC_TYPES."""
     from gandiva_tpu_torch.registry import decimal_ops
 
     reg = gt.global_registry()
@@ -1930,13 +1961,17 @@ def emitter_signatures(gt):
                                   if p.startswith("decimal")} <= set(
                                       DEC_TYPES):
             continue
-        sigs.add((f.signature.name, params, str(f.signature.return_type)))
+        rt = f.signature.return_type
+        for ret in ((DEC_TYPES[0], DEC_TYPES[-1]) if rt is None
+                    else (str(rt),)):
+            sigs.add((f.signature.name, params, ret))
     return sorted(sigs)
 
 
 def emitter_plans(gt):
     """The emitter signatures in EMIT_BATCHES Projectors' (schema,
-    expressions): the arguments are columns x_<type>, y_<type>."""
+    expressions): the arguments are columns x_<type>, y_<type>, but the
+    decimal round's and truncate's scale, a literal (-1 .. 2)."""
     B, dt = gt.TreeExprBuilder, gt.dtypes
     sigs = emitter_signatures(gt)
     out = []
@@ -1949,6 +1984,9 @@ def emitter_plans(gt):
         for i, (name, params, ret) in enumerate(batch_sigs):
             args = [B.make_field(schema.field(f"{'xy'[j]}_{t}"))
                     for j, t in enumerate(params)]
+            if params[:1] and params[0].startswith("decimal") \
+                    and params[1:] == ("int32",):
+                args[1] = B.make_int32_literal(i % 4 - 1)
             rt = gt.batch.parse_dtype(ret)
             exprs.append(B.make_expression(B.make_function(name, args, rt),
                                            dt.Field(f"o{i}", rt)))
@@ -2017,7 +2055,8 @@ def plan_sources(gt):
 
     plans = [*e._flagship_plans("cpu"), e.flagship_plan("cpu")] + [
         make("cpu") for make in (e.tpch_q1_scan, e.tpch_q6_scan,
-                                 e.tpch_q12_scan, e.tpch_q19_scan,
+                                 e.tpch_q7_scan, e.tpch_q12_scan,
+                                 e.tpch_q19_scan,
                                  e.tpch_q9_part_scan, e.tpch_q16_part_scan)]
     progs = [codegen.generate(p._roots, p._mask_root) for p in plans]
     progs += [codegen.generate([x.root for x in exprs])
@@ -2102,6 +2141,34 @@ def kernel_region(comp, eager, cols, length: int, bw: float,
     return {"kernel_ms": kernel_ms, "kernels": len(calls),
             "compiled_region_ms": compiled_ms, "eager_region_ms": eager_ms,
             "bytes": total, "bound_ms": total / bw * 1e3, **nbytes}
+
+
+def k1_on_plan(plan, batch, bw: float) -> dict:
+    """K1 alone on the mask and payloads ``plan`` (a FilterProject) hands
+    it over ``batch`` (one call's, recorded), timed with CUDA events beside
+    its byte bound at ``bw`` (``compaction_bytes``)."""
+    from gandiva_tpu_torch.compiler import projector
+
+    calls = []
+    real = projector.compact_best
+
+    def record(*a, **k):
+        calls.append((a, k))
+        return real(*a, **k)
+
+    projector.compact_best = record
+    try:
+        plan.evaluate_device(batch)
+    finally:
+        projector.compact_best = real
+    (mask, payload), kw = calls[0]
+    survivors = int(mask.sum())
+    width = sum(p.element_size() for p in payload)
+    ms = time_ms(lambda: real(mask, payload, **kw), iters=20)
+    nbytes = compaction_bytes(mask.numel(), survivors, width)
+    return {"k1_ms": ms, "k1_bound_ms": nbytes / bw * 1e3,
+            "k1_bytes": nbytes, "survivors": survivors,
+            "payload_bytes_a_row": width}
 
 
 def hold_emitters(gt, dev) -> dict:
@@ -2195,7 +2262,7 @@ def make_times(gt, make, eager_cfg) -> dict:
 
 def drive_plan_compiler(gt, dev, smi: str) -> dict:
     """The plan compiler on the card: every emitter signature, then
-    configs[0]'s flagship_stream, TPC-H Q1, Q6, Q12, Q19 (SF10 LINEITEM),
+    configs[0]'s flagship_stream, TPC-H Q1, Q6, Q7, Q12, Q19 (SF10 LINEITEM),
     Q9, Q16 (SF10 PART) and distributed_step, each compiled against its
     eager route at full size, bit for bit; rows/s of both routes (best of
     3), the generated kernel's time beside its byte bound, the eager
@@ -2275,7 +2342,8 @@ def drive_plan_compiler(gt, dev, smi: str) -> dict:
     n = e.LINEITEM_SF10_ROWS
     batch = e.lineitem(n, seed=26, device=dev)
     for q, make in (("Q1", e.tpch_q1_scan), ("Q6", e.tpch_q6_scan),
-                    ("Q12", e.tpch_q12_scan), ("Q19", e.tpch_q19_scan)):
+                    ("Q7", e.tpch_q7_scan), ("Q12", e.tpch_q12_scan),
+                    ("Q19", e.tpch_q19_scan)):
         comp = make(dev)
         eag = eager_of(comp)
         hold_scan(comp.evaluate_device(batch), eag.evaluate_device(batch),
@@ -2284,6 +2352,17 @@ def drive_plan_compiler(gt, dev, smi: str) -> dict:
                lambda: eag.evaluate_device(batch), n,
                kernel_region(comp, eag, comp._cols_of(batch), n, bw,
                              batch), lambda: [make(dev)])
+        if q == "Q7":
+            # the whole plan one generated kernel, then K1
+            if comp._program.count("eager") or comp._program.kernels != 1:
+                raise AssertionError("Q7: the plan is not one kernel")
+            k1 = k1_on_plan(comp, batch, bw)
+            report["TPC-H Q7 scan"].update(k1)
+            log(f"Q7 ({smi}): K1 on its mask {k1['k1_ms']:.4f} ms against "
+                f"a {k1['k1_bytes']} B bound of {k1['k1_bound_ms']:.4f} ms "
+                f"({k1['k1_bound_ms'] / k1['k1_ms']:.1%}); "
+                f"{k1['survivors']} survivors ({k1['survivors'] / n:.2%}), "
+                f"{k1['payload_bytes_a_row']} B of payloads a survivor")
     del batch
 
     # the PART scans at SF10 (Q9's plan has no compiled node: no kernel)
@@ -3542,8 +3621,8 @@ def main() -> int:
     hold_registry(gt, dev)
     time_pow10_division(dev)
 
-    # -- 19. TPC-H Q1 and Q6 lineitem scans at SF10 -----------------------
-    phase("main path: TPC-H Q1 and Q6 lineitem scans (SF10, resident)")
+    # -- 19. TPC-H Q1, Q6 and Q7 lineitem scans at SF10 ------------------
+    phase("main path: TPC-H Q1, Q6 and Q7 lineitem scans (SF10, resident)")
     k1_by_path.update(drive_tpch(gt, dev, smi))
 
     # -- 20. the string and binary registry ------------------------------

@@ -10,18 +10,25 @@ input column once and writing only what the rest of the plan reads.
 Which nodes compile is fixed here, at Make:
 
 - a function node compiles when its registry entry has an emitter
-  (``NativeFunction.emit``): arithmetic, compares, bitwise operations and
-  shifts, the isnull family, ``is_distinct_from``, ``nvl``, numeric casts,
-  ``sqrt`` and the decimal arithmetic and compares;
+  (``NativeFunction.emit``), which every fixed-width entry has: arithmetic,
+  compares, bitwise operations and shifts, the isnull family,
+  ``is_distinct_from``, ``nvl``, numeric casts, the math functions,
+  rounding, hashes, the date/time and interval functions, and the decimal
+  arithmetic, compares, casts and rounding;
 - if, boolean (Kleene and/or) and numeric IN nodes compile unless they are
   of a string or binary type (or, for IN, decimal);
-- every other function node stays eager: ``ExprDecomposer`` evaluates it
-  before the kernel, and its value becomes a kernel input, as XLA treats a
-  custom call. That covers strings and their host tables, ``random``, the
-  math functions, hashes, the date/time extract and arithmetic functions
-  and the 256-bit decimal multiply;
+- the function nodes without an emitter stay eager: ``ExprDecomposer``
+  evaluates them before the kernel, and each value becomes a kernel input,
+  as XLA treats a custom call. Those are the string and binary functions
+  and their host tables, ``random`` (its draws are the eager route's) and
+  the 256-bit decimal multiply (both operands over 18 digits);
 - fields and literals are leaves: a field is a kernel input, a literal a
   constant in the source, written by its bits.
+
+Over a selection vector (``Projector.evaluate(selection=...)``, the
+counterpart of ``jax.jit(self._run_selected)``) a kernel reads each field
+at the selected row ``sel[i]`` itself; only the fields that an eager node
+or a root reads (``Program.eager_fields``) are gathered before it.
 
 An eager node that reads a compiled value runs after the kernel that
 writes it, so a plan is cut into stages: stage s's eager nodes, then
@@ -145,10 +152,14 @@ def _is_name(expr: str) -> bool:
 
 @dataclasses.dataclass(frozen=True)
 class CArg:
-    """An emitter's operand: C expressions of its value and validity."""
+    """An emitter's operand: C expressions of its value and validity; a
+    literal operand also carries its Python value, as the eager route's
+    ``Val.literal`` does (round's digits, the decimal rounding scale)."""
     v: str
     m: str
     dtype: dt.DataType
+    literal: object = None
+    is_literal: bool = False
 
 
 @dataclasses.dataclass
@@ -206,6 +217,15 @@ class Program:
 
     def count(self, kind: str) -> int:
         return sum(1 for k in self.kinds.values() if k == kind)
+
+    @property
+    def eager_fields(self) -> List[str]:
+        """The fields that a root is or an eager node reads: over a
+        selection, only these are gathered; the kernels read the rest at
+        the selected rows themselves."""
+        return sorted({node.field.name for key, node in self.nodes.items()
+                       if isinstance(node, FieldNode)
+                       and (len(key) == 1 or self.kinds[key[:-1]] == "eager")})
 
 
 def _route(node: Node, fn) -> str:
@@ -272,8 +292,8 @@ class _Emitter:
             t = node.dtype
             if node.value is None:
                 zero = "((gt_i128)0)" if t.is_decimal else f"(({ctype(t)})0)"
-                return CArg(zero, "false", t)
-            return CArg(c_literal(node.value, t), "true", t)
+                return CArg(zero, "false", t, None, True)
+            return CArg(c_literal(node.value, t), "true", t, node.value, True)
         if kind == "eager" or prog.stage[key] < self.stage:
             return self._input(("node", key), node.dtype, key)
         kids = [self.node(key + (j,)) for j in range(len(children(node)))]
@@ -447,19 +467,28 @@ class _Builder:
             port.first = k
             k += port.pointers
         reads = []
+        if any(port.ref[0] == "field" for port in em.in_ports):
+            # a field is read at its selected row r = sel[i] (i itself
+            # without a selection); rows i >= len of a selection are null
+            reads += ["  const bool in = a.sel == nullptr || i < len;",
+                      "  const int64_t r = a.sel == nullptr ? i : in ? "
+                      "gt_index(a.sel, a.sel_bytes, i) : 0;"]
         for port in em.in_ports:
             name = em.inputs[port.ref][1]
             f = port.first
+            row = "r" if port.ref[0] == "field" else "i"
             if port.dtype.is_decimal and not port.hi_read:
                 # used mod 2^64 only: the low limb, sign-extended
-                v = f"(gt_i128)GT_IN(int64_t, {f + 1})"
+                v = f"(gt_i128)GT_IN(int64_t, {f + 1}, {row})"
             elif port.dtype.is_decimal:
-                v = (f"gt_i128_of((uint64_t)GT_IN(int64_t, {f}), "
-                     f"(uint64_t)GT_IN(int64_t, {f + 1}))")
+                v = (f"gt_i128_of((uint64_t)GT_IN(int64_t, {f}, {row}), "
+                     f"(uint64_t)GT_IN(int64_t, {f + 1}, {row}))")
             else:
-                v = f"GT_IN({ctype(port.dtype)}, {f})"
+                v = f"GT_IN({ctype(port.dtype)}, {f}, {row})"
+            valid = f"GT_VALID({f + port.limbs}, {row})"
             reads.append(f"  const {ctype(port.dtype)} {name} = {v};")
-            reads.append(f"  const bool {name}m = GT_VALID({f + port.limbs});")
+            reads.append(f"  const bool {name}m = "
+                         f"{'in && ' if row == 'r' else ''}{valid};")
         lines = []
         for port, val in writes:
             port.first = k
@@ -485,10 +514,12 @@ class _Builder:
             f"  void* p[{npt}];",
             f"  uint64_t sc[{(npt + 63) // 64}];",
             "  const void* len_ptr;",
+            "  const void* sel;",
             "  int64_t len;",
             "  int64_t n;",
             "  unsigned int* flags;",
             "  int len_bytes;",
+            "  int sel_bytes;",
             "};",
             "",
             f"GT_HD void gt_row_{s}(const gt_args_{s}& a, int64_t i, "
@@ -509,8 +540,8 @@ class _Builder:
             "",
             f"extern \"C\" int gt_plan_run_{s}(void* const* p, "
             "const uint64_t* sc, const void* len_ptr, int len_bytes, "
-            "int64_t len, int64_t n, unsigned int* flags, int blocks, "
-            "void* stream) {",
+            "int64_t len, int64_t n, const void* sel, int sel_bytes, "
+            "unsigned int* flags, int blocks, void* stream) {",
             f"  gt_args_{s} a;",
             f"  for (int k = 0; k < {npt}; ++k) a.p[k] = p[k];",
             f"  for (int k = 0; k < {(npt + 63) // 64}; ++k) a.sc[k] = "
@@ -520,6 +551,8 @@ class _Builder:
             "  a.n = n;",
             "  a.flags = flags;",
             "  a.len_bytes = len_bytes;",
+            "  a.sel = sel;",
+            "  a.sel_bytes = sel_bytes;",
             "#ifdef __CUDACC__",
             "  if (n > 0)",
             f"    gt_plan_kernel_{s}<<<blocks, {THREADS}, 0, "
@@ -550,11 +583,17 @@ class _Builder:
                         f"{where:<16} {what}")
         return "\n".join(head + [
             "", PRELUDE.read_text().rstrip(), "",
-            "#define GT_AT(k) (((a.sc[(k) >> 6] >> ((k) & 63)) & 1) ? 0 : i)",
-            "#define GT_IN(T, k) (((const T*)a.p[k])[GT_AT(k)])",
+            "#define GT_AT(k, row) (((a.sc[(k) >> 6] >> ((k) & 63)) & 1) "
+            "? 0 : (row))",
+            "#define GT_IN(T, k, row) (((const T*)a.p[k])[GT_AT(k, row)])",
             "#define GT_OUT(T, k) (((T*)a.p[k])[i])",
-            "#define GT_VALID(k) (a.p[k] == nullptr || "
-            "((const bool*)a.p[k])[GT_AT(k)])",
+            "#define GT_VALID(k, row) (a.p[k] == nullptr || "
+            "((const bool*)a.p[k])[GT_AT(k, row)])",
+            "",
+            "GT_HD int64_t gt_index(const void* sel, int bytes, int64_t i) {",
+            "  return bytes == 4 ? (int64_t)((const uint32_t*)sel)[i] "
+            ": ((const int64_t*)sel)[i];",
+            "}",
             "",
             "GT_HD int64_t gt_length(const void* p, int bytes, int64_t n) {",
             "  if (p == nullptr) return n;",

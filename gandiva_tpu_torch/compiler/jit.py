@@ -1,10 +1,14 @@
 """Build, cache, load and launch the plan compiler's generated kernels.
 
 The card's route: a generated source (``codegen.generate``) is compiled by
-``nvcc`` (``ops/kernels/build.nvcc()``) for ``sm_90a`` with ``--fmad=false``
-(no contraction of ``a*b + c`` into one FMA: the eager route rounds the
-product first) and IEEE division and square root (nvcc's defaults; never
-``-use_fast_math``), into a shared library with a plain C interface,
+``nvcc`` (``ops/kernels/build.nvcc()``) for ``sm_90a`` with nvcc's
+defaults, as torch's own kernels are: IEEE division and square root (never
+``-use_fast_math``) and FMA contraction allowed, so the CUDA math functions
+(libdevice) compile as in torch's kernels and give their bits. The row
+body's own float products and sums go through the prelude's ``gt_fmul`` /
+``gt_fadd`` (round-to-nearest intrinsics nvcc never contracts), so a
+compiled ``a*b + c`` rounds the product first, as the eager route does.
+The result is a shared library with a plain C interface,
 loaded with ``ctypes``. Each stage's launcher takes the column pointers,
 copies them into one struct and passes it to the kernel by value, on the
 current torch stream.
@@ -35,7 +39,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 from .config import plan_cache_dir
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-O3", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 GXX_FLAGS = ["-O2", "-std=c++17", "-ffp-contract=off", "-shared", "-fPIC"]
 SUFFIX = {"cuda": ".cu", "host": ".cpp"}
@@ -115,7 +119,7 @@ class Library:
 
     _ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
              ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int,
-             ctypes.c_void_p]
+             ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
 
     def __init__(self, path: Path, backend: str):
         self.path = path
@@ -137,15 +141,16 @@ class Library:
 
     def run(self, stage: int, pointers: Sequence[int], scalar: Sequence[bool],
             len_ptr: Optional[int], len_bytes: int, length: int, n: int,
-            flags: Optional[int], blocks: int, stream: Optional[int]) -> None:
+            sel: Optional[int], sel_bytes: int, flags: Optional[int],
+            blocks: int, stream: Optional[int]) -> None:
         words = [0] * max(1, -(-len(pointers) // 64))
         for k, s in enumerate(scalar):
             if s:
                 words[k >> 6] |= 1 << (k & 63)
         ptrs = (ctypes.c_void_p * max(1, len(pointers)))(*pointers)
         sc = (ctypes.c_uint64 * len(words))(*words)
-        rc = self._fn(stage)(ptrs, sc, len_ptr, len_bytes, length, n, flags,
-                             blocks, stream)
+        rc = self._fn(stage)(ptrs, sc, len_ptr, len_bytes, length, n, sel,
+                             sel_bytes, flags, blocks, stream)
         if rc != 0:
             raise RuntimeError(f"plan kernel {stage} of {self.path.name} "
                                f"failed to launch: CUDA error {rc}")

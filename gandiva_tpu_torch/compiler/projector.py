@@ -172,11 +172,13 @@ class _CompiledPlan:
                          if self._program.kernels else None)
 
     # ---- the compiled route ------------------------------------------------
-    def _run_program(self, ctx: TraceContext) -> List[Val]:
+    def _run_program(self, ctx: TraceContext, selection=None) -> List[Val]:
         """Evaluate the roots on the compiled route: each stage's eager
         nodes, children first, then its kernel; returns the roots' Vals.
         Error sites, the kernel's and the eager nodes', are put in the
-        decomposer's post-order, the order the eager route records them."""
+        decomposer's post-order, the order the eager route records them.
+        ``selection``: (the batch's columns, the selected rows' indices),
+        which the kernels read their fields through."""
         prog = self._program
         dec = _KeyedDecomposer(ctx)
         sites = []
@@ -192,7 +194,7 @@ class _CompiledPlan:
                            ctx.error_messages[j])
                           for j in range(n0, len(ctx.error_flags))]
             if stage.launches:
-                self._launch(stage, ctx, dec.known, flags)
+                self._launch(stage, ctx, dec.known, flags, selection)
         outs = [dec.decompose_at((i,), root)
                 for i, root in enumerate(self._roots)]
         if flags is not None:
@@ -207,13 +209,15 @@ class _CompiledPlan:
         return outs
 
     def _launch(self, stage: codegen.Stage, ctx: TraceContext, known,
-                flags) -> None:
+                flags, selection=None) -> None:
         """One stage's kernel over the plan's columns and ``known`` Vals;
-        its outputs join ``known``."""
+        its outputs join ``known``. Over a ``selection`` the kernel reads
+        each field at the selected rows of the batch's column."""
         cap, dev = ctx.capacity, ctx.device
         keep, ptrs, scalar = [], [], []
+        sides = {}           # a distinct operand's bytes moved, by side
 
-        def operand(t, dtype):
+        def operand(t, dtype, side="read", rows=None):
             if t is None:
                 ptrs.append(None)
                 scalar.append(False)
@@ -225,24 +229,32 @@ class _CompiledPlan:
             keep.append(t)
             ptrs.append(t.data_ptr())
             scalar.append(s)
+            n = t.numel() if rows is None else min(rows, t.numel())
+            sides.setdefault(t.data_ptr(), (side, n * t.element_size()))
 
         for port in stage.inputs:
             kind, ref = port.ref
-            v = ctx.columns[ref] if kind == "field" else known[ref]
+            if kind == "node":
+                v = known[ref]
+            elif selection is not None:
+                v = Val(*selection[0][ref], port.dtype)
+            else:
+                v = ctx.columns[ref]
             limbs = v.value if isinstance(v.value, tuple) else (v.value,)
             store = torch.int64 if port.dtype.is_decimal else \
                 torch_dtype(port.dtype)
             if not port.hi_read:             # a decimal used mod 2^64
                 limbs = (None, limbs[1])
+            # over a selection a field's cap selected rows are read
+            rows = cap if selection is not None and kind == "field" else None
             for limb in limbs:
-                operand(limb, store)
-            operand(v.validity, torch.bool)
-        n_in = len(keep)
+                operand(limb, store, rows=rows)
+            operand(v.validity, torch.bool, rows=rows)
         for port in stage.outputs:
             if port.mask:
                 mask = torch.empty(cap, dtype=torch.bool, device=dev)
                 known[port.ref[1]] = Val(mask, None, dt.bool_)
-                operand(mask, torch.bool)
+                operand(mask, torch.bool, "written")
                 continue
             t = port.dtype
             store = torch.int64 if t.is_decimal else torch_dtype(t)
@@ -252,19 +264,31 @@ class _CompiledPlan:
             known[port.ref[1]] = Val(tuple(limbs) if t.is_decimal
                                      else limbs[0], valid, t)
             for limb in limbs:
-                operand(limb, store)
-            operand(valid, torch.bool)
+                operand(limb, store, "written")
+            operand(valid, torch.bool, "written")
         length = ctx.length
         len_ptr, len_bytes = None, 8
         if isinstance(length, torch.Tensor):
             if length.dtype not in (torch.int32, torch.int64):
                 length = length.to(torch.int64)
             keep.append(length)
+            sides.setdefault(length.data_ptr(),
+                             ("read", length.element_size()))
             len_ptr, len_bytes, length = (length.data_ptr(),
                                           length.element_size(), 0)
+        sel, sel_bytes = None, 0
+        if selection is not None:
+            index = selection[1].contiguous()
+            if index.dtype not in (torch.int32, torch.int64):
+                index = index.to(torch.int64)
+            keep.append(index)
+            sides.setdefault(index.data_ptr(),
+                             ("read", index.numel() * index.element_size()))
+            sel, sel_bytes = index.data_ptr(), index.element_size()
         cuda = dev.type == "cuda"
         args = (stage.index, ptrs, scalar, len_ptr, len_bytes, int(length),
-                cap, None if flags is None else flags.data_ptr())
+                cap, sel, sel_bytes,
+                None if flags is None else flags.data_ptr())
         if cuda:
             blocks = min(-(-cap // codegen.THREADS), 16 * torch.cuda
                          .get_device_properties(dev).multi_processor_count)
@@ -275,14 +299,8 @@ class _CompiledPlan:
         else:
             self._library.run(*args, 0, None)
         if self._bytes is not None:         # each distinct operand once
-            seen = set()
-            for i, t in enumerate(keep):
-                if t.data_ptr() in seen:
-                    continue
-                seen.add(t.data_ptr())
-                side = "read" if i < n_in else "written"
-                self._bytes[f"plan bytes {side}"] += \
-                    t.numel() * t.element_size()
+            for side, nbytes in sides.values():
+                self._bytes[f"plan bytes {side}"] += nbytes
 
     # ---- evaluation ----------------------------------------------------
     def _make_vals(self, cols) -> Dict[str, Val]:
@@ -335,12 +353,16 @@ class _CompiledPlan:
 
     def _run(self, cols, length, seed: int,
              finish: Optional[Callable] = None,
-             batch: Optional[Batch] = None):
+             batch: Optional[Batch] = None, selection=None):
         """Evaluate every root over ``cols`` ({name: (data, validity)});
         ``length`` is a Python int or a 0-d device tensor; a decimal
         column's data is its (hi, lo) limb pair. ``batch`` is the Batch the
-        host tables are built from (string plans need it)."""
-        capacity = int(_limbs(next(iter(cols.values()))[0])[0].shape[0])
+        host tables are built from (string plans need it). ``selection``
+        (compiled route only): (the batch's columns, the selected rows'
+        indices), which the kernels read their fields through; ``cols``
+        then holds the gathered columns the eager nodes read."""
+        capacity = (int(selection[1].shape[0]) if selection is not None else
+                    int(_limbs(next(iter(cols.values()))[0])[0].shape[0]))
         ctx = TraceContext(capacity, length, {}, self.device, seed=seed,
                            check_errors=self.config.raise_errors,
                            consts=self._consts, batch=batch,
@@ -348,7 +370,7 @@ class _CompiledPlan:
                            else self._tables_for(batch))
         ctx.columns = self._make_vals(cols)
         if self._program is not None:
-            outs = self._run_program(ctx)
+            outs = self._run_program(ctx, selection)
         else:
             dec = ExprDecomposer(ctx)
             outs = [dec.decompose(r) for r in self._roots]
@@ -364,20 +386,31 @@ class _CompiledPlan:
     def _run_selected(self, cols, seed: int, sel_indices, sel_count,
                       finish: Optional[Callable] = None,
                       batch: Optional[Batch] = None):
-        """Selection-vector-aware evaluation: gather the selected rows first,
-        then evaluate on the gathered batch (reference behavior:
-        test_gandiva.py:358-373 — output has len(selection) rows). String
-        codes are gathered; their dictionaries stay ``batch``'s."""
-        cap = sel_indices.shape[0]
-        row_ok = torch.arange(cap, device=self.device) < sel_count
-        # the tail past count is unspecified: point it at row 0
-        idx = torch.where(row_ok, sel_indices, torch.zeros_like(sel_indices))
+        """Selection-vector-aware evaluation (reference behavior:
+        test_gandiva.py:358-373 — output has len(selection) rows): the
+        selected rows are gathered, then evaluated; rows past the count
+        are null. The compiled route gathers only the columns a root is or
+        an eager node reads (as ``jax.jit`` fuses the gather into the
+        reference's program); its kernels read the rest at the selected
+        rows themselves. String codes are gathered; their dictionaries
+        stay ``batch``'s."""
+        prog = self._program
+        names = cols if prog is None else [n for n in prog.eager_fields
+                                          if n in cols]
         gathered = {}
-        for name, (data, validity) in cols.items():
-            g = tuple(d.index_select(0, idx) for d in _limbs(data))
-            gathered[name] = (g if isinstance(data, tuple) else g[0],
-                              validity.index_select(0, idx) & row_ok)
-        return self._run(gathered, sel_count, seed, finish, batch)
+        if names:
+            cap = sel_indices.shape[0]
+            row_ok = torch.arange(cap, device=self.device) < sel_count
+            # the tail past count is unspecified: point it at row 0
+            idx = torch.where(row_ok, sel_indices,
+                              torch.zeros_like(sel_indices))
+            for name in names:
+                data, validity = cols[name]
+                g = tuple(d.index_select(0, idx) for d in _limbs(data))
+                gathered[name] = (g if isinstance(data, tuple) else g[0],
+                                  validity.index_select(0, idx) & row_ok)
+        return self._run(gathered, sel_count, seed, finish, batch,
+                         None if prog is None else (cols, sel_indices))
 
     def _cols_of(self, batch: Batch):
         if batch.columns and batch.device != self.device:

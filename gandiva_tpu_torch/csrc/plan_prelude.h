@@ -2,9 +2,14 @@
 // this file at the head of each generated source).
 //
 // A generated source builds two ways: with nvcc for sm_90a (the card's
-// route; --fmad=false, IEEE division and square root) and with g++
-// -ffp-contract=off for the host (the tests' route). The per-row body is
-// a __host__ __device__ function, so both builds run the same arithmetic.
+// route; nvcc's defaults, as torch's own kernels are built: IEEE division
+// and square root, and contraction into FMAs allowed, so a CUDA math
+// function compiles as in torch's kernel) and with g++ -ffp-contract=off
+// for the host (the tests' route). The per-row body is a __host__
+// __device__ function, so both builds run the same arithmetic. Every float
+// product and sum of the body goes through gt_fmul / gt_fadd / gt_fsub,
+// which nvcc never contracts: each rounds by itself, as the eager route's
+// separate torch kernels round them.
 //
 // Each helper repeats, operation for operation, what the eager torch route
 // of the registry computes (registry/numeric.py, cast.py, decimal_ops.py,
@@ -50,16 +55,43 @@ template <class T>
 using gt_uw = typename std::conditional<
     (sizeof(T) < 4), uint32_t, typename std::make_unsigned<T>::type>::type;
 
+// float product, sum and difference rounded each by itself (the device's
+// _rn intrinsics are never merged into an FMA)
+template <class F> GT_HD F gt_fmul(F a, F b) {
+#ifdef __CUDA_ARCH__
+  if constexpr (std::is_same<F, float>::value) return __fmul_rn(a, b);
+  else return __dmul_rn(a, b);
+#else
+  return a * b;
+#endif
+}
+template <class F> GT_HD F gt_fadd(F a, F b) {
+#ifdef __CUDA_ARCH__
+  if constexpr (std::is_same<F, float>::value) return __fadd_rn(a, b);
+  else return __dadd_rn(a, b);
+#else
+  return a + b;
+#endif
+}
+template <class F> GT_HD F gt_fsub(F a, F b) {
+#ifdef __CUDA_ARCH__
+  if constexpr (std::is_same<F, float>::value) return __fsub_rn(a, b);
+  else return __dsub_rn(a, b);
+#else
+  return a - b;
+#endif
+}
+
 template <class T> GT_HD T gt_add(T a, T b) {
-  if constexpr (std::is_floating_point<T>::value) return a + b;
+  if constexpr (std::is_floating_point<T>::value) return gt_fadd(a, b);
   else return (T)((gt_uw<T>)a + (gt_uw<T>)b);
 }
 template <class T> GT_HD T gt_sub(T a, T b) {
-  if constexpr (std::is_floating_point<T>::value) return a - b;
+  if constexpr (std::is_floating_point<T>::value) return gt_fsub(a, b);
   else return (T)((gt_uw<T>)a - (gt_uw<T>)b);
 }
 template <class T> GT_HD T gt_mul(T a, T b) {
-  if constexpr (std::is_floating_point<T>::value) return a * b;
+  if constexpr (std::is_floating_point<T>::value) return gt_fmul(a, b);
   else return (T)((gt_uw<T>)a * (gt_uw<T>)b);
 }
 template <class T> GT_HD T gt_neg(T a) {
@@ -123,7 +155,7 @@ template <class T> GT_HD T gt_shr(T a, T b) {
 template <class F, class T> GT_HD F gt_to_float(T x) {
   if constexpr (std::is_same<T, uint64_t>::value) {
     const int64_t s = (int64_t)x;
-    if (s < 0) return (F)(int64_t)((x >> 1) | (x & 1)) * (F)2;
+    if (s < 0) return gt_fmul((F)(int64_t)((x >> 1) | (x & 1)), (F)2);
     return (F)s;
   } else {
     return (F)x;
@@ -133,11 +165,25 @@ template <class F> GT_HD F gt_floor(F x) {
   if constexpr (std::is_same<F, float>::value) return floorf(x);
   else return floor(x);
 }
-// round half away from zero in x's own type: sign(x) * floor(|x| + 0.5),
-// with ±0 and NaN keeping themselves as their sign
+template <class F> GT_HD F gt_ceil(F x) {
+  if constexpr (std::is_same<F, float>::value) return ceilf(x);
+  else return ceil(x);
+}
+template <class F> GT_HD F gt_trunc(F x) {
+  if constexpr (std::is_same<F, float>::value) return truncf(x);
+  else return trunc(x);
+}
+// the sign of a float, with ±0 and NaN mapped to themselves
+template <class F> GT_HD F gt_fsign(F x) {
+  return (x == 0 || x != x) ? x : (x > 0 ? (F)1 : (F)-1);
+}
+// round half away from zero in x's own type: sign(x) * floor(|x| + 0.5)
 template <class F> GT_HD F gt_round_half_away(F x) {
-  const F s = (x == 0 || x != x) ? x : (x > 0 ? (F)1 : (F)-1);
-  return s * gt_floor(gt_abs(x) + (F)0.5);
+  return gt_fmul(gt_fsign(x), gt_floor(gt_fadd(gt_abs(x), (F)0.5)));
+}
+// NaN or ±inf
+GT_HD bool gt_nonfinite(double x) {
+  return !(fabs(x) <= 1.7976931348623157e308);
 }
 // float -> integer T: truncate toward zero, saturate, NaN -> 0
 template <class T, class F> GT_HD T gt_float_to_int(F x) {
@@ -269,6 +315,265 @@ GT_HD gt_i128 gt_dec_mod(gt_i128 a, gt_i128 b) {
   gt_i128 q, r;
   gt_divmod128(a, b, &q, &r);
   return r;
+}
+
+// x's magnitude below 10^k (p = 10^k) as a signed compare: -2^127, whose
+// magnitude reads negative, passes, as the limb route's cmp128 lets it
+GT_HD bool gt_dec_fits(gt_i128 x, gt_u128 p) {
+  return gt_i128_abs(x) < (gt_i128)p;
+}
+// int128 -> float64 as utils/int128.to_float64: the magnitude's words
+// (hi, lo), each as an unsigned value with one rounding, hi * 2^64 + lo
+GT_HD double gt_dec_to_f64(gt_i128 x) {
+  const gt_u128 a = (gt_u128)gt_i128_abs(x);
+  const double f = gt_fadd(
+      gt_fmul(gt_to_float<double, uint64_t>((uint64_t)(a >> 64)),
+              18446744073709551616.0),
+      gt_to_float<double, uint64_t>((uint64_t)a));
+  return x < 0 ? -f : f;
+}
+// the decimal round family to k fewer digits (p = 10^k, k > 0), as
+// decimal_ops._round_family: kind 0 round (half away from zero), 1
+// truncate, 2 ceiling, 3 floor
+GT_HD gt_i128 gt_dec_round(gt_i128 x, gt_u128 p, int kind) {
+  if (kind == 0) return gt_div_pow10_round(x, p);
+  gt_i128 q, r;
+  gt_divmod128(x, (gt_i128)p, &q, &r);
+  if (kind == 2 && r != 0 && !(x < 0)) return gt_i128_add(q, 1);
+  if (kind == 3 && r != 0 && x < 0) return gt_i128_sub(q, 1);
+  return q;
+}
+
+// -- floor division: torch's // and % on integer tensors -------------------
+// a // b and a % b rounding toward -inf (the remainder takes b's sign);
+// b != 0, and MIN // -1 wraps as torch does
+GT_HD int64_t gt_floordiv_i64(int64_t a, int64_t b) {
+  if (b == -1) return gt_neg(a);
+  const int64_t q = a / b;
+  return (a % b != 0 && ((a < 0) != (b < 0))) ? q - 1 : q;
+}
+GT_HD int64_t gt_floormod_i64(int64_t a, int64_t b) {
+  if (b == -1) return 0;
+  const int64_t r = a % b;
+  return (r != 0 && ((r < 0) != (b < 0))) ? r + b : r;
+}
+
+// -- the civil calendar (registry/datetime_ops.py) ---------------------------
+// Howard Hinnant's days <-> (year, month, day), in int64 with torch's
+// floor division and wrapping add, subtract and multiply, operation for
+// operation as the eager route runs them on whole columns
+#define GT_MS_PER_DAY ((int64_t)86400000)
+GT_HD void gt_civil_from_days(int64_t days, int64_t* year, int64_t* month,
+                              int64_t* day) {
+  const int64_t z = gt_add<int64_t>(days, 719468);
+  const int64_t era = gt_floordiv_i64(z, 146097);
+  const int64_t doe = gt_sub<int64_t>(z, gt_mul<int64_t>(era, 146097));
+  const int64_t yoe = gt_floordiv_i64(
+      doe - gt_floordiv_i64(doe, 1460) + gt_floordiv_i64(doe, 36524) -
+          gt_floordiv_i64(doe, 146096), 365);
+  const int64_t y = gt_add<int64_t>(yoe, gt_mul<int64_t>(era, 400));
+  const int64_t doy = doe - (365 * yoe + gt_floordiv_i64(yoe, 4) -
+                             gt_floordiv_i64(yoe, 100));
+  const int64_t mp = gt_floordiv_i64(5 * doy + 2, 153);
+  *day = doy - gt_floordiv_i64(153 * mp + 2, 5) + 1;
+  *month = mp < 10 ? mp + 3 : mp - 9;
+  *year = gt_add<int64_t>(y, *month <= 2 ? 1 : 0);
+}
+// one part of the civil date: 0 the year, 1 the month, 2 the day
+GT_HD int64_t gt_civil(int64_t days, int part) {
+  int64_t y, m, d;
+  gt_civil_from_days(days, &y, &m, &d);
+  return part == 0 ? y : part == 1 ? m : d;
+}
+GT_HD int64_t gt_year_of(int64_t days) { return gt_civil(days, 0); }
+GT_HD int64_t gt_days_from_civil(int64_t year, int64_t m, int64_t d) {
+  const int64_t y = gt_sub<int64_t>(year, m <= 2 ? 1 : 0);
+  const int64_t era = gt_floordiv_i64(y, 400);
+  const int64_t yoe = gt_sub<int64_t>(y, gt_mul<int64_t>(era, 400));
+  const int64_t mp = m > 2 ? m - 3 : m + 9;
+  const int64_t doy = gt_floordiv_i64(153 * mp + 2, 5) + d - 1;
+  const int64_t doe = gt_add<int64_t>(
+      gt_sub<int64_t>(gt_add<int64_t>(gt_mul<int64_t>(yoe, 365),
+                                      gt_floordiv_i64(yoe, 4)),
+                      gt_floordiv_i64(yoe, 100)), doy);
+  return gt_sub<int64_t>(gt_add<int64_t>(gt_mul<int64_t>(era, 146097), doe),
+                         719468);
+}
+GT_HD bool gt_is_leap(int64_t y) {
+  return gt_floormod_i64(y, 4) == 0 &&
+         (gt_floormod_i64(y, 100) != 0 || gt_floormod_i64(y, 400) == 0);
+}
+// the non-leap month lengths as two bits a month of one constant, plus
+// February's leap day; m in 1..12
+GT_HD int64_t gt_days_in_month(int64_t y, int64_t m) {
+  const int64_t d = 28 + ((0x3BBEECC >> (2 * m)) & 3);
+  return (m == 2 && gt_is_leap(y)) ? 29 : d;
+}
+// SQL's day of week, 1 = Sunday (1970-01-01 was a Thursday), and ISO's,
+// 1 = Monday
+GT_HD int64_t gt_dow(int64_t days) {
+  return gt_floormod_i64(gt_add<int64_t>(days, 4), 7) + 1;
+}
+GT_HD int64_t gt_iso_dow(int64_t days) {
+  return gt_floormod_i64(gt_add<int64_t>(days, 3), 7) + 1;
+}
+GT_HD int64_t gt_doy(int64_t days) {
+  const int64_t first = gt_days_from_civil(gt_year_of(days), 1, 1);
+  return gt_add<int64_t>(gt_sub<int64_t>(days, first), 1);
+}
+GT_HD int64_t gt_weeks_in_iso_year(int64_t y) {
+  const int64_t p = gt_floormod_i64(
+      y + gt_floordiv_i64(y, 4) - gt_floordiv_i64(y, 100) +
+          gt_floordiv_i64(y, 400), 7);
+  const int64_t py = y - 1;
+  const int64_t pp = gt_floormod_i64(
+      py + gt_floordiv_i64(py, 4) - gt_floordiv_i64(py, 100) +
+          gt_floordiv_i64(py, 400), 7);
+  return 52 + ((p == 4 || pp == 3) ? 1 : 0);
+}
+// ISO-8601 week number
+GT_HD int64_t gt_iso_week(int64_t days) {
+  const int64_t y = gt_year_of(days);
+  const int64_t w0 = gt_floordiv_i64(gt_doy(days) - gt_iso_dow(days) + 10, 7);
+  if (w0 < 1) return gt_weeks_in_iso_year(y - 1);
+  return w0 > gt_weeks_in_iso_year(y) ? 1 : w0;
+}
+// date_trunc to a unit of days: 0 year, 1 quarter, 2 month, 3 week (to
+// Monday), 4 decade, 5 century, 6 millennium
+GT_HD int64_t gt_trunc_days(int64_t days, int unit) {
+  int64_t y, m, d;
+  gt_civil_from_days(days, &y, &m, &d);
+  switch (unit) {
+    case 0: return gt_days_from_civil(y, 1, 1);
+    case 1: return gt_days_from_civil(y, gt_floordiv_i64(m - 1, 3) * 3 + 1, 1);
+    case 2: return gt_days_from_civil(y, m, 1);
+    case 3: return gt_sub<int64_t>(days, gt_iso_dow(days) - 1);
+    case 4: return gt_days_from_civil(gt_floordiv_i64(y, 10) * 10, 1, 1);
+    case 5:
+      return gt_days_from_civil(gt_floordiv_i64(y + 99, 100) * 100 - 99, 1, 1);
+    default:
+      return gt_days_from_civil(gt_floordiv_i64(y + 999, 1000) * 1000 - 999,
+                                1, 1);
+  }
+}
+// the date `months` months on, its day clamped to the month's last
+GT_HD int64_t gt_add_months_days(int64_t days, int64_t months) {
+  int64_t y, m, d;
+  gt_civil_from_days(days, &y, &m, &d);
+  const int64_t tot = gt_add<int64_t>(
+      gt_add<int64_t>(gt_mul<int64_t>(y, 12), m - 1), months);
+  const int64_t ny = gt_floordiv_i64(tot, 12);
+  const int64_t nm = gt_floormod_i64(tot, 12) + 1;
+  const int64_t dim = gt_days_in_month(ny, nm);
+  return gt_days_from_civil(ny, nm, d < dim ? d : dim);
+}
+GT_HD int64_t gt_ts_plus_months(int64_t ms, int64_t months) {
+  const int64_t day = gt_floordiv_i64(ms, GT_MS_PER_DAY);
+  const int64_t time = gt_sub<int64_t>(ms, gt_mul<int64_t>(day, GT_MS_PER_DAY));
+  return gt_add<int64_t>(
+      gt_mul<int64_t>(gt_add_months_days(day, months), GT_MS_PER_DAY), time);
+}
+// months_between(ms1, ms2): r1 = 1 / 86,400,000 and r31 = 1 / 31, the
+// reciprocals the eager route multiplies by
+GT_HD double gt_months_between(int64_t ms1, int64_t ms2, double r1,
+                               double r31) {
+  const int64_t d1 = gt_floordiv_i64(ms1, GT_MS_PER_DAY);
+  const int64_t d2 = gt_floordiv_i64(ms2, GT_MS_PER_DAY);
+  int64_t y1, m1, dd1, y2, m2, dd2;
+  gt_civil_from_days(d1, &y1, &m1, &dd1);
+  gt_civil_from_days(d2, &y2, &m2, &dd2);
+  const double months = (double)gt_add<int64_t>(
+      gt_mul<int64_t>(gt_sub<int64_t>(y1, y2), 12), m1 - m2);
+  if (dd1 == gt_days_in_month(y1, m1) && dd2 == gt_days_in_month(y2, m2))
+    return months;
+  const int64_t t1 = gt_sub<int64_t>(ms1, gt_mul<int64_t>(d1, GT_MS_PER_DAY));
+  const int64_t t2 = gt_sub<int64_t>(ms2, gt_mul<int64_t>(d2, GT_MS_PER_DAY));
+  const double frac = gt_fmul(
+      gt_fadd((double)(dd1 - dd2),
+              gt_fmul((double)gt_sub<int64_t>(t1, t2), r1)), r31);
+  return gt_fadd(months, frac);
+}
+// timestampdiff in months, truncated toward zero on a partial month, then
+// floor-divided by `per` (1, 3 or 12)
+GT_HD int64_t gt_timestampdiff_months(int64_t t1, int64_t t2, int64_t per) {
+  const int64_t d1 = gt_floordiv_i64(t1, GT_MS_PER_DAY);
+  const int64_t d2 = gt_floordiv_i64(t2, GT_MS_PER_DAY);
+  int64_t y1, m1, dd1, y2, m2, dd2;
+  gt_civil_from_days(d1, &y1, &m1, &dd1);
+  gt_civil_from_days(d2, &y2, &m2, &dd2);
+  const int64_t months = gt_add<int64_t>(
+      gt_mul<int64_t>(gt_sub<int64_t>(y2, y1), 12), m2 - m1);
+  const int64_t p1 = gt_add<int64_t>(
+      dd1 * GT_MS_PER_DAY,
+      gt_sub<int64_t>(t1, gt_mul<int64_t>(d1, GT_MS_PER_DAY)));
+  const int64_t p2 = gt_add<int64_t>(
+      dd2 * GT_MS_PER_DAY,
+      gt_sub<int64_t>(t2, gt_mul<int64_t>(d2, GT_MS_PER_DAY)));
+  const int64_t adj = (months > 0 && p2 < p1) ? -1
+                      : (months < 0 && p2 > p1) ? 1 : 0;
+  return gt_floordiv_i64(gt_add<int64_t>(months, adj), per);
+}
+// timestampdiff in a unit of `unit` ms: sign(t2 - t1) * (|t2 - t1| // unit)
+GT_HD int64_t gt_timestampdiff_fixed(int64_t t1, int64_t t2, int64_t unit) {
+  const int64_t diff = gt_sub<int64_t>(t2, t1);
+  const int64_t s = (diff > 0) - (diff < 0);
+  return gt_mul<int64_t>(s, gt_floordiv_i64(gt_abs(diff), unit));
+}
+GT_HD int64_t gt_last_day_days(int64_t days) {
+  int64_t y, m, d;
+  gt_civil_from_days(days, &y, &m, &d);
+  return gt_days_from_civil(y, m, gt_days_in_month(y, m));
+}
+// an interval_day ((days << 32) | millis) as milliseconds
+GT_HD int64_t gt_interval_day_ms(int64_t v) {
+  return gt_add<int64_t>(gt_mul<int64_t>(v >> 32, GT_MS_PER_DAY),
+                         v & (int64_t)0xFFFFFFFF);
+}
+GT_HD int64_t gt_interval_day_of_ms(int64_t ms) {
+  const int64_t days = gt_floordiv_i64(ms, GT_MS_PER_DAY);
+  return (int64_t)((uint64_t)days << 32) |
+         gt_sub<int64_t>(ms, gt_mul<int64_t>(days, GT_MS_PER_DAY));
+}
+
+// -- hashes (utils/hashing.py) -------------------------------------------------
+// the murmur3 fmix32 finalizer and a boost-style chainable combine, in
+// uint32 arithmetic (the eager route's int64 lanes masked to 32 bits)
+GT_HD uint32_t gt_fmix32(uint32_t h) {
+  h ^= h >> 16;
+  h *= 0x85EBCA6Bu;
+  h ^= h >> 13;
+  h *= 0xC2B2AE35u;
+  return h ^ (h >> 16);
+}
+GT_HD uint32_t gt_combine(uint32_t seed, uint32_t v) {
+  return seed ^ (gt_fmix32(v) + 0x9E3779B9u + (seed << 6) + (seed >> 2));
+}
+// a value as the 32-bit lanes the hash chains: one lane of 32 bits or
+// fewer (signed types sign-extend, unsigned ones and bool zero-extend), a
+// 64-bit value as (lo, hi); floats by their bits with -0.0 taken as +0.0
+// (NaN keeps its bits)
+template <class T> GT_HD uint32_t gt_hash32(T x, uint32_t seed) {
+  if constexpr (std::is_floating_point<T>::value) {
+    if (x == 0) x = 0;
+  }
+  if constexpr (sizeof(T) == 8) {
+    uint64_t b;
+    memcpy(&b, &x, 8);
+    return gt_combine(gt_combine(seed, (uint32_t)b), (uint32_t)(b >> 32));
+  } else if constexpr (std::is_same<T, float>::value) {
+    uint32_t b;
+    memcpy(&b, &x, 4);
+    return gt_combine(seed, b);
+  } else {
+    return gt_combine(seed, (uint32_t)x);
+  }
+}
+// two independent 32-bit chains: the seed's low word, and its high word
+// xor 0xDEADBEEF
+template <class T> GT_HD uint64_t gt_hash64(T x, uint64_t seed) {
+  const uint32_t lo = gt_hash32(x, (uint32_t)seed);
+  const uint32_t hi = gt_hash32(x, (uint32_t)(seed >> 32) ^ 0xDEADBEEFu);
+  return ((uint64_t)hi << 32) | lo;
 }
 
 // -- runtime errors ------------------------------------------------------------

@@ -193,7 +193,8 @@ def distributed_step(mesh, shuffle_capacity: int, num_groups: int = 64):
 
 
 # ---------------------------------------------------------------------------
-# TPC-H LINEITEM scans (TPC-H v3.0.1: Q1 §2.4.1, Q6 §2.4.6, LINEITEM §4.2.3)
+# TPC-H LINEITEM scans (TPC-H v3.0.1: Q1 §2.4.1, Q6 §2.4.6, Q7 §2.4.7,
+# LINEITEM §4.2.3)
 # ---------------------------------------------------------------------------
 
 LINEITEM_SF10_ROWS = 59_986_052          # LINEITEM's row count at SF10
@@ -203,6 +204,7 @@ Q1_SHIPDATE = 10561                      # date '1998-12-01'
 Q1_DELTA = 90                            # Q1's substitution parameter DELTA
 Q6_FROM, Q6_TO = 8766, 9131              # date '1994-01-01', '1995-01-01'
 Q12_FROM, Q12_TO = 8766, 9131            # Q12's DATE = 1994-01-01, + 1 year
+Q7_FROM, Q7_TO = 9131, 9861              # date '1995-01-01', '1996-12-31'
 ORDERDATE_FIRST, ORDERDATE_LAST = 8035, 10440   # 1992-01-01, 1998-08-02
 CURRENTDATE = 9298                       # 1995-06-17 (§4.2.2.12)
 DATE_COLUMNS = ("l_shipdate", "l_commitdate", "l_receiptdate")
@@ -295,6 +297,30 @@ def tpch_q6_scan(device=DEFAULT_DEVICE) -> FilterProject:
         schema, cond, [B.make_expression(revenue,
                                          dt.Field("revenue", revenue.dtype))],
         device=device)
+
+
+def tpch_q7_scan(device=DEFAULT_DEVICE) -> FilterProject:
+    """Q7's LINEITEM scan (§2.4.7): ``l_shipdate between date '1995-01-01'
+    and date '1996-12-31'``; project ``l_year = extract(year from
+    l_shipdate)`` and ``volume = l_extendedprice * (1 - l_discount)``. The
+    joins to SUPPLIER, ORDERS, CUSTOMER and NATION are not part of the
+    scan."""
+    schema = lineitem_schema()
+    f = {n.name: B.make_field(n) for n in schema}
+    cond = B.make_condition(B.make_and([
+        _call("greater_than_or_equal_to",
+              [f["l_shipdate"], B.make_literal(Q7_FROM, dt.date32)],
+              dt.bool_),
+        _call("less_than_or_equal_to",
+              [f["l_shipdate"], B.make_literal(Q7_TO, dt.date32)],
+              dt.bool_)]))
+    l_year = _call("extractYear", [f["l_shipdate"]], dt.int64)
+    volume = _call("multiply", [
+        f["l_extendedprice"],
+        _call("subtract", [_dec("1", 1, 0), f["l_discount"]], None)], None)
+    exprs = [B.make_expression(node, dt.Field(name, node.dtype))
+             for name, node in (("l_year", l_year), ("volume", volume))]
+    return FilterProject.make(schema, cond, exprs, device=device)
 
 
 def tpch_q12_scan(device=DEFAULT_DEVICE) -> FilterProject:

@@ -18,6 +18,12 @@ Hinnant's public-domain algorithms, as pure integer torch ops: torch's
 ``//`` and ``%`` floor on integer tensors, as the algorithms need for
 pre-epoch dates. Torch keeps an int32 tensor int32 when it is multiplied by
 a Python int, so every date32 value widens to int64 before a multiply.
+
+Every fixed-width entry also has an emitter for the plan compiler
+(compiler/codegen.py): the same steps in C++ on csrc/plan_prelude.h's
+calendar helpers, whose floor division and wrapping int64 arithmetic give
+torch's bits (C's ``/`` and ``%`` truncate, and its signed overflow is
+undefined).
 """
 from __future__ import annotations
 
@@ -40,6 +46,52 @@ DATE_TYPES = [dt.date32, dt.date64, dt.timestamp]
 
 def _i64(x):
     return x.to(torch.int64)
+
+
+# -- emitters: C++ text of one row (compiler/codegen.py's protocol) ---------
+
+def _c_i64(a) -> str:
+    """An argument's value as int64 (a date32 or int32 widened)."""
+    return f"((int64_t){a.v})"
+
+
+def _c_days(a) -> str:
+    """``_to_days``: days since epoch, floored."""
+    if a.dtype.kind is dt.TypeKind.DATE32:
+        return _c_i64(a)
+    return f"gt_floordiv_i64({a.v}, GT_MS_PER_DAY)"
+
+
+def _c_millis(a) -> str:
+    """``_to_millis``."""
+    if a.dtype.kind is dt.TypeKind.DATE32:
+        return f"gt_mul<int64_t>({_c_i64(a)}, GT_MS_PER_DAY)"
+    return _c_i64(a)
+
+
+def _emit(f):
+    """An emitter from ``f(*args)`` → the C expression of the value."""
+    return lambda g, args, rt: f(*args)
+
+
+def _emit_days(f):
+    """An emitter for a function of days (``f`` of the C days expression)
+    whose result is days for a date32 and milliseconds otherwise, as
+    ``last_day`` and ``date_trunc_*`` return them."""
+    def emit(g, args, rt):
+        days = f(_c_days(args[0]))
+        if args[0].dtype.kind is dt.TypeKind.DATE32:
+            return f"(int32_t)({days})"
+        return f"gt_mul<int64_t>({days}, GT_MS_PER_DAY)"
+    return emit
+
+
+def _fd(x: str, d: int) -> str:
+    return f"gt_floordiv_i64({x}, (int64_t){d})"
+
+
+def _fm(x: str, d: int) -> str:
+    return f"gt_floormod_i64({x}, (int64_t){d})"
 
 
 # ---------------------------------------------------------------------------
@@ -151,48 +203,68 @@ def _extract_week(v):
                        torch.where(w0 > _weeks_in_iso_year(y), 1, w0))
 
 
+# each with its C counterpart over the days expression
 _DAY_EXTRACTORS = {
-    "extractYear": _extract_year,
-    "extractMonth": _extract_month,
-    "extractDay": _extract_day,
-    "extractQuarter": _extract_quarter,
-    "extractDoy": _extract_doy,
-    "extractDow": _extract_dow,
-    "extractWeek": _extract_week,
+    "extractYear": (_extract_year, lambda d: f"gt_civil({d}, 0)"),
+    "extractMonth": (_extract_month, lambda d: f"gt_civil({d}, 1)"),
+    "extractDay": (_extract_day, lambda d: f"gt_civil({d}, 2)"),
+    "extractQuarter": (_extract_quarter,
+                       lambda d: f"{_fd(f'gt_civil({d}, 1) - 1', 3)} + 1"),
+    "extractDoy": (_extract_doy, lambda d: f"gt_doy({d})"),
+    "extractDow": (_extract_dow, lambda d: f"gt_dow({d})"),
+    "extractWeek": (_extract_week, lambda d: f"gt_iso_week({d})"),
 }
 
-for _name, _f in _DAY_EXTRACTORS.items():
+for _name, (_f, _cf) in _DAY_EXTRACTORS.items():
     def _impl(ctx, args, _f=_f):
         return _i64(_f(_to_days(args[0])))
     for _t in DATE_TYPES:
-        _R.register(_name, [_t], dt.int64, _impl)
+        _R.register(_name, [_t], dt.int64, _impl,
+                    emit=_emit(lambda a, _cf=_cf: _cf(_c_days(a))))
 
 
-def _register_time_extract(name, f):
+def _register_time_extract(name, f, cf):
     def impl(ctx, args):
         return _i64(f(_to_millis(args[0])))
     for t in [dt.date64, dt.timestamp]:
-        _R.register(name, [t], dt.int64, impl)
+        _R.register(name, [t], dt.int64, impl,
+                    emit=_emit(lambda a: cf(_c_millis(a))))
 
 
-_register_time_extract("extractHour", lambda ms: (ms // MS_PER_HOUR) % 24)
-_register_time_extract("extractMinute", lambda ms: (ms // MS_PER_MINUTE) % 60)
-_register_time_extract("extractSecond", lambda ms: (ms // MS_PER_SECOND) % 60)
+def _c_year(ms: str) -> str:
+    return f"gt_civil({_fd(ms, MS_PER_DAY)}, 0)"
+
+
+_register_time_extract("extractHour", lambda ms: (ms // MS_PER_HOUR) % 24,
+                       lambda ms: _fm(_fd(ms, MS_PER_HOUR), 24))
+_register_time_extract("extractMinute", lambda ms: (ms // MS_PER_MINUTE) % 60,
+                       lambda ms: _fm(_fd(ms, MS_PER_MINUTE), 60))
+_register_time_extract("extractSecond", lambda ms: (ms // MS_PER_SECOND) % 60,
+                       lambda ms: _fm(_fd(ms, MS_PER_SECOND), 60))
 _register_time_extract("extractMillennium",
-                       lambda ms: (_extract_year(ms // MS_PER_DAY) + 999) // 1000)
+                       lambda ms: (_extract_year(ms // MS_PER_DAY) + 999) // 1000,
+                       lambda ms: _fd(f"{_c_year(ms)} + 999", 1000))
 _register_time_extract("extractCentury",
-                       lambda ms: (_extract_year(ms // MS_PER_DAY) + 99) // 100)
+                       lambda ms: (_extract_year(ms // MS_PER_DAY) + 99) // 100,
+                       lambda ms: _fd(f"{_c_year(ms)} + 99", 100))
 _register_time_extract("extractDecade",
-                       lambda ms: _extract_year(ms // MS_PER_DAY) // 10)
-_register_time_extract("extractEpoch", lambda ms: ms // MS_PER_SECOND)
+                       lambda ms: _extract_year(ms // MS_PER_DAY) // 10,
+                       lambda ms: _fd(_c_year(ms), 10))
+_register_time_extract("extractEpoch", lambda ms: ms // MS_PER_SECOND,
+                       lambda ms: _fd(ms, MS_PER_SECOND))
 
 # time32 (millis since midnight) hour/minute/second
-for _name, _f in [("extractHour", lambda v: v // MS_PER_HOUR),
-                  ("extractMinute", lambda v: (v // MS_PER_MINUTE) % 60),
-                  ("extractSecond", lambda v: (v // MS_PER_SECOND) % 60)]:
+for _name, _f, _cf in [
+        ("extractHour", lambda v: v // MS_PER_HOUR,
+         lambda v: _fd(v, MS_PER_HOUR)),
+        ("extractMinute", lambda v: (v // MS_PER_MINUTE) % 60,
+         lambda v: _fm(_fd(v, MS_PER_MINUTE), 60)),
+        ("extractSecond", lambda v: (v // MS_PER_SECOND) % 60,
+         lambda v: _fm(_fd(v, MS_PER_SECOND), 60))]:
     def _impl(ctx, args, _f=_f):
         return _f(_i64(args[0].value))
-    _R.register(_name, [dt.time32], dt.int64, _impl)
+    _R.register(_name, [dt.time32], dt.int64, _impl,
+                emit=_emit(lambda a, _cf=_cf: _cf(_c_i64(a))))
 
 
 # ---------------------------------------------------------------------------
@@ -223,8 +295,8 @@ def _trunc_to_days_fn(unit):
     return f
 
 
-for _unit in ["Year", "Quarter", "Month", "Week", "Decade", "Century",
-              "Millennium"]:
+for _k, _unit in enumerate(["Year", "Quarter", "Month", "Week", "Decade",
+                             "Century", "Millennium"]):
     _dayf = _trunc_to_days_fn(_unit)
 
     def _impl_ms(ctx, args, _dayf=_dayf):
@@ -234,9 +306,12 @@ for _unit in ["Year", "Quarter", "Month", "Week", "Decade", "Century",
     def _impl_d32(ctx, args, _dayf=_dayf):
         return _dayf(_i64(args[0].value)).to(torch.int32)
 
+    # gt_trunc_days numbers the units in this order
+    _em = _emit_days(lambda d, _k=_k: f"gt_trunc_days({d}, {_k})")
     for _t in [dt.date64, dt.timestamp]:
-        _R.register(f"date_trunc_{_unit}", [_t], _t, _impl_ms)
-    _R.register(f"date_trunc_{_unit}", [dt.date32], dt.date32, _impl_d32)
+        _R.register(f"date_trunc_{_unit}", [_t], _t, _impl_ms, emit=_em)
+    _R.register(f"date_trunc_{_unit}", [dt.date32], dt.date32, _impl_d32,
+                emit=_em)
 
 for _unit, _msq in [("Day", MS_PER_DAY), ("Hour", MS_PER_HOUR),
                     ("Minute", MS_PER_MINUTE), ("Second", MS_PER_SECOND)]:
@@ -244,7 +319,9 @@ for _unit, _msq in [("Day", MS_PER_DAY), ("Hour", MS_PER_HOUR),
         ms = _to_millis(args[0])
         return (ms // _msq) * _msq
     for _t in [dt.date64, dt.timestamp]:
-        _R.register(f"date_trunc_{_unit}", [_t], _t, _impl)
+        _R.register(f"date_trunc_{_unit}", [_t], _t, _impl, emit=_emit(
+            lambda a, _msq=_msq: f"gt_mul<int64_t>({_fd(_c_millis(a), _msq)}"
+            f", (int64_t){_msq})"))
 
 
 # ---------------------------------------------------------------------------
@@ -265,19 +342,33 @@ def _date32_to_ms(ctx, args):
     return _i64(args[0].value) * MS_PER_DAY
 
 
-_R.register("castDATE", [dt.timestamp], dt.date64, _trunc_to_day_ms)
-_R.register("castDATE", [dt.date64], dt.date64, _trunc_to_day_ms)
-_R.register("castDATE", [dt.int64], dt.date64, _identity)
-_R.register("castDATE", [dt.date32], dt.date64, _date32_to_ms)
+_emit_trunc_day = _emit(
+    lambda a: f"gt_mul<int64_t>({_c_days(a)}, GT_MS_PER_DAY)")
+_emit_identity = _emit(lambda a: a.v)
+_emit_ms = _emit(_c_millis)
 
-_R.register("castTIMESTAMP", [dt.date64], dt.timestamp, _identity)
-_R.register("castTIMESTAMP", [dt.date32], dt.timestamp, _date32_to_ms)
-_R.register("castTIMESTAMP", [dt.int64], dt.timestamp, _identity)
+_R.register("castDATE", [dt.timestamp], dt.date64, _trunc_to_day_ms,
+            emit=_emit_trunc_day)
+_R.register("castDATE", [dt.date64], dt.date64, _trunc_to_day_ms,
+            emit=_emit_trunc_day)
+_R.register("castDATE", [dt.int64], dt.date64, _identity,
+            emit=_emit_identity)
+_R.register("castDATE", [dt.date32], dt.date64, _date32_to_ms, emit=_emit_ms)
+
+_R.register("castTIMESTAMP", [dt.date64], dt.timestamp, _identity,
+            emit=_emit_identity)
+_R.register("castTIMESTAMP", [dt.date32], dt.timestamp, _date32_to_ms,
+            emit=_emit_ms)
+_R.register("castTIMESTAMP", [dt.int64], dt.timestamp, _identity,
+            emit=_emit_identity)
 
 _R.register("castDATE32", [dt.date64], dt.date32,
-            lambda ctx, args: (args[0].value // MS_PER_DAY).to(torch.int32))
-_R.register("castBIGINT", [dt.timestamp], dt.int64, _identity)
-_R.register("castBIGINT", [dt.date64], dt.int64, _identity)
+            lambda ctx, args: (args[0].value // MS_PER_DAY).to(torch.int32),
+            emit=_emit(lambda a: f"(int32_t){_c_days(a)}"))
+_R.register("castBIGINT", [dt.timestamp], dt.int64, _identity,
+            emit=_emit_identity)
+_R.register("castBIGINT", [dt.date64], dt.int64, _identity,
+            emit=_emit_identity)
 
 
 # ---------------------------------------------------------------------------
@@ -304,13 +395,28 @@ def _date_sub_days(ctx, args):
     return a.value - days * MS_PER_DAY
 
 
+def _emit_date_shift(sub: bool):
+    """``_date_add_days`` / ``_date_sub_days``."""
+    def emit(g, args, rt):
+        a, b = args
+        datev, intv = (b, a) if not a.dtype.is_temporal else (a, b)
+        op = "gt_sub<int64_t>" if sub else "gt_add<int64_t>"
+        if datev.dtype.kind is dt.TypeKind.DATE32:
+            return f"(int32_t){op}({_c_i64(datev)}, {_c_i64(intv)})"
+        return (f"{op}({datev.v}, gt_mul<int64_t>({_c_i64(intv)}, "
+                "GT_MS_PER_DAY))")
+    return emit
+
+
 for _dt_ in DATE_TYPES:
     for _it in [dt.int32, dt.int64]:
         _R.register("date_add", [_dt_, _it], _dt_, _date_add_days,
-                    aliases=["add"])
-        _R.register("date_add", [_it, _dt_], _dt_, _date_add_days)
+                    aliases=["add"], emit=_emit_date_shift(False))
+        _R.register("date_add", [_it, _dt_], _dt_, _date_add_days,
+                    emit=_emit_date_shift(False))
         _R.register("date_sub", [_dt_, _it], _dt_, _date_sub_days,
-                    aliases=["subtract", "date_diff"])
+                    aliases=["subtract", "date_diff"],
+                    emit=_emit_date_shift(True))
 
 
 def _datediff(ctx, args):
@@ -319,7 +425,9 @@ def _datediff(ctx, args):
 
 
 for _dt_ in [dt.date64, dt.timestamp]:
-    _R.register("datediff", [_dt_, _dt_], dt.int32, _datediff)
+    _R.register("datediff", [_dt_, _dt_], dt.int32, _datediff,
+                emit=_emit(lambda a, b: f"(int32_t)gt_sub<int64_t>("
+                           f"{_c_days(a)}, {_c_days(b)})"))
 
 
 def _add_months_days(days, months):
@@ -344,9 +452,18 @@ def _add_months(ctx, args):
     return _ts_plus_months(datev.value, months)
 
 
+def _emit_add_months(g, args, rt):
+    datev, mv = args
+    if datev.dtype.kind is dt.TypeKind.DATE32:
+        return (f"(int32_t)gt_add_months_days({_c_i64(datev)}, "
+                f"{_c_i64(mv)})")
+    return f"gt_ts_plus_months({datev.v}, {_c_i64(mv)})"
+
+
 for _dt_ in DATE_TYPES:
     for _it in [dt.int32, dt.int64]:
-        _R.register("add_months", [_dt_, _it], _dt_, _add_months)
+        _R.register("add_months", [_dt_, _it], _dt_, _add_months,
+                    emit=_emit_add_months)
 
 
 def _months_between(ctx, args):
@@ -366,8 +483,17 @@ def _months_between(ctx, args):
     return torch.where(last1 & last2, months, months + frac)
 
 
+def _emit_months_between(g, args, rt):
+    from ..compiler.codegen import c_literal
+
+    r1, r31 = (c_literal(1.0 / d, dt.float64) for d in (MS_PER_DAY, 31.0))
+    a, b = args
+    return f"gt_months_between({_c_millis(a)}, {_c_millis(b)}, {r1}, {r31})"
+
+
 for _dt_ in [dt.date64, dt.timestamp]:
-    _R.register("months_between", [_dt_, _dt_], dt.float64, _months_between)
+    _R.register("months_between", [_dt_, _dt_], dt.float64, _months_between,
+                emit=_emit_months_between)
 
 
 def _last_day(ctx, args):
@@ -380,7 +506,8 @@ def _last_day(ctx, args):
 
 
 for _dt_ in DATE_TYPES:
-    _R.register("last_day", [_dt_], _dt_, _last_day)
+    _R.register("last_day", [_dt_], _dt_, _last_day,
+                emit=_emit_days(lambda d: f"gt_last_day_days({d})"))
 
 
 # ---------------------------------------------------------------------------
@@ -405,9 +532,13 @@ for _unit, _ms_ in _FIXED_UNITS_MS.items():
 
     for _it in [dt.int32, dt.int64]:
         _R.register(f"timestampadd{_unit}", [_it, dt.timestamp], dt.timestamp,
-                    _addimpl)
+                    _addimpl, emit=_emit(
+                        lambda n, ts, _ms_=_ms_: f"gt_add<int64_t>({ts.v}, "
+                        f"gt_mul<int64_t>({_c_i64(n)}, (int64_t){_ms_}))"))
     _R.register(f"timestampdiff{_unit}", [dt.timestamp, dt.timestamp],
-                dt.int64, _diffimpl)
+                dt.int64, _diffimpl, emit=_emit(
+                    lambda a, b, _ms_=_ms_: f"gt_timestampdiff_fixed({a.v}, "
+                    f"{b.v}, (int64_t){_ms_})"))
 
 for _unit, _mcount in [("Month", 1), ("Quarter", 3), ("Year", 12)]:
     def _addimpl(ctx, args, _mcount=_mcount):
@@ -430,9 +561,14 @@ for _unit, _mcount in [("Month", 1), ("Quarter", 3), ("Year", 12)]:
 
     for _it in [dt.int32, dt.int64]:
         _R.register(f"timestampadd{_unit}", [_it, dt.timestamp], dt.timestamp,
-                    _addimpl)
+                    _addimpl, emit=_emit(
+                        lambda n, ts, _mcount=_mcount: "gt_ts_plus_months("
+                        f"{ts.v}, gt_mul<int64_t>({_c_i64(n)}, "
+                        f"(int64_t){_mcount}))"))
     _R.register(f"timestampdiff{_unit}", [dt.timestamp, dt.timestamp],
-                dt.int64, _diffimpl)
+                dt.int64, _diffimpl, emit=_emit(
+                    lambda a, b, _mcount=_mcount: "gt_timestampdiff_months("
+                    f"{a.v}, {b.v}, (int64_t){_mcount})"))
 
 
 # ---------------------------------------------------------------------------
@@ -440,11 +576,13 @@ for _unit, _mcount in [("Month", 1), ("Quarter", 3), ("Year", 12)]:
 # ---------------------------------------------------------------------------
 
 _R.register("unix_timestamp", [dt.timestamp], dt.int64,
-            lambda ctx, args: args[0].value // MS_PER_SECOND)
-_R.register("from_unixtime", [dt.int64], dt.timestamp,
-            lambda ctx, args: args[0].value * MS_PER_SECOND)
-_R.register("from_unixtime", [dt.int32], dt.timestamp,
-            lambda ctx, args: _i64(args[0].value) * MS_PER_SECOND)
+            lambda ctx, args: args[0].value // MS_PER_SECOND,
+            emit=_emit(lambda a: _fd(a.v, MS_PER_SECOND)))
+for _it in (dt.int64, dt.int32):
+    _R.register("from_unixtime", [_it], dt.timestamp,
+                lambda ctx, args: _i64(args[0].value) * MS_PER_SECOND,
+                emit=_emit(lambda a: f"gt_mul<int64_t>({_c_i64(a)}, "
+                           f"(int64_t){MS_PER_SECOND})"))
 
 
 def _next_day_impl(ctx, args):
@@ -632,12 +770,15 @@ def _to_int32(ctx, args):
     return args[0].value.to(torch.int32)
 
 
+_emit_to_int32 = _emit(lambda a: f"(int32_t){a.v}")
+
 for _it in (dt.int32, dt.int64):
     _R.register("castINTERVALDAY", [_it], dt.interval_day,
-                _cast_interval_day, aliases=["castNULLABLEINTERVALDAY"])
+                _cast_interval_day, aliases=["castNULLABLEINTERVALDAY"],
+                emit=_emit(lambda a: f"gt_interval_day_of_ms({_c_i64(a)})"))
     # months
     _R.register("castINTERVALYEAR", [_it], dt.interval_year, _to_int32,
-                aliases=["castNULLABLEINTERVALYEAR"])
+                aliases=["castNULLABLEINTERVALYEAR"], emit=_emit_to_int32)
 
 
 def _ts_plus_interval_day(ctx, args):
@@ -664,16 +805,38 @@ def _ts_minus_interval_year(ctx, args):
     return _ts_plus_months(_i64(ts.value), -_i64(iv.value))
 
 
+def _emit_interval(sub: bool, year: bool):
+    """timestamp/date64 ± an interval (either operand order for add)."""
+    ivk = dt.TypeKind.INTERVAL_YEAR if year else dt.TypeKind.INTERVAL_DAY
+
+    def emit(g, args, rt):
+        a, b = args
+        if a.dtype.kind is ivk:
+            a, b = b, a
+        if year:
+            months = _c_i64(b)
+            if sub:
+                months = f"gt_neg<int64_t>({months})"
+            return f"gt_ts_plus_months({_c_i64(a)}, {months})"
+        op = "gt_sub<int64_t>" if sub else "gt_add<int64_t>"
+        return f"{op}({a.v}, gt_interval_day_ms({_c_i64(b)}))"
+    return emit
+
+
 for _tt in (dt.timestamp, dt.date64):
     _R.register("add", [_tt, dt.interval_day], _tt, _ts_plus_interval_day,
-                aliases=["date_add"])
-    _R.register("add", [dt.interval_day, _tt], _tt, _ts_plus_interval_day)
+                aliases=["date_add"], emit=_emit_interval(False, False))
+    _R.register("add", [dt.interval_day, _tt], _tt, _ts_plus_interval_day,
+                emit=_emit_interval(False, False))
     _R.register("subtract", [_tt, dt.interval_day], _tt,
-                _ts_minus_interval_day, aliases=["date_sub"])
-    _R.register("add", [_tt, dt.interval_year], _tt, _ts_plus_interval_year)
-    _R.register("add", [dt.interval_year, _tt], _tt, _ts_plus_interval_year)
+                _ts_minus_interval_day, aliases=["date_sub"],
+                emit=_emit_interval(True, False))
+    _R.register("add", [_tt, dt.interval_year], _tt, _ts_plus_interval_year,
+                emit=_emit_interval(False, True))
+    _R.register("add", [dt.interval_year, _tt], _tt, _ts_plus_interval_year,
+                emit=_emit_interval(False, True))
     _R.register("subtract", [_tt, dt.interval_year], _tt,
-                _ts_minus_interval_year)
+                _ts_minus_interval_year, emit=_emit_interval(True, True))
 
 
 def _date32_plus_interval_day(ctx, args):
@@ -683,10 +846,17 @@ def _date32_plus_interval_day(ctx, args):
     return (_i64(a.value) + (_i64(b.value) >> 32)).to(torch.int32)
 
 
+def _emit_date32_plus_interval_day(g, args, rt):
+    a, b = args
+    if a.dtype.kind is dt.TypeKind.INTERVAL_DAY:
+        a, b = b, a
+    return f"(int32_t)gt_add<int64_t>({_c_i64(a)}, {_c_i64(b)} >> 32)"
+
+
 _R.register("add", [dt.date32, dt.interval_day], dt.date32,
-            _date32_plus_interval_day)
+            _date32_plus_interval_day, emit=_emit_date32_plus_interval_day)
 _R.register("add", [dt.interval_day, dt.date32], dt.date32,
-            _date32_plus_interval_day)
+            _date32_plus_interval_day, emit=_emit_date32_plus_interval_day)
 
 
 # ---------------------------------------------------------------------------
@@ -696,10 +866,13 @@ _R.register("add", [dt.interval_day, dt.date32], dt.date32,
 # ---------------------------------------------------------------------------
 
 _R.register("extractDay", [dt.interval_day], dt.int64,
-            lambda ctx, args: _i64(args[0].value) >> 32)
+            lambda ctx, args: _i64(args[0].value) >> 32,
+            emit=_emit(lambda a: f"({_c_i64(a)} >> 32)"))
 # total milliseconds (the inverse of castINTERVALDAY(int))
 _R.register("castBIGINT", [dt.interval_day], dt.int64,
-            lambda ctx, args: _interval_day_total_ms(_i64(args[0].value)))
-_R.register("castINT", [dt.interval_year], dt.int32, _to_int32)
+            lambda ctx, args: _interval_day_total_ms(_i64(args[0].value)),
+            emit=_emit(lambda a: f"gt_interval_day_ms({_c_i64(a)})"))
+_R.register("castINT", [dt.interval_year], dt.int32, _to_int32,
+            emit=_emit_to_int32)
 _R.register("castBIGINT", [dt.interval_year], dt.int64,
-            lambda ctx, args: _i64(args[0].value))
+            lambda ctx, args: _i64(args[0].value), emit=_emit(_c_i64))

@@ -181,6 +181,90 @@ def _emit_mod(g, args, rt):
     return f"gt_dec_mod({ra}, {rb})"
 
 
+def _emit_cast_bigint(g, args, rt):
+    a = args[0]
+    return _lo64(_emit_rescale(a.v, a.dtype.scale, 0))
+
+
+def _emit_cast_float8(g, args, rt):
+    from .numeric import c_double
+
+    a = args[0]
+    return (f"gt_fmul(gt_dec_to_f64({a.v}), "
+            f"{c_double(1.0 / 10.0 ** a.dtype.scale)})")
+
+
+_ROUND_KINDS = {"round": 0, "truncate": 1, "ceiling": 2, "floor": 3}
+
+
+def _emit_round_family(kind: str):
+    """``_round_family``: to scale 0, or to a literal target scale."""
+    def emit(g, args, rt):
+        a = args[0]
+        s = a.dtype.scale
+        if len(args) == 2:
+            if not args[1].is_literal or args[1].literal is None:
+                raise ExpressionValidationError(
+                    f"{kind} scale argument must be a literal")
+            target = max(int(args[1].literal), 0)
+        else:
+            target = 0
+        if s - target <= 0:
+            return _emit_rescale(a.v, s, target)
+        from ..compiler.codegen import pow10
+
+        return f"gt_dec_round({a.v}, {pow10(s - target)}, {_ROUND_KINDS[kind]})"
+    return emit
+
+
+def _emit_fits(x: str, digits: int) -> str:
+    """``_fits_precision``: |x| < 10^digits, as a signed compare."""
+    from ..compiler.codegen import pow10
+
+    return f"gt_dec_fits({x}, {pow10(digits)})"
+
+
+def _emit_cast_decimal(null_on_overflow: bool):
+    """``_cast_decimal_impl``: the value at the target scale, and whether
+    it fits the target precision (checked before an upscale too, where a
+    wrapped product could pass); out of range rows are null, or an
+    Evaluate-time error under raise_errors."""
+    def emit(g, args, rt):
+        from .numeric import c_double
+
+        a, t = args[0], rt
+        fits = []
+
+        def prescale(x: str, delta: int) -> None:
+            if delta <= 0:
+                return
+            p = t.precision - delta
+            fits.append(f"({x} == 0)" if p <= 0 else _emit_fits(x, p))
+
+        if a.dtype.is_decimal:
+            prescale(a.v, t.scale - a.dtype.scale)
+            x = g.tmp("gt_i128", _emit_rescale(a.v, a.dtype.scale, t.scale))
+        elif a.dtype.is_integer:
+            x0 = g.tmp("gt_i128", f"(gt_i128)(int64_t){a.v}")
+            prescale(x0, t.scale)
+            x = g.tmp("gt_i128", _emit_rescale(x0, 0, t.scale))
+        else:
+            xf = g.tmp("double", f"gt_fmul((double){a.v}, "
+                                 f"{c_double(10.0 ** t.scale)})")
+            y = g.tmp("double", f"trunc(gt_fadd({xf}, {xf} < 0 ? -0.5 : 0.5))")
+            over = g.tmp("bool", f"fabs({y}) >= 9223372036854775808.0 || "
+                                 f"gt_nonfinite({xf})")
+            fits.append(f"!{over}")
+            x = g.tmp("gt_i128", f"(gt_i128)({over} ? (int64_t)0 : "
+                                 f"(int64_t){y})")
+        ok = g.tmp("bool", " && ".join([_emit_fits(x, t.precision)] + fits))
+        if null_on_overflow:
+            return x, f"({a.m}) && {ok}"
+        g.error(f"!{ok}", args, "castDECIMAL: overflow")
+        return x
+    return emit
+
+
 def _emit_cmp(op: str):
     def emit(g, args, rt):
         a, b = args
@@ -422,7 +506,8 @@ def register_cast_decimal_from(t: dt.DataType):
             _R.register(name, [t], None, _cast_decimal_impl(noo),
                         nullability=Nullability.NULL_IF_NULL if not noo
                         else Nullability.NULL_INTERNAL,
-                        needs_return_type=True)
+                        needs_return_type=True,
+                        emit=_emit_cast_decimal(noo))
 
 
 for _t in (dt.int32, dt.int64, dt.float32, dt.float64):
@@ -476,22 +561,19 @@ def register_decimal_unary(t: dt.DataType):
             ("negative", _negative, _emit_negative)):
         if _R.lookup(name, [t]) is None:
             _R.register(name, [t], t, impl, emit=emit)
-    specs = [
-        ("castBIGINT", _cast_bigint, dt.int64),
-        ("castFLOAT8", _cast_float8, dt.float64),
-        ("ceiling", _round_family("ceiling"), dt.decimal128(t.precision, 0)),
-        ("floor", _round_family("floor"), dt.decimal128(t.precision, 0)),
-        ("round", _round_family("round"), dt.decimal128(t.precision, 0)),
-        ("truncate", _round_family("truncate"),
-         dt.decimal128(t.precision, 0)),
-    ]
-    for name, impl, rt in specs:
+    to0 = dt.decimal128(t.precision, 0)
+    specs = [("castBIGINT", _cast_bigint, dt.int64, _emit_cast_bigint),
+             ("castFLOAT8", _cast_float8, dt.float64, _emit_cast_float8)] + [
+        (kind, _round_family(kind), to0, _emit_round_family(kind))
+        for kind in ("ceiling", "floor", "round", "truncate")]
+    for name, impl, rt, emit in specs:
         if _R.lookup(name, [t]) is None:
-            _R.register(name, [t], rt, impl)
+            _R.register(name, [t], rt, impl, emit=emit)
     for name in ("round", "truncate"):
         if _R.lookup(name, [t, dt.int32]) is None:
             # target scale given as literal; return type keeps precision
-            _R.register(name, [t, dt.int32], t, _round_family(name))
+            _R.register(name, [t, dt.int32], t, _round_family(name),
+                        emit=_emit_round_family(name))
 
 
 def ensure_registered(arg_types):

@@ -7,7 +7,8 @@ murmur-fmix32 family. Seeds and results keep the reference's bits: hash32
 returns the int32 bits of the uint32 hash, hash64 the int64 bits of the
 uint64 one, and the AsDouble forms convert the unsigned hash to float64 with
 one rounding. The string hashes (FNV-1a 64 per distinct dictionary value)
-live in string_ops.py.
+live in string_ops.py. Each entry's emitter runs the same chain in C++ for
+the plan compiler (``gt_hash32`` / ``gt_hash64`` of csrc/plan_prelude.h).
 """
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ import torch
 from .. import dtypes as dt
 from ..utils.hashing import hash32, hash64
 from ..utils.ints import widen
-from .numeric import NUMERIC, TEMPORAL, to_float
+from .numeric import NUMERIC, TEMPORAL, ctype, emit_to_float, to_float
 from .registry import global_registry
 
 _R = global_registry()
@@ -60,10 +61,34 @@ def _hash64_double(ctx, args):
     return to_float(hash64(_key(args[0])), dt.uint64, torch.float64)
 
 
+def _c_hash(bits: int, args) -> str:
+    """The unsigned hash of the first argument, seeded by the second's bits
+    (or 0)."""
+    x = args[0]
+    seed = f"(uint{bits}_t){args[1].v}" if len(args) == 2 else "0"
+    return f"gt_hash{bits}<{ctype(x.dtype)}>({x.v}, {seed})"
+
+
+def _emit_hash(bits: int, as_double: bool):
+    def emit(g, args, rt):
+        h = _c_hash(bits, args)
+        if as_double:
+            return emit_to_float(dt.uint32 if bits == 32 else dt.uint64,
+                                 dt.float64, h)
+        return f"(int{bits}_t){h}"
+    return emit
+
+
 for _t in _HASHABLE:
-    _R.register("hash32", [_t], dt.int32, _hash32_impl, aliases=["hash"])
-    _R.register("hash64", [_t], dt.int64, _hash64_impl)
-    _R.register("hash32", [_t, dt.int32], dt.int32, _hash32_impl)
-    _R.register("hash64", [_t, dt.int64], dt.int64, _hash64_impl)
-    _R.register("hash32AsDouble", [_t], dt.float64, _hash32_double)
-    _R.register("hash64AsDouble", [_t], dt.float64, _hash64_double)
+    _R.register("hash32", [_t], dt.int32, _hash32_impl, aliases=["hash"],
+                emit=_emit_hash(32, False))
+    _R.register("hash64", [_t], dt.int64, _hash64_impl,
+                emit=_emit_hash(64, False))
+    _R.register("hash32", [_t, dt.int32], dt.int32, _hash32_impl,
+                emit=_emit_hash(32, False))
+    _R.register("hash64", [_t, dt.int64], dt.int64, _hash64_impl,
+                emit=_emit_hash(64, False))
+    _R.register("hash32AsDouble", [_t], dt.float64, _hash32_double,
+                emit=_emit_hash(32, True))
+    _R.register("hash64AsDouble", [_t], dt.float64, _hash64_double,
+                emit=_emit_hash(64, True))

@@ -195,6 +195,18 @@ def emit_float_to_int(src: dt.DataType, target: dt.DataType, x: str) -> str:
     return f"gt_float_to_int<{ctype(target)}, {ctype(src)}>({x})"
 
 
+def c_double(x: float) -> str:
+    """A float64 constant by its bits."""
+    from ..compiler.codegen import c_literal
+
+    return c_literal(float(x), dt.float64)
+
+
+def emit_f64(a) -> str:
+    """``_to_f64``: an argument converted to float64 with one rounding."""
+    return emit_to_float(a.dtype, dt.float64, a.v)
+
+
 # --------------------------------------------------------------------------
 # arithmetic  (reference: precompiled/arithmetic_ops.cc)
 # --------------------------------------------------------------------------
@@ -327,9 +339,14 @@ _R.register_many("shift_left", _same2(INTS), _shift(left=True),
 _R.register_many("shift_right", _same2(INTS), _shift(left=False),
                  emit=emit_call("gt_shr"))
 
+def _emit_power(g, args, rt):
+    fn = "powf" if rt.kind is dt.TypeKind.FLOAT32 else "pow"
+    return f"{fn}({args[0].v}, {args[1].v})"
+
+
 # pow: gandiva registers power(float64, float64)
 _R.register_many("power", _same2(FLOATS), _wrap2(torch.pow),
-                 aliases=["pow"])
+                 aliases=["pow"], emit=_emit_power)
 
 
 # --------------------------------------------------------------------------
@@ -543,28 +560,51 @@ _MATH1 = {
     "degrees": torch.rad2deg, "radians": torch.deg2rad,
 }
 
-def _emit_sqrt(g, args, rt):
-    return f"sqrt({emit_to_float(args[0].dtype, dt.float64, args[0].v)})"
+def _scale_constant(f) -> float:
+    """The float64 factor torch's ``f`` multiplies by (rad2deg, deg2rad)."""
+    return float(f(torch.ones((), dtype=torch.float64)))
 
 
-# of the math functions only sqrt, correctly rounded in IEEE arithmetic on
-# the card as on the host, compiles; the rest stay eager
+def _emit_math(c):
+    """An emitter calling ``c(x)`` on the argument as float64: the CUDA math
+    function that torch's own kernel calls for the op (libdevice on the
+    card, libm on the host), or torch's own formula."""
+    def emit(g, args, rt):
+        return c(g.tmp("double", emit_f64(args[0])))
+    return emit
+
+
+_MATH1_EMIT = {
+    "cbrt": lambda x: (f"gt_fmul(gt_fsign({x}), pow(fabs({x}), "
+                       f"{c_double(1.0 / 3.0)}))"),
+    "degrees": lambda x: (f"gt_fmul({x}, "
+                          f"{c_double(_scale_constant(torch.rad2deg))})"),
+    "radians": lambda x: (f"gt_fmul({x}, "
+                          f"{c_double(_scale_constant(torch.deg2rad))})"),
+}
+
 for _name, _f in _MATH1.items():
     _R.register_many(_name, _un(NUMERIC, dt.float64), _mathfn(_f),
-                     emit=_emit_sqrt if _name == "sqrt" else None)
+                     emit=_emit_math(_MATH1_EMIT.get(
+                         _name, lambda x, _name=_name: f"{_name}({x})")))
 
 _R.register_many("atan2", _same2(FLOATS, dt.float64),
                  lambda ctx, args: torch.atan2(_to_f64(args[0]),
-                                               _to_f64(args[1])))
+                                               _to_f64(args[1])),
+                 emit=lambda g, args, rt: (f"atan2({emit_f64(args[0])}, "
+                                           f"{emit_f64(args[1])})"))
 
 # log(base, x) — gandiva's two-arg log
 _R.register_many("log", _same2(FLOATS, dt.float64),
                  lambda ctx, args: torch.log(_to_f64(args[1]))
-                 / torch.log(_to_f64(args[0])))
+                 / torch.log(_to_f64(args[0])),
+                 emit=lambda g, args, rt: (f"log({emit_f64(args[1])}) / "
+                                           f"log({emit_f64(args[0])})"))
 
 _R.register("pi", [], dt.float64,
             lambda ctx, args: torch.tensor(np.pi, dtype=torch.float64,
-                                           device=ctx.device))
+                                           device=ctx.device),
+            emit=lambda g, args, rt: c_double(np.pi))
 
 
 def round_half_away(x):
@@ -578,7 +618,16 @@ def _round1(ctx, args):
     return round_half_away(a)
 
 
-_R.register_many("round", _un(NUMERIC), _round1)
+def _emit_float_only(c):
+    """Integers as they are; a float through ``c(x, C type)``."""
+    def emit(g, args, rt):
+        a = args[0]
+        return a.v if a.dtype.is_integer else c(a.v, ctype(a.dtype))
+    return emit
+
+
+_R.register_many("round", _un(NUMERIC), _round1, emit=_emit_float_only(
+    lambda x, t: f"gt_round_half_away<{t}>({x})"))
 
 
 def _digits_scale(nd: Val):
@@ -603,8 +652,33 @@ def _round2(ctx, args):
     return _back(round_half_away(_to_f64(a) * scale) / scale, a)
 
 
+def _emit_digits(kind: str):
+    """``_round2`` / ``_truncate2``: scaled by 10^d (a literal's Python
+    value, else pow(10, d) as torch.pow computes it), rounded, divided back
+    and converted to the argument's type."""
+    def emit(g, args, rt):
+        a, nd = args
+        t = a.dtype
+        lit = nd.is_literal and nd.literal is not None
+        if kind == "round" and t.is_integer and lit and int(nd.literal) >= 0:
+            return a.v
+        if lit:
+            scale = c_double(10.0 ** int(nd.literal))
+        else:
+            scale = g.tmp("double", f"pow(10.0, (double){nd.v})")
+        y = g.tmp("double", f"gt_fmul({emit_f64(a)}, {scale})")
+        r = (f"gt_round_half_away<double>({y})" if kind == "round"
+             else f"trunc({y})")
+        x = f"{r} / {scale}"
+        if t.is_integer:
+            return emit_float_to_int(dt.float64, t, x)
+        return f"({ctype(t)})({x})"
+    return emit
+
+
 for _t in NUMERIC:
-    _R.register("round", [_t, dt.int32], _t, _round2)
+    _R.register("round", [_t, dt.int32], _t, _round2,
+                emit=_emit_digits("round"))
 
 
 def _truncate2(ctx, args):
@@ -620,14 +694,20 @@ def _truncate1(ctx, args):
     return torch.trunc(a)
 
 
-_R.register_many("truncate", _un(NUMERIC), _truncate1, aliases=["trunc"])
+_R.register_many("truncate", _un(NUMERIC), _truncate1, aliases=["trunc"],
+                 emit=_emit_float_only(lambda x, t: f"gt_trunc<{t}>({x})"))
 for _t in NUMERIC:
-    _R.register("truncate", [_t, dt.int32], _t, _truncate2, aliases=["trunc"])
+    _R.register("truncate", [_t, dt.int32], _t, _truncate2, aliases=["trunc"],
+                emit=_emit_digits("truncate"))
 
-_R.register_many("ceiling", _un(FLOATS), _wrap1(torch.ceil), aliases=["ceil"])
-_R.register_many("floor", _un(FLOATS), _wrap1(torch.floor))
-_R.register_many("sign", _un(SIGNED_INT), _wrap1(torch.sign))
-_R.register_many("sign", _un(FLOATS), _wrap1(_sign))
+_R.register_many("ceiling", _un(FLOATS), _wrap1(torch.ceil), aliases=["ceil"],
+                 emit=emit_call("gt_ceil"))
+_R.register_many("floor", _un(FLOATS), _wrap1(torch.floor),
+                 emit=emit_call("gt_floor"))
+_R.register_many("sign", _un(SIGNED_INT), _wrap1(torch.sign),
+                 emit=lambda g, args, rt: (f"({ctype(rt)})(({args[0].v} > 0) "
+                                           f"- ({args[0].v} < 0))"))
+_R.register_many("sign", _un(FLOATS), _wrap1(_sign), emit=emit_call("gt_fsign"))
 
 
 # --------------------------------------------------------------------------

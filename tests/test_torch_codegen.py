@@ -28,7 +28,7 @@ from torch_differential import (CPU, assert_same_column, batches, column,
                                 dtype_of, text_column, to_reference)
 
 N = 4096
-BATCHES = 8
+BATCHES = 16
 DEC_TYPES = ("decimal128(15,2)", "decimal128(16,2)", "decimal128(32,4)",
              "decimal128(38,6)")
 INTS = ("int8", "int16", "int32", "int64", "uint8", "uint16", "uint32",
@@ -55,7 +55,7 @@ def _int_hazards(t: str, side: str) -> np.ndarray:
                     dtype=np.dtype(t))
 
 
-def _columns(types, rng):
+def columns(types, rng):
     """Two columns (x_*, y_*) of every type, 5% nulls, with the hazard
     rows first (all valid)."""
     cols = {}
@@ -80,10 +80,30 @@ def _columns(types, rng):
     return cols
 
 
-def _emitter_signatures():
+# castDECIMAL's targets (its return type is the tree's): one that int64
+# and float values overflow, one that they fit
+CAST_DECIMAL_TARGETS = ("decimal128(16,2)", "decimal128(38,6)")
+# the math functions: the host's libm and XLA's differ by ulps, so these
+# are held bit for bit to libm and to test_math_close_to_reference's
+# tolerance against the reference (tests/test_torch_codegen_families.py)
+MATH = ("cbrt", "exp", "log", "log10", "log2", "sin", "cos", "tan", "asin",
+        "acos", "atan", "sinh", "cosh", "tanh", "atan2", "power")
+
+
+def held_elsewhere(sig) -> bool:
+    """The math functions, and round / truncate to d digits of a number,
+    whose division by 10^d the reference rounds differently (ROADMAP §3,
+    "round / truncate"): test_torch_codegen_families.py holds them."""
+    name, params, _ = sig
+    return name in MATH or (name in ("round", "truncate") and len(params) == 2
+                            and not params[0].startswith("decimal"))
+
+
+def emitter_signatures():
     """Every (name, parameter type names, return type name) with an
-    emitter: the numeric, cast, date/time and decimal entries (decimals at
-    the four test types, every pair for the binary functions)."""
+    emitter: the numeric, cast, math, rounding, hash, date/time, interval
+    and decimal entries (decimals at the four test types, every pair for
+    the binary functions; castDECIMAL to CAST_DECIMAL_TARGETS)."""
     reg = gt.global_registry()
     decs = [dtype_of(gt, t) for t in DEC_TYPES]
     for a in decs:
@@ -97,25 +117,33 @@ def _emitter_signatures():
         if any(p.startswith("decimal") and p not in DEC_TYPES
                for p in params):
             continue
-        sigs.add((f.signature.name, params, str(f.signature.return_type)))
+        rt = f.signature.return_type
+        for ret in (CAST_DECIMAL_TARGETS if rt is None else (str(rt),)):
+            sigs.add((f.signature.name, params, ret))
     return sorted(sigs)
 
 
-def _project(p, schema, sigs):
+def project(p, schema, sigs):
+    """One expression a signature over the columns x_<type>, y_<type>; the
+    decimal round and truncate take their scale as a literal (-1 .. 2)."""
     B = p.TreeExprBuilder
     exprs = []
     for i, (name, params, ret) in enumerate(sigs):
         args = [B.make_field(schema.field(f"{'xy'[j]}_{t}"))
                 for j, t in enumerate(params)]
+        if params[:1] and params[0].startswith("decimal") \
+                and params[1:] == ("int32",):
+            args[1] = B.make_literal(i % 4 - 1, p.dtypes.int32)
         rt = dtype_of(p, ret)
         exprs.append(B.make_expression(B.make_function(name, args, rt),
                                        p.dtypes.Field(f"o{i}", rt)))
     return exprs
 
 
-def _hold_compiled(make_exprs, cols, n=N, config=None):
+def hold_compiled(make_exprs, cols, n=N, config=None, hold=None):
     """``make_exprs(p, schema)`` through gandiva_tpu and through the port's
-    host-built compiled route, held bit for bit; returns the port plan."""
+    host-built compiled route, held bit for bit (or by ``hold(ref, port,
+    name)``); returns the port plan."""
     ref_b, port_b = batches(cols, n)
     plans, outs = {}, {}
     for p, b in ((g, ref_b), (gt, port_b)):
@@ -129,7 +157,8 @@ def _hold_compiled(make_exprs, cols, n=N, config=None):
         plans[p] = plan
         outs[p] = plan.evaluate_device(b)
     for name in outs[g].columns:
-        assert_same_column(outs[g].column(name), outs[gt].column(name), name)
+        (hold or assert_same_column)(outs[g].column(name),
+                                     outs[gt].column(name), name)
     return plans[gt]
 
 
@@ -139,24 +168,28 @@ def test_emitters_match_reference(part):
     reference, over hazard rows: x/0, MIN / -1, shifts at and past the
     width, NaN, ±inf and ±0.0 through casts and compares, unsigned
     top-bit values, integer wrap, decimals divided and taken mod by 0."""
-    sigs = _emitter_signatures()[part::BATCHES]
+    sigs = [s for s in emitter_signatures()
+            if not held_elsewhere(s)][part::BATCHES]
     types = sorted({t for _, params, _ in sigs for t in params})
-    cols = _columns(types, np.random.default_rng(100 + part))
-    plan = _hold_compiled(lambda p, s: _project(p, s, sigs), cols)
+    cols = columns(types, np.random.default_rng(100 + part))
+    plan = hold_compiled(lambda p, s: project(p, s, sigs), cols)
     assert plan._program.count("eager") == 0
     assert plan._program.kernels == 1
 
 
 def test_every_emitter_family_is_covered():
-    names = {s[0] for s in _emitter_signatures()}
+    names = {s[0] for s in emitter_signatures()}
     for name in ("add", "subtract", "multiply", "divide", "mod", "negative",
                  "abs", "bitwise_and", "bitwise_not", "shift_left",
                  "shift_right", "less_than", "equal", "not", "isnull",
                  "isnotnull", "istrue", "isnotfalse", "is_distinct_from",
                  "is_not_distinct_from", "nvl", "castINT", "castFLOAT4",
-                 "castBIGINT", "castBIT", "sqrt"):
+                 "castBIGINT", "castBIT", "sqrt", "extractYear",
+                 "date_trunc_Month", "timestampaddDay", "months_between",
+                 "round", "floor", "exp", "hash32", "hash64AsDouble",
+                 "castDECIMAL"):
         assert name in names, name
-    params = {s[1] for s in _emitter_signatures()}
+    params = {s[1] for s in emitter_signatures()}
     for t in ("date32", "date64", "timestamp", "time32", "time64"):
         assert (t, t) in params, t
     for a in DEC_TYPES:
@@ -165,7 +198,7 @@ def test_every_emitter_family_is_covered():
     # the 256-bit multiply (both operands over 18 digits) stays eager
     assert not any(s[:2] == ("multiply", ("decimal128(32,4)",
                                           "decimal128(38,6)"))
-                   for s in _emitter_signatures())
+                   for s in emitter_signatures())
 
 
 def _bool_tree(p, schema):
@@ -209,13 +242,13 @@ def _bool_tree(p, schema):
 
 def test_kleene_if_and_in_under_nulls():
     rng = np.random.default_rng(3)
-    cols = _columns(["bool", "float64", "int64", "uint64",
+    cols = columns(["bool", "float64", "int64", "uint64",
                      "decimal128(15,2)"], rng)
     for name in ("x_bool", "y_bool"):
         t, d, v, hi = cols[name]
         v = rng.random(N) >= 0.3            # many null conditions
         cols[name] = (t, d, v, hi)
-    plan = _hold_compiled(_bool_tree, cols)
+    plan = hold_compiled(_bool_tree, cols)
     assert plan._program.count("eager") == 0
 
 
@@ -244,8 +277,9 @@ def _flagship_batch():
 
 PLANS = {
     "configs[0]": (t_entry.flagship_plan, _flagship_batch, 0),
-    "q1": (t_entry.tpch_q1_scan, lambda: t_entry.lineitem(N, 1, CPU), 1),
+    "q1": (t_entry.tpch_q1_scan, lambda: t_entry.lineitem(N, 1, CPU), 0),
     "q6": (t_entry.tpch_q6_scan, lambda: t_entry.lineitem(N, 1, CPU), 0),
+    "q7": (t_entry.tpch_q7_scan, lambda: t_entry.lineitem(N, 1, CPU), 0),
     "q12": (t_entry.tpch_q12_scan, lambda: t_entry.lineitem(N, 1, CPU), 1),
     "q19": (t_entry.tpch_q19_scan, lambda: t_entry.lineitem(N, 1, CPU), 2),
 }
@@ -254,8 +288,8 @@ PLANS = {
 @pytest.mark.parametrize("name", sorted(PLANS))
 def test_plan_matches_reference(name):
     """The plan's compiled route (one kernel; only the nodes without an
-    emitter eager: Q1's date bound, Q12's and Q19's string predicates)
-    against gandiva_tpu's FilterProject, selection and outputs."""
+    emitter eager: Q12's and Q19's string predicates) against
+    gandiva_tpu's FilterProject, selection and outputs."""
     make, make_batch, eager = PLANS[name]
     plan = jit.host_build(make(CPU))
     assert plan._program.kernels == 1
@@ -308,9 +342,9 @@ def test_unread_high_limbs():
         assert torch.equal(g_.extra[:c], w_.extra[:c])
     cost = plan.cost_analysis(batch)
     # l_shipdate 4 B, one shared validity 1 B and three low limbs 8 B a
-    # row read; the mask 1 B, two outputs of 16 + 1 B written; the 0-d
-    # date bound 4 B
-    assert cost["plan bytes read"] == N * (4 + 1 + 3 * 8) + 4
+    # row read (the date bound compiles from its literals); the mask 1 B,
+    # two outputs of 16 + 1 B written
+    assert cost["plan bytes read"] == N * (4 + 1 + 3 * 8)
     assert cost["plan bytes written"] == N * (1 + 2 * 17)
 
 
@@ -346,9 +380,10 @@ def test_configuration_optimize_flag():
 
 
 def test_eager_nodes_of_a_mixed_plan():
-    """Strings, random and math functions stay eager (kernel inputs); a
-    math function over a compiled value runs between two kernels; the
-    compiled route equals the eager one, random draws included."""
+    """Strings and random stay eager (kernel inputs); a string function
+    of a compiled value, read back by a compiled cast, runs between two
+    kernels; the compiled route equals the eager one, random draws
+    included."""
     B, dt = gt.TreeExprBuilder, gt.dtypes
     schema = dt.Schema([dt.Field("s", dt.string), dt.Field("x", dt.float64),
                         dt.Field("k", dt.int64)])
@@ -360,8 +395,11 @@ def test_eager_nodes_of_a_mixed_plan():
         "noise": B.make_function("add", [
             x, B.make_function("random", [], dt.float64)], dt.float64),
         "staged": B.make_function("multiply", [
-            B.make_function("sin", [B.make_function(
-                "add", [x, B.make_double_literal(1.0)], dt.float64)],
+            B.make_function("castFLOAT8", [B.make_function("length", [
+                B.make_function("castVARCHAR", [
+                    B.make_function("add", [k, B.make_int64_literal(1)],
+                                    dt.int64),
+                    B.make_int64_literal(20)], dt.string)], dt.int32)],
                 dt.float64),
             B.make_function("castFLOAT8", [k], dt.float64)], dt.float64),
         "like": B.make_function("like", [s, B.make_string_literal("b%")],
@@ -383,11 +421,12 @@ def test_eager_nodes_of_a_mixed_plan():
     by_name = {str(prog.nodes[key].name): kind
                for key, kind in prog.kinds.items()
                if isinstance(prog.nodes[key], gt.FunctionNode)}
-    for name in ("upper", "equal", "random", "sin", "like"):   # equal(utf8)
+    for name in ("upper", "equal", "random", "castVARCHAR", "length",
+                 "like"):                                   # equal(utf8)
         assert by_name[name] == "eager", name
     for name in ("add", "multiply", "castFLOAT8", "not"):
         assert by_name[name] == "compiled", name
-    assert prog.kernels == 2                 # sin reads a compiled add
+    assert prog.kernels == 2     # castVARCHAR reads a compiled add
     for kind in ("eager", "compiled"):
         assert f" {kind} " in plan.dump_hlo()
     want = eager.evaluate_device(batch)
@@ -396,7 +435,7 @@ def test_eager_nodes_of_a_mixed_plan():
         n = e.result_field.name
         assert_same_column(want.column(n), got.column(n), n)
     cost = plan.cost_analysis(batch)
-    assert cost["eager nodes"] == 6 and cost["compiled nodes"] == 5
+    assert cost["eager nodes"] == 7 and cost["compiled nodes"] == 6
     assert cost["plan bytes written"] > 0 and cost["plan bytes read"] > 0
 
 
@@ -466,7 +505,9 @@ def test_raise_errors_gives_the_eager_first_message(order):
 
 def test_selected_and_streamed_routes():
     """A projector over a selection (length a device scalar) and
-    stream_fn take the compiled route and equal the eager one."""
+    stream_fn take the compiled route and equal the eager one; over a
+    selection the compiled route gathers only the columns an eager node
+    reads."""
     fp_eager = t_entry.flagship_plan(CPU)
     fp = jit.host_build(t_entry.flagship_plan(CPU))
     batch = _flagship_batch()
@@ -482,10 +523,63 @@ def test_selected_and_streamed_routes():
     proj_s = gt.make_projector(filt.schema, proj.exprs,
                                gt.SelectionMode.UINT32, use_cache=False,
                                device=CPU)
-    want = proj_s.evaluate(batch, selection=sel)
+    with _IndexSelects() as eager_gathers:
+        want = proj_s.evaluate(batch, selection=sel)
     jit.host_build(proj_s)
-    got = proj_s.evaluate(batch, selection=sel)
+    with _IndexSelects() as gathers:
+        got = proj_s.evaluate(batch, selection=sel)
     assert got[0].equals(want[0])
+    # the kernel reads a and b at the selected rows: no gather launches
+    assert eager_gathers.n == 4 and gathers.n == 0
+    # an eager node's field is gathered (codes and validity), no other
+    B, dt = gt.TreeExprBuilder, gt.dtypes
+    schema = dt.Schema([dt.Field("s", dt.string), dt.Field("x", dt.int64)])
+    s_, x = (B.make_field(schema.field(n)) for n in ("s", "x"))
+    exprs = [B.make_expression(B.make_function("add", [
+        x, B.make_function("castBIGINT", [B.make_function(
+            "length", [s_], dt.int32)], dt.int64)], dt.int64),
+        dt.Field("r", dt.int64))]
+    rng = np.random.default_rng(8)
+    cols = {"s": ("string", *text_column("string", rng, N, ["a", "bbb"])),
+            "x": ("int64", rng.integers(-9, 9, N), rng.random(N) >= 0.1)}
+    mixed = gt.from_columns_numpy(cols, N, device=CPU)
+    picked = gt.SelectionVector.from_mask(
+        torch.from_numpy(rng.random(N) < 0.3), gt.SelectionMode.UINT32)
+    plans = [gt.make_projector(schema, exprs, gt.SelectionMode.UINT32,
+                               use_cache=False, device=CPU)
+             for _ in range(2)]
+    jit.host_build(plans[1])
+    assert plans[1]._program.eager_fields == ["s"]
+    outs = []
+    # eager: both columns' data and validity and length's table gather by
+    # code; compiled: x stays ungathered
+    for plan, n in zip(plans, (5, 3)):
+        with _IndexSelects() as gathers:
+            outs.append(plan.evaluate(mixed, selection=picked)[0])
+        assert gathers.n == n
+    assert outs[0].equals(outs[1])
+
+
+class _IndexSelects:
+    """Counts the index_select calls torch dispatches inside the block."""
+
+    def __enter__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        counter = self
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                counter.n += func is torch.ops.aten.index_select.default
+                return func(*args, **(kwargs or {}))
+
+        self.n = 0
+        self._mode = Mode()
+        self._mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._mode.__exit__(*exc)
 
 
 def test_empty_batch():

@@ -359,11 +359,11 @@ def _reference_plan(port_plan):
                                  use_cache=False)
 
 
-@pytest.mark.parametrize("query", ["q1", "q6"])
+@pytest.mark.parametrize("query", ["q1", "q6", "q7"])
 def test_tpch_scan_matches_reference_and_int64(query):
     n = 20_000
-    port_plan = (t_entry.tpch_q1_scan if query == "q1"
-                 else t_entry.tpch_q6_scan)(CPU)
+    port_plan = {"q1": t_entry.tpch_q1_scan, "q6": t_entry.tpch_q6_scan,
+                 "q7": t_entry.tpch_q7_scan}[query](CPU)
     batch = t_entry.lineitem(n, seed=5, device=CPU)
     ref_batch = GBatch({
         name: GColumn(jnp.asarray(c.data.numpy()),
@@ -397,16 +397,24 @@ def test_tpch_scan_matches_reference_and_int64(query):
         want = {"l_quantity": qty, "l_extendedprice": ep,
                 "disc_price": ep * (100 - disc),
                 "charge": ep * (100 - disc) * (100 + tax)}
-    else:
+    elif query == "q6":
         keep = ((ship >= t_entry.Q6_FROM) & (ship < t_entry.Q6_TO)
                 & (disc >= 5) & (disc <= 7) & (qty < 2400))
         want = {"revenue": ep * disc}
+    else:
+        keep = (ship >= t_entry.Q7_FROM) & (ship <= t_entry.Q7_TO)
+        want = {"volume": ep * (100 - disc)}
     idx = torch.nonzero(keep).flatten()
     assert count == idx.numel()
     assert torch.equal(sel.indices[:count].long(), idx)
     for name, w in want.items():
         assert torch.equal(out.column(name).data[:count], w[idx])
         assert not out.column(name).extra[:count].any()
+    if query == "q7":   # the year of each ship date, by the calendar
+        import datetime
+        years = [(datetime.date(1970, 1, 1) + datetime.timedelta(days=d)).year
+                 for d in ship[idx].tolist()]
+        assert out.column("l_year").data[:count].tolist() == years
     if query == "q1":   # the two flags: their codes, under the one dictionary
         for name in ("l_returnflag", "l_linestatus"):
             assert torch.equal(out.column(name).data[:count],

@@ -1001,9 +1001,9 @@ def _same_output(got, want, c):
         assert got.dictionary.equals(want.dictionary)
 
 
-@pytest.mark.parametrize("query", ["q1", "q6", "q12", "q19"])
+@pytest.mark.parametrize("query", ["q1", "q6", "q7", "q12", "q19"])
 def test_tpch_scan_on_card_matches_cpu(query):
-    """TPC-H Q1's, Q6's, Q12's and Q19's lineitem scans at 4,096 rows on
+    """TPC-H Q1's, Q6's, Q7's, Q12's and Q19's lineitem scans at 4,096 rows on
     the card and on the CPU: the same selection, decimal limbs and string
     codes under the same dictionaries, K1 launched (Q1's sixteen payloads
     take two scatter launches)."""
@@ -1011,7 +1011,8 @@ def test_tpch_scan_on_card_matches_cpu(query):
     from gandiva_tpu_torch import entrypoints as e
 
     make = {"q1": e.tpch_q1_scan, "q6": e.tpch_q6_scan,
-            "q12": e.tpch_q12_scan, "q19": e.tpch_q19_scan}[query]
+            "q7": e.tpch_q7_scan, "q12": e.tpch_q12_scan,
+            "q19": e.tpch_q19_scan}[query]
     cpu = e.lineitem(4096, seed=3, device="cpu")
     card = cpu.to(dev)
     reset_launches()
@@ -1209,8 +1210,8 @@ def _column_cpu(c):
                      dictionary=c.dictionary)
 
 
-@pytest.mark.parametrize("name", ["configs[0]", "q1", "q6", "q12", "q19",
-                                  "q9", "q16"])
+@pytest.mark.parametrize("name", ["configs[0]", "q1", "q6", "q7", "q12",
+                                  "q19", "q9", "q16"])
 def test_compiled_plan_on_card_matches_eager(name):
     """The entry points' plans compiled (the default) against the same
     plans with optimize off, on the card: one generated kernel a call
@@ -1250,17 +1251,19 @@ def test_compiled_plan_on_card_matches_eager(name):
         assert "__global__" in comp.dump_hlo()
 
 
-@pytest.mark.parametrize("part", range(8))
+@pytest.mark.parametrize("part", range(16))
 def test_emitters_compiled_on_card_match_eager(part):
-    """Every emitter signature (chip_smoke.emitter_plans' eighth ``part``)
+    """Every emitter signature (chip_smoke.emitter_plans' ``part`` of 16)
     compiled against the eager route on the card at 4,096 rows with nulls
     and hazard rows; floats by their bits, NaN equal to NaN."""
     dev = _card()
     import numpy as np
 
     import gandiva_tpu_torch as gt
-    from chip_smoke import emitter_column, emitter_plans, same_column
+    from chip_smoke import (EMIT_BATCHES, emitter_column, emitter_plans,
+                            same_column)
 
+    assert EMIT_BATCHES == 16
     schema, exprs = emitter_plans(gt)[part]
     rng = np.random.default_rng(part)
     cols = {f.name: (str(f.dtype), *emitter_column(str(f.dtype), f.name[0],
