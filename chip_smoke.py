@@ -152,17 +152,20 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                 per-row route) beside a LIKE plan;
  21. TPC-H strings — Q1 (with l_returnflag and l_linestatus), Q12 and Q19
                 over SF10's LINEITEM made on the card, Q9 and Q16 over
-                SF10's 2,000,000 PART rows made on the host and brought in
-                through from_arrow (timed, with the distinct/row ratio of
-                the near-unique p_name): rows/s of one synchronized
-                evaluate_device (best of 3), survivors, K1 launches, peak
-                memory, the profiler's top 8 and busy share, a cold call's
-                host tables against a memoised call's, the host clock split
-                around K1 and the count's sync; the selection and every
-                output exact against plain torch on the card (strings as
-                codes under the same dictionary object), and against
-                pyarrow.compute on LINEITEM's first 1,048,576 rows and all
-                of PART.
+                SF10's 2,000,000 PART rows and Q22 over SF10's 1,500,000
+                CUSTOMER rows made on the host and brought in through
+                from_arrow (timed, with the distinct/row ratio of the
+                near-unique p_name), each plan compiled: one generated
+                kernel reading the string nodes' host tables, nothing
+                eager, then K1: rows/s of one synchronized evaluate_device
+                (best of 3), survivors, K1's and the plan kernel's
+                launches, peak memory, the profiler's top 8 and busy share,
+                a cold call's host tables against a memoised call's, the
+                host clock split around K1 and the count's sync; the
+                selection and every output exact against plain torch on
+                the card (strings as codes under the same dictionary
+                object), and against pyarrow.compute on LINEITEM's first
+                1,048,576 rows and all of PART and CUSTOMER.
  22. configs[4] — BASELINE configs[4]'s filter→join→agg→sort
                 (parallel.run_pipeline_with_retry, the reference's factors)
                 as TPC-H SF10 ORDERS ⋈ CUSTOMER grouped by market segment
@@ -184,14 +187,20 @@ Phases (any failure exits non-zero; there is no CPU fallback):
  25. scaling  — measure_scaling_efficiency and measure_weak_scaling over
                 1, 2 and 4 partitions of the one card at a small size (they
                 run; partitions of one card measure no scaling efficiency);
- 26. plan compiler — every registry signature with an emitter compiled
-                (sixteen generated kernels) against the eager route on the
-                card over 1,048,576 rows with nulls and hazard rows, bit
-                for bit (the math functions and the date/time, hash and
-                rounding families among them); then
+ 26. plan compiler — every registry signature with an emitter that names
+                no string type compiled (sixteen generated kernels) against
+                the eager route on the card over 1,048,576 rows with nulls
+                and hazard rows, bit for bit (the math functions, the
+                date/time, hash and rounding families and the 256-bit
+                decimal multiply of operands of 19-38 digits among them);
+                every string and binary signature with an emitter (four
+                generated kernels reading their host tables) over
+                dictionaries of 1,000 values with nulls, likewise; then
                 configs[0]'s flagship_stream, TPC-H Q1, Q6, Q7, Q12 and Q19
-                over SF10 LINEITEM, Q9 and Q16 over SF10 PART and
-                distributed_step, each compiled against optimize=False
+                over SF10 LINEITEM, Q9 and Q16 over SF10 PART, Q22 over
+                SF10 CUSTOMER and distributed_step, each plan's eager and
+                compiled node count printed, each compiled against
+                optimize=False
                 at full size, bit for bit (selection, count, values,
                 validities); rows/s of both routes (best of 3), the
                 generated kernel's time beside its byte bound and the
@@ -1278,7 +1287,8 @@ def string_scan_plain(batch, query: str):
     """The scan's selection and outputs in plain torch on the card: codes
     against the fixed dictionaries' codes (LINEITEM), or against a host
     table of the dictionary's values made with Python's ``in``,
-    ``startswith`` and ``!=`` (PART); decimals as int64 at their scale."""
+    ``startswith``, ``!=`` and slicing (PART, CUSTOMER); decimals as int64
+    at their scale."""
     from gandiva_tpu_torch import entrypoints as e
 
     c = {k: batch.column(k).data for k in batch.columns}
@@ -1315,6 +1325,10 @@ def string_scan_plain(batch, query: str):
     elif query == "Q9":
         keep = on_values("p_name", lambda v: e.Q9_COLOR in v)
         outs = {"p_partkey": c["p_partkey"]}
+    elif query == "Q22":
+        keep = (on_values("c_phone", lambda v: v[:2] in e.Q22_CODES)
+                & (c["c_acctbal"] > 0))        # the low limb: |v| < 2^63
+        outs = {"c_custkey": c["c_custkey"], "c_acctbal": c["c_acctbal"]}
     else:
         keep = (on_values("p_brand", lambda v: v != e.Q16_BRAND)
                 & on_values("p_type", lambda v: not v.startswith(
@@ -1327,8 +1341,8 @@ def string_scan_plain(batch, query: str):
 
 def string_scan_arrow(arrow, query: str):
     """The scan's predicate over an Arrow batch with pyarrow.compute
-    (match_like, is_in, equal, not_equal and the date and decimal
-    compares)."""
+    (match_like, is_in, equal, not_equal, utf8_slice_codeunits and the
+    date and decimal compares)."""
     import decimal
 
     import pyarrow as pa
@@ -1370,6 +1384,12 @@ def string_scan_arrow(arrow, query: str):
                    between(20, 30)))
     if query == "Q9":
         return pc.match_like(col["p_name"], f"%{e.Q9_COLOR}%")
+    if query == "Q22":
+        return pc.and_(
+            pc.is_in(pc.utf8_slice_codeunits(col["c_phone"], 0, 2),
+                     value_set=pa.array(list(e.Q22_CODES))),
+            pc.greater(col["c_acctbal"], pa.scalar(
+                decimal.Decimal("0.00"), pa.decimal128(3, 2))))
     return pc.and_(pc.and_(
         pc.not_equal(col["p_brand"], e.Q16_BRAND),
         pc.invert(pc.match_like(col["p_type"], f"{e.Q16_TYPE}%"))),
@@ -1435,21 +1455,25 @@ def table_split(plan_maker, batch) -> dict:
     return out
 
 
-def drive_string_scans(gt, dev, smi: str) -> dict:
-    """TPC-H's string scans: Q1 (with its two flags), Q12 and Q19 over
-    SF10's 59,986,052 LINEITEM rows made on the card, Q9 and Q16 over SF10
-    PART's 2,000,000 rows made on the host and brought in through
-    from_arrow. For each: rows/s of one synchronized evaluate_device (best
-    of 3), survivors, K1 launches, peak memory, the profiler's top 8 and
-    busy share, the host clock of a cold call against a memoised one
-    (``table_split``) and around K1 and the count's sync
-    (``host_split``); the selection and every output exact against plain
-    torch on the card, and against pyarrow.compute on LINEITEM's first
-    N_TPCH_PREFIX rows and on all of PART. Returns K1's launches by scan."""
+def drive_string_scans(gt, dev, smi: str):
+    """TPC-H's string scans, each plan compiled (one generated kernel, no
+    eager node: its string nodes read their host tables in the kernel),
+    then K1: Q1 (with its two flags), Q12 and Q19 over SF10's 59,986,052
+    LINEITEM rows made on the card, Q9 and Q16 over SF10 PART's 2,000,000
+    rows and Q22 over SF10 CUSTOMER's 1,500,000 rows, made on the host and
+    brought in through from_arrow. For each: rows/s of one synchronized
+    evaluate_device (best of 3), survivors, K1's and the plan kernel's
+    launches, peak memory, the profiler's top 8 and busy share, the host
+    clock of a cold call against a memoised one (``table_split``) and
+    around K1 and the count's sync (``host_split``); the selection and
+    every output exact against plain torch on the card, and against
+    pyarrow.compute on LINEITEM's first N_TPCH_PREFIX rows and on all of
+    PART and CUSTOMER. Returns K1's and the plan kernel's launches by
+    scan."""
     from gandiva_tpu_torch import entrypoints as e
     from gandiva_tpu_torch.ops.kernels import LAUNCHES, reset_launches
 
-    launches, report = {}, {}
+    launches, plan_launches, report = {}, {}, {}
     arrow_part = e.part_arrow(e.PART_SF10_ROWS, seed=21)
     ingest = []
     for _ in range(3):
@@ -1464,6 +1488,10 @@ def drive_string_scans(gt, dev, smi: str) -> dict:
     log(f"PART: {part.length} rows through from_arrow in "
         f"{[round(w, 4) for w in ingest]} s ({smi}); dictionaries {sizes}, "
         f"distinct/row {ratio:.6f}")
+    arrow_cust = e.customer_arrow(e.CUSTOMER_SF10_ROWS, seed=21)
+    cust = gt.from_arrow(arrow_cust, device=dev)
+    log(f"CUSTOMER: {cust.length} rows through from_arrow; c_phone's "
+        f"dictionary {len(cust.column('c_phone').dictionary)} values")
     lineitem = e.lineitem(e.LINEITEM_SF10_ROWS, seed=21, device=dev)
     prefix = lineitem.slice(0, N_TPCH_PREFIX)
     arrow_prefix = gt.to_arrow(prefix)
@@ -1471,11 +1499,16 @@ def drive_string_scans(gt, dev, smi: str) -> dict:
              ("Q12", e.tpch_q12_scan, lineitem, 1),
              ("Q19", e.tpch_q19_scan, lineitem, 1),
              ("Q9", e.tpch_q9_part_scan, part, 1),
-             ("Q16", e.tpch_q16_part_scan, part, 1))
+             ("Q16", e.tpch_q16_part_scan, part, 1),
+             ("Q22", e.tpch_q22_customer_scan, cust, 1))
     for query, make, batch, per_call in scans:
         n = batch.length
         split = table_split(lambda: make(dev), batch)
         plan = make(dev)
+        if plan._program is None or plan._program.count("eager") \
+                or plan._program.kernels != 1:
+            raise AssertionError(f"{query}: the plan is not one generated "
+                                 "kernel")
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         before = torch.cuda.memory_allocated()
@@ -1487,9 +1520,14 @@ def drive_string_scans(gt, dev, smi: str) -> dict:
             sel, out = plan.evaluate_device(batch)
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t)
-        key = f"TPC-H {query} {'PART' if batch is part else 'LINEITEM'}" \
-            " string scan"
+        table = ("PART" if batch is part else "CUSTOMER" if batch is cust
+                 else "LINEITEM")
+        key = f"TPC-H {query} {table} string scan"
         launches[key] = LAUNCHES["compact"]
+        plan_launches[f"phase 21 {key}"] = LAUNCHES["plan"]
+        if LAUNCHES["plan"] != 4:
+            raise AssertionError(f"{query}: the plan kernel launched "
+                                 f"{LAUNCHES['plan']} times, not 4")
         peak = torch.cuda.max_memory_allocated()
         if LAUNCHES["compact"] != 4 * per_call:
             raise AssertionError(f"{query}: K1 launched "
@@ -1515,12 +1553,16 @@ def drive_string_scans(gt, dev, smi: str) -> dict:
         if batch is part:
             held = hold_string_scan_arrow(plan, part, arrow_part, query)
             where = f"all {n} PART rows"
+        elif batch is cust:
+            held = hold_string_scan_arrow(plan, cust, arrow_cust, query)
+            where = f"all {n} CUSTOMER rows"
         else:
             held = hold_string_scan_arrow(plan, prefix, arrow_prefix, query)
             where = f"the first {N_TPCH_PREFIX} LINEITEM rows"
         log(f"{query} ({smi}): {n / min(walls):.6g} rows/s, walls_s="
             f"{[round(w, 6) for w in walls]}; {count} survivors "
-            f"({count / n:.4%}); K1 launches {launches[key]} (4 calls); "
+            f"({count / n:.4%}); K1 launches {launches[key]}, plan kernel "
+            f"launches {plan_launches[f'phase 21 {key}']} (4 calls); "
             f"max_memory_allocated={peak} (the path's own {peak - before});"
             f" exact against plain torch, and {held} survivors of {where} "
             f"against pyarrow.compute; table_builds {builds} over its 4 "
@@ -1545,8 +1587,8 @@ def drive_string_scans(gt, dev, smi: str) -> dict:
     log(json.dumps({"string_scans": {"card": smi, "part_from_arrow_s": ingest,
                                      "part_distinct_ratio": ratio,
                                      **report}}))
-    del lineitem, prefix, part
-    return launches
+    del lineitem, prefix, part, cust
+    return launches, plan_launches
 
 
 # -- phase 22: configs[4], TPC-H SF10 ORDERS ⋈ CUSTOMER over 4 partitions ---
@@ -1944,9 +1986,11 @@ def eager_config(gt):
 
 def emitter_signatures(gt):
     """(name, parameter type names, return type name) of every registry
-    entry with an emitter (compiler/codegen.py), decimals at DEC_TYPES,
-    every pair of them for the binary functions; castDECIMAL, whose return
-    type is the tree's, to the first and the last of DEC_TYPES."""
+    entry with an emitter (compiler/codegen.py) that names no string or
+    binary type (but isnull / isnotnull), decimals at DEC_TYPES, every pair of them for the binary
+    functions (the 256-bit multiply of two over 18 digits among them);
+    castDECIMAL, whose return type is the tree's, to the first and the
+    last of DEC_TYPES."""
     from gandiva_tpu_torch.registry import decimal_ops
 
     reg = gt.global_registry()
@@ -1962,6 +2006,10 @@ def emitter_signatures(gt):
                                       DEC_TYPES):
             continue
         rt = f.signature.return_type
+        if {"string", "binary"} & set(params + (str(rt),)) and \
+                f.signature.name not in ("isnull", "isnotnull"):
+            continue                        # string_emitter_plans'
+
         for ret in ((DEC_TYPES[0], DEC_TYPES[-1]) if rt is None
                     else (str(rt),)):
             sigs.add((f.signature.name, params, ret))
@@ -1992,6 +2040,86 @@ def emitter_plans(gt):
                                            dt.Field(f"o{i}", rt)))
         out.append((schema, exprs))
     return out
+
+
+STRING_EMIT_BATCHES = 4          # sources the string emitter hold builds
+CONCAT_NAMES = ("concat", "concatOperator", "||")
+
+
+def string_emitter_plans(gt):
+    """Every string and binary signature with an emitter (phase 20's
+    cases, but the per-row castVARCHAR / castVARBINARY of a number or a
+    decimal; concat of a column and a literal, since two columns stay
+    eager) in STRING_EMIT_BATCHES Projectors: (schema, expressions, each
+    column's (type, the case's name), the signatures). Case i reads
+    columns c<i>_a0 (and c<i>_a1), output o<i>."""
+    B, dt = gt.TreeExprBuilder, gt.dtypes
+    cases = [c for c in string_cases(gt)
+             if not (c[0] in ("castVARCHAR", "castVARBINARY")
+                     and c[1][0] not in ("string", "binary"))]
+    out = []
+    for part in range(STRING_EMIT_BATCHES):
+        fields, exprs, spec, sigs = [], [], {}, cases[part::STRING_EMIT_BATCHES]
+        for i, (name, params, ret) in enumerate(sigs):
+            two = name in STRING_TWO_COLUMNS and name not in CONCAT_NAMES
+            types = ("string",) if name in ("chr", "space", "locate") \
+                else params[:2 if two else 1]
+            mine = []
+            for j, t in enumerate(types):
+                f = dt.Field(f"c{i}_a{j}", gt.batch.parse_dtype(t))
+                spec[f.name] = (t, name)
+                mine.append(f)
+            fields += mine
+            if name in CONCAT_NAMES:
+                node = B.make_function(name, [B.make_field(mine[0]),
+                                              B.make_string_literal("-x")],
+                                       dt.string)
+            else:
+                node = string_expr(gt, name, params, ret, mine).root
+            exprs.append(B.make_expression(node, dt.Field(f"o{i}",
+                                                          node.dtype)))
+        out.append((dt.Schema(fields), exprs, spec, sigs))
+    return out
+
+
+def hold_string_emitters(gt, dev) -> dict:
+    """Every string and binary signature with an emitter compiled against
+    the eager route on the card over N_REGISTRY rows, dictionaries of
+    STRING_DICT values with REGISTRY_NULLS nulls, in STRING_EMIT_BATCHES
+    Projectors of one generated kernel each, nothing eager: values,
+    validities and a string output's dictionary by value equal."""
+    from gandiva_tpu_torch.ops.kernels import LAUNCHES
+
+    rng = np.random.default_rng(261)
+    t0 = time.perf_counter()
+    held = 0
+    for schema, exprs, spec, _ in string_emitter_plans(gt):
+        cols = {k: (t, *string_column(t, N_REGISTRY, rng, name))
+                for k, (t, name) in spec.items()}
+        batch = gt.from_columns_numpy(cols, N_REGISTRY, device=dev)
+        comp = gt.make_projector(schema, exprs, use_cache=False, device=dev)
+        eager = gt.make_projector(schema, exprs, config=eager_config(gt),
+                                  use_cache=False, device=dev)
+        if comp._program.count("eager") or comp._program.kernels != 1:
+            raise AssertionError("a string emitter signature stayed eager")
+        before = LAUNCHES["plan"]
+        got = comp.evaluate_device(batch)
+        if LAUNCHES["plan"] - before != 1:
+            raise AssertionError("the string plan did not launch once")
+        want = eager.evaluate_device(batch)
+        for e in exprs:
+            n = e.result_field.name
+            w = gt_column_cpu(want.column(n))
+            if not same_string_column(got.column(n), w):
+                raise AssertionError(f"{e.root.to_string()[:120]}: "
+                                     "compiled differs from eager")
+            held += 1
+    log(f"{held} string and binary signatures held, compiled against eager "
+        f"on the card, at {N_REGISTRY} rows, dictionaries of {STRING_DICT} "
+        f"values, {REGISTRY_NULLS:.0%} nulls, in {STRING_EMIT_BATCHES} "
+        f"generated kernels reading their host tables; "
+        f"{time.perf_counter() - t0:.1f}s")
+    return {"signatures": held}
 
 
 def emitter_column(t: str, side: str, n: int, rng):
@@ -2049,7 +2177,7 @@ def gt_column_cpu(c):
 
 def plan_sources(gt):
     """The generated sources of the entry points' plans and of the emitter
-    hold's Projectors, made as Make makes them (for a parallel build)."""
+    holds' Projectors, made as Make makes them (for a parallel build)."""
     from gandiva_tpu_torch import entrypoints as e
     from gandiva_tpu_torch.compiler import codegen
 
@@ -2057,10 +2185,13 @@ def plan_sources(gt):
         make("cpu") for make in (e.tpch_q1_scan, e.tpch_q6_scan,
                                  e.tpch_q7_scan, e.tpch_q12_scan,
                                  e.tpch_q19_scan,
-                                 e.tpch_q9_part_scan, e.tpch_q16_part_scan)]
+                                 e.tpch_q9_part_scan, e.tpch_q16_part_scan,
+                                 e.tpch_q22_customer_scan)]
     progs = [codegen.generate(p._roots, p._mask_root) for p in plans]
     progs += [codegen.generate([x.root for x in exprs])
               for _, exprs in emitter_plans(gt)]
+    progs += [codegen.generate([x.root for x in exprs])
+              for _, exprs, _, _ in string_emitter_plans(gt)]
     return [p.source for p in progs if p.kernels]
 
 
@@ -2276,6 +2407,14 @@ def drive_plan_compiler(gt, dev, smi: str) -> dict:
     from gandiva_tpu_torch.ops.kernels import LAUNCHES, reset_launches
 
     emitters = hold_emitters(gt, dev)
+    emitters["wide_multiply"] = sum(
+        1 for name, params, _ in emitter_signatures(gt)
+        if name == "multiply" and all(
+            p.startswith("decimal") and int(p[11:].split(",")[0]) > 18
+            for p in params))
+    log(f"of which the 256-bit decimal multiply (both operands of 19-38 "
+        f"digits): {emitters['wide_multiply']} signatures")
+    emitters["strings"] = hold_string_emitters(gt, dev)
     bw = peak_bandwidth(torch.cuda.get_device_name(0))
     eager_cfg = eager_config(gt)
 
@@ -2287,7 +2426,7 @@ def drive_plan_compiler(gt, dev, smi: str) -> dict:
     report, by_path = {}, {}
 
     def routes(what, comp_call, eager_call, rows, region, make,
-               kernel=True):
+               kernel=True, plan=None):
         make_s = make_times(gt, make, eager_cfg)
         reset_launches()
         comp_call()
@@ -2302,8 +2441,17 @@ def drive_plan_compiler(gt, dev, smi: str) -> dict:
              "eager_launches": count_launches(eager_call)}
         if region is not None:
             r.update(region)
+        if plan is not None:
+            r["eager_nodes"] = plan._program.count("eager")
+            r["compiled_nodes"] = plan._program.count("compiled")
+            r["host_tables"] = sum(len(st.tables)
+                                   for st in plan._program.stages)
         r["make_s"] = make_s
         report[what] = r
+        if plan is not None:
+            log(f"{what}: Program.count('eager') = {r['eager_nodes']}, "
+                f"compiled nodes {r['compiled_nodes']}, host tables read in "
+                f"the kernel {r['host_tables']}")
         log(f"{what} ({smi}): compiled {r['compiled_rows_per_s']:.6g} "
             f"rows/s, eager {r['eager_rows_per_s']:.6g} rows/s; launches a "
             f"call {r['compiled_launches']} / {r['eager_launches']}"
@@ -2351,7 +2499,7 @@ def drive_plan_compiler(gt, dev, smi: str) -> dict:
         routes(f"TPC-H {q} scan", lambda: comp.evaluate_device(batch),
                lambda: eag.evaluate_device(batch), n,
                kernel_region(comp, eag, comp._cols_of(batch), n, bw,
-                             batch), lambda: [make(dev)])
+                             batch), lambda: [make(dev)], plan=comp)
         if q == "Q7":
             # the whole plan one generated kernel, then K1
             if comp._program.count("eager") or comp._program.kernels != 1:
@@ -2365,20 +2513,25 @@ def drive_plan_compiler(gt, dev, smi: str) -> dict:
                 f"{k1['payload_bytes_a_row']} B of payloads a survivor")
     del batch
 
-    # the PART scans at SF10 (Q9's plan has no compiled node: no kernel)
+    # the PART scans and Q22's CUSTOMER scan at SF10: their string nodes
+    # read host tables in the one generated kernel
     part = e.part(e.PART_SF10_ROWS, seed=26, device=dev)
-    for q, make in (("Q9", e.tpch_q9_part_scan),
-                    ("Q16", e.tpch_q16_part_scan)):
+    cust = e.customer(e.CUSTOMER_SF10_ROWS, seed=26, device=dev)
+    for q, make, b in (("Q9", e.tpch_q9_part_scan, part),
+                       ("Q16", e.tpch_q16_part_scan, part),
+                       ("Q22", e.tpch_q22_customer_scan, cust)):
         comp = make(dev)
         eag = eager_of(comp)
-        hold_scan(comp.evaluate_device(part), eag.evaluate_device(part),
+        if comp._program.count("eager") or comp._program.kernels != 1:
+            raise AssertionError(f"{q}: the plan is not one kernel")
+        hold_scan(comp.evaluate_device(b), eag.evaluate_device(b),
                   f"TPC-H {q}")
-        region = None if comp._library is None else kernel_region(
-            comp, eag, comp._cols_of(part), e.PART_SF10_ROWS, bw, part)
-        routes(f"TPC-H {q} part scan", lambda: comp.evaluate_device(part),
-               lambda: eag.evaluate_device(part), e.PART_SF10_ROWS, region,
-               lambda: [make(dev)], kernel=region is not None)
-    del part
+        region = kernel_region(comp, eag, comp._cols_of(b), b.length, bw, b)
+        routes(f"TPC-H {q} {'customer' if b is cust else 'part'} scan",
+               lambda: comp.evaluate_device(b),
+               lambda: eag.evaluate_device(b), b.length, region,
+               lambda: [make(dev)], plan=comp)
+    del part, cust
 
     # distributed_step: one configs[0] batch as 4 partitions
     g = torch.Generator(device=dev)
@@ -3631,9 +3784,10 @@ def main() -> int:
     string_route_syncs(gt, dev)
 
     # -- 21. TPC-H string scans at SF10 ----------------------------------
-    phase("main path: TPC-H string scans (Q1, Q12, Q19 over LINEITEM; Q9, "
-          "Q16 over PART; SF10)")
-    k1_by_path.update(drive_string_scans(gt, dev, smi))
+    phase("main path: TPC-H string scans compiled (Q1, Q12, Q19 over "
+          "LINEITEM; Q9, Q16 over PART; Q22 over CUSTOMER; SF10)")
+    scan_k1, scan_plan_launches = drive_string_scans(gt, dev, smi)
+    k1_by_path.update(scan_k1)
 
     # -- 22. configs[4]: SF10 ORDERS ⋈ CUSTOMER over 4 partitions ---------
     phase("main path: configs[4] filter→join→agg→sort, TPC-H SF10 ORDERS ⋈ "
@@ -3763,7 +3917,7 @@ def main() -> int:
         "launches_by_path": {
             "configs[0] Arrow entry point": arrow_plan_launches,
             "configs[0] flagship_stream": stream_plan_launches,
-            **plan_by_path},
+            **scan_plan_launches, **plan_by_path},
         "matches_plain": True,
         "max_abs_err": 0.0,
         "ms": flagship_region["kernel_ms"],

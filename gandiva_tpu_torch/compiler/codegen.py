@@ -10,20 +10,33 @@ input column once and writing only what the rest of the plan reads.
 Which nodes compile is fixed here, at Make:
 
 - a function node compiles when its registry entry has an emitter
-  (``NativeFunction.emit``), which every fixed-width entry has: arithmetic,
-  compares, bitwise operations and shifts, the isnull family,
-  ``is_distinct_from``, ``nvl``, numeric casts, the math functions,
-  rounding, hashes, the date/time and interval functions, and the decimal
-  arithmetic, compares, casts and rounding;
-- if, boolean (Kleene and/or) and numeric IN nodes compile unless they are
-  of a string or binary type (or, for IN, decimal);
-- the function nodes without an emitter stay eager: ``ExprDecomposer``
-  evaluates them before the kernel, and each value becomes a kernel input,
-  as XLA treats a custom call. Those are the string and binary functions
-  and their host tables, ``random`` (its draws are the eager route's) and
-  the 256-bit decimal multiply (both operands over 18 digits);
+  (``NativeFunction.emit``), which every entry has but ``random`` (its
+  draws are the eager route's ``torch.Generator`` stream) and the per-row
+  string routes, which read device values back to the host:
+  castVARCHAR / castVARBINARY of a number or a decimal, and concat of two
+  strings neither of which is a literal (``eager_if``: it may take its
+  per-row route, decided per batch on the host);
+- if, boolean (Kleene and/or) and IN nodes compile, but IN over a decimal;
+- the function nodes that do not compile stay eager: ``ExprDecomposer``
+  evaluates them before the kernel, and each value becomes a kernel
+  input, as XLA treats a custom call;
 - fields and literals are leaves: a field is a kernel input, a literal a
-  constant in the source, written by its bits.
+  constant in the source, written by its bits (a string literal is code 0
+  of its one-entry dictionary).
+
+Strings and binaries compile as the reference's ``jax.jit(self._run)``
+fuses its ``tables`` argument: the dictionary work stays on the host, and
+the kernel reads the host tables. A string value in the kernel is its
+int32 code. A string → scalar function, a string compare, an IN over a
+string and an if/else of strings each declare their tables at Make
+(``g.table``), and the kernel reads ``table[clamp(code)]`` a row; a
+string → string function passes its argument's code on. At evaluate time
+each such node's host side (``NativeFunction.host``; ``merge_dictionaries``
+and ``string_in_table`` for if/else and IN) builds its tables through
+``TraceContext.add_table``, memoized by the node's key, and each table is
+passed to the launch as a pointer and a length. The source holds no
+dictionary-dependent value, so one library serves every batch and
+dictionary.
 
 Over a selection vector (``Projector.evaluate(selection=...)``, the
 counterpart of ``jax.jit(self._run_selected)``) a kernel reads each field
@@ -45,9 +58,15 @@ with ``args`` a list of ``CArg`` (``v``: the C expression of the value,
 ``m``: of its validity, ``dtype``); it returns the C expression of the
 value (null-if-null: the validity is the AND of the arguments'), or a
 ``(value, validity)`` pair, validity None meaning always valid (null-never
-and null-internal functions). ``g.error(pred, args, message)`` records a
-runtime-error site (Configuration.raise_errors); ``g.tmp(ctype, expr)``
-names an intermediate.
+and null-internal functions), or a ``CArg`` (a literal result: chr,
+space). ``g.error(pred, args, message)`` records a runtime-error site
+(Configuration.raise_errors); ``g.tmp(ctype, expr)`` names an
+intermediate; ``g.table(ctype, code)`` declares the node's next host
+table, of C type ``ctype``, in the order its host side builds them, and
+returns the C expression of its entry at ``code``, clamped into the table.
+An emitter may carry ``literal = True``: its value is a literal; and
+``eager_if(lits)``: the node stays eager, given which arguments are
+literals.
 """
 from __future__ import annotations
 
@@ -56,6 +75,7 @@ from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from .. import dtypes as dt
 from ..expr.nodes import (BooleanNode, FieldNode, FunctionNode, IfNode,
@@ -81,6 +101,17 @@ _CTYPES = {
     dt.TypeKind.STRING: "int32_t", dt.TypeKind.BINARY: "int32_t",
     dt.TypeKind.DECIMAL128: "gt_i128",
 }
+
+# the torch dtype of a host table the kernel reads as each C type
+TABLE_DTYPES = {"bool": torch.bool, "int8_t": torch.int8,
+                "int32_t": torch.int32, "int64_t": torch.int64,
+                "float": torch.float32, "double": torch.float64}
+
+
+def table_ctype(np_dtype) -> str:
+    """The C type the kernel reads a host table of numpy ``np_dtype`` as."""
+    t = torch.from_numpy(np.empty(0, np_dtype)).dtype
+    return next(c for c, d in TABLE_DTYPES.items() if d == t)
 
 
 def ctype(t: dt.DataType) -> str:
@@ -186,12 +217,18 @@ class Port:
 
 @dataclasses.dataclass
 class Stage:
-    """Eager nodes (keys, children first), then one kernel over ``inputs``
-    writing ``outputs`` (none for the eager nodes after the last kernel)."""
+    """Eager nodes (keys, children first), then the host side of the
+    compiled nodes that read host tables (``hosts``), then one kernel over
+    ``inputs`` and ``tables`` (node key, its table's order within the node,
+    C type) writing ``outputs`` (none for the eager nodes after the last
+    kernel)."""
     index: int
     eager: List[Key]
     inputs: List[Port]
     outputs: List[Port]
+    hosts: List[Key] = dataclasses.field(default_factory=list)
+    tables: List[Tuple[Key, int, str]] = dataclasses.field(
+        default_factory=list)
 
     @property
     def launches(self) -> bool:
@@ -228,16 +265,28 @@ class Program:
                        and (len(key) == 1 or self.kinds[key[:-1]] == "eager")})
 
 
-def _route(node: Node, fn) -> str:
+def _route(node: Node, fn, lits) -> str:
     if isinstance(node, (LiteralNode, FieldNode)):
         return "leaf"
     if isinstance(node, FunctionNode):
-        ok = fn.emit is not None and not node.dtype.is_varlen
+        eager_if = getattr(fn.emit, "eager_if", None)
+        ok = fn.emit is not None and not (eager_if and eager_if(lits))
     elif isinstance(node, InNode):
-        ok = not (node.value_dtype.is_varlen or node.value_dtype.is_decimal)
+        ok = not node.value_dtype.is_decimal
     else:
-        ok = not node.dtype.is_varlen
+        ok = True
     return "compiled" if ok else "eager"
+
+
+def needs_host(node: Node, fn) -> bool:
+    """A compiled node whose host side runs before its kernel: a string
+    entry's (``NativeFunction.host``), an if/else of strings, an IN over a
+    string."""
+    if isinstance(node, FunctionNode):
+        return fn.host is not None
+    if isinstance(node, IfNode):
+        return node.dtype.is_varlen
+    return isinstance(node, InNode) and node.value_dtype.is_varlen
 
 
 class _Emitter:
@@ -249,9 +298,11 @@ class _Emitter:
         self.lines: List[str] = []
         self.inputs: Dict[object, Tuple[Port, str]] = {}
         self.in_ports: List[Port] = []
+        self.tables: List[Tuple[Key, int, str]] = []
         self.n = 0
         self._key: Key = ()
         self._sub = 0
+        self._tabs = 0
 
     # -- the emitter protocol ------------------------------------------
     def tmp(self, ct: str, expr: str) -> str:
@@ -269,6 +320,12 @@ class _Emitter:
         self._sub += 1
         cond = _and([pred] + [a.m for a in args] + ["i < len"])
         self.lines.append(f"  if ({cond}) gt_flag(a.flags, {site});")
+
+    def table(self, ct: str, code: str) -> str:
+        name = f"tb{len(self.tables)}"
+        self.tables.append((self._key, self._tabs, ct))
+        self._tabs += 1
+        return f"{name}[gt_code({code}, {name}_n)]"
 
     # -- inputs ----------------------------------------------------------
     def _input(self, ref, t: dt.DataType, key: Key) -> CArg:
@@ -297,17 +354,26 @@ class _Emitter:
         if kind == "eager" or prog.stage[key] < self.stage:
             return self._input(("node", key), node.dtype, key)
         kids = [self.node(key + (j,)) for j in range(len(children(node)))]
-        self._key, self._sub = key, 0
+        self._key, self._sub, self._tabs = key, 0, 0
         if isinstance(node, FunctionNode):
-            value, valid = self._function(key, node, kids)
+            out = self._function(key, node, kids)
+            if isinstance(out, CArg):
+                return out
+            value, valid = out
         elif isinstance(node, IfNode):
             c, th, el = kids
             sel = self.tmp("bool", _and([c.v, c.m]))
+            if node.dtype.is_varlen:
+                # each branch's code remapped into the merged dictionary
+                th = dataclasses.replace(th, v=self.table("int32_t", th.v))
+                el = dataclasses.replace(el, v=self.table("int32_t", el.v))
             value = f"{sel} ? {th.v} : {el.v}"
             valid = "true" if th.m == el.m == "true" else \
                 f"{sel} ? {th.m} : {el.m}"
         elif isinstance(node, BooleanNode):
             value, valid = self._boolean(node.op, kids)
+        elif node.value_dtype.is_varlen:
+            value, valid = self.table("bool", kids[0].v), kids[0].m
         else:
             value, valid = self._in(node, kids[0])
         v = self.tmp(ctype(node.dtype), value)
@@ -317,6 +383,8 @@ class _Emitter:
     def _function(self, key: Key, node: FunctionNode, kids: List[CArg]):
         fn = self.prog.fns[key]
         out = fn.emit(self, kids, node.dtype)
+        if isinstance(out, CArg):
+            return out
         if isinstance(out, tuple):
             value, valid = out
             return value, "true" if valid is None else valid
@@ -356,6 +424,7 @@ class _Builder:
         self.parent: Dict[Key, Optional[Key]] = {}
         self.stage: Dict[Key, int] = {}
         self.avail: Dict[Key, int] = {}
+        self.literal: Dict[Key, bool] = {}
         self.sites: List[Tuple[int, int, str]] = []
         reg = global_registry()
         for i, root in enumerate(self.roots):
@@ -373,8 +442,14 @@ class _Builder:
         self.nodes[key] = node
         self.parent[key] = parent
         self.post[key] = len(self.post)
-        kind = _route(node, fn)
+        lits = [self.literal[key + (j,)]
+                for j in range(len(children(node)))]
+        kind = _route(node, fn, lits)
         self.kinds[key] = kind
+        # a literal value: a literal, or chr / space of one
+        self.literal[key] = isinstance(node, LiteralNode) or (
+            kind == "compiled" and getattr(getattr(fn, "emit", None),
+                                           "literal", False))
         # stage of a compiled node: the first kernel after every eager
         # value it reads; an eager node can run once the kernels of the
         # compiled values it reads have
@@ -446,6 +521,9 @@ class _Builder:
             outs = [k for k in order if self.kinds[k] == "compiled"
                     and self.stage[k] == s and self._materialized(k)]
             stage = Stage(s, eager, [], [])
+            stage.hosts = [k for k in order if self.kinds[k] == "compiled"
+                           and self.stage[k] == s
+                           and needs_host(self.nodes[k], self.fns.get(k))]
             if outs:
                 bodies.append(self._stage_body(stage, outs))
             stages.append(stage)
@@ -461,12 +539,16 @@ class _Builder:
             t = self.nodes[key].dtype
             mask = self.mask_root and key == (0,)
             writes.append((Port(("node", key), t, 0, mask), val))
-        # number the pointers: inputs first, then outputs
+        # number the pointers: inputs first, then the tables, then outputs
         k = 0
         for port in em.in_ports:
             port.first = k
             k += port.pointers
         reads = []
+        for j, (_, _, ct) in enumerate(em.tables):
+            reads += [f"  const {ct}* tb{j} = (const {ct}*)a.p[{k}];",
+                      f"  const int64_t tb{j}_n = a.tn[{j}];"]
+            k += 1
         if any(port.ref[0] == "field" for port in em.in_ports):
             # a field is read at its selected row r = sel[i] (i itself
             # without a selection); rows i >= len of a selection are null
@@ -506,13 +588,16 @@ class _Builder:
                              f"{val.v};")
             lines.append(f"  GT_OUT(bool, {f + port.limbs}) = {val.m};")
         stage.inputs = em.in_ports
+        stage.tables = em.tables
         stage.outputs = [p for p, _ in writes]
         s = stage.index
         npt = max(1, k)
+        ntb = max(1, len(em.tables))
         return "\n".join([
             f"struct gt_args_{s} {{",
             f"  void* p[{npt}];",
             f"  uint64_t sc[{(npt + 63) // 64}];",
+            f"  int64_t tn[{ntb}];",
             "  const void* len_ptr;",
             "  const void* sel;",
             "  int64_t len;",
@@ -539,13 +624,14 @@ class _Builder:
             "#endif",
             "",
             f"extern \"C\" int gt_plan_run_{s}(void* const* p, "
-            "const uint64_t* sc, const void* len_ptr, int len_bytes, "
-            "int64_t len, int64_t n, const void* sel, int sel_bytes, "
-            "unsigned int* flags, int blocks, void* stream) {",
+            "const uint64_t* sc, const int64_t* tn, const void* len_ptr, "
+            "int len_bytes, int64_t len, int64_t n, const void* sel, "
+            "int sel_bytes, unsigned int* flags, int blocks, void* stream) {",
             f"  gt_args_{s} a;",
             f"  for (int k = 0; k < {npt}; ++k) a.p[k] = p[k];",
             f"  for (int k = 0; k < {(npt + 63) // 64}; ++k) a.sc[k] = "
             "sc[k];",
+            f"  for (int k = 0; k < {ntb}; ++k) a.tn[k] = tn[k];",
             "  a.len_ptr = len_ptr;",
             "  a.len = len;",
             "  a.n = n;",

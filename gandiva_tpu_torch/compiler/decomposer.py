@@ -27,7 +27,7 @@ dtype, so torch's 0-d type promotion never widens a result.
 from __future__ import annotations
 
 from functools import reduce
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -63,6 +63,7 @@ class TraceContext:
         self.consts = {} if consts is None else consts
         self.batch = batch
         self._tables = tables
+        self._node: Tuple[int, ...] = ()
         self._table_idx = 0
         self.table_builds = 0
         self._seed = seed
@@ -73,6 +74,12 @@ class TraceContext:
         self.error_flags: List[Any] = []
         self.error_messages: List[str] = []
 
+    def at(self, key: Tuple[int, ...]) -> None:
+        """Enter the node at ``key`` (its root's index, then its child
+        indices, as codegen numbers them): its tables are numbered from 0."""
+        self._node = key
+        self._table_idx = 0
+
     def add_table(self, thunk: Callable, cache_on_dicts: bool = False
                   ) -> torch.Tensor:
         """Run a host table builder and return its table on the device.
@@ -81,14 +88,16 @@ class TraceContext:
         (the analogue of Gandiva's holders). ``cache_on_dicts=True``
         declares it a pure function of the batch's DICTIONARIES (not codes
         or values): the plan then memoizes the uploaded table, by the
-        table's place in the plan, while every dictionary object and the
-        capacity stay the same (``_CompiledPlan._table_memo``), and a
-        later evaluation neither rebuilds nor uploads it."""
+        table's place in the plan (its node's key and its order within
+        the node, the same on the eager and the compiled route), while
+        every dictionary object and the capacity stay the same
+        (``_CompiledPlan._table_memo``), and a later evaluation neither
+        rebuilds nor uploads it."""
         if self.batch is None:
             raise ValueError("this plan needs host tables (string "
                              "functions), so it evaluates per Batch; "
                              "stream_fn and raw column calls cannot run it")
-        i = self._table_idx
+        i = (self._node, self._table_idx)
         self._table_idx += 1
         memo = self._tables if cache_on_dicts else None
         if memo is not None and i in memo:
@@ -169,11 +178,30 @@ def as_valid_mask(v: Val, capacity: int, device):
 
 
 class ExprDecomposer:
+    """Evaluates trees node by node. Each node has a key (its root's index,
+    then its child indices, as codegen numbers them): ``decompose`` called
+    on the roots in order numbers them 0, 1, …; the key of the node being
+    evaluated is handed to ``ctx.at`` before its host tables are built."""
+
     def __init__(self, ctx: TraceContext):
         self.ctx = ctx
         self.registry = global_registry()
+        self._at = [(), 0]              # (parent key, next child index)
 
     def decompose(self, node: Node) -> Val:
+        parent, j = self._at
+        self._at[1] += 1
+        saved, self._at = self._at, [parent + (j,), 0]
+        try:
+            return self._node(node)
+        finally:
+            self._at = saved
+
+    def _enter(self) -> None:
+        """The current node's children are evaluated: enter the node."""
+        self.ctx.at(self._at[0])
+
+    def _node(self, node: Node) -> Val:
         if isinstance(node, LiteralNode):
             return self._literal(node)
         if isinstance(node, FieldNode):
@@ -251,6 +279,7 @@ class ExprDecomposer:
         arg_types = [a.dtype for a in args]
         decimal_ops.ensure_registered(arg_types)
         fn = self.registry.lookup_or_raise(node.name, arg_types)
+        self._enter()
         rt = fn.signature.return_type
         if rt is not None and rt != node.dtype:
             raise ExpressionValidationError(
@@ -283,14 +312,17 @@ class ExprDecomposer:
             raise ExpressionValidationError(
                 f"if branches must both return {node.dtype}; got "
                 f"{then_v.dtype} / {else_v.dtype}")
+        self._enter()
         sel = cond.value
         if cond.validity is not None:
             sel = torch.logical_and(sel, cond.validity)
         dict_thunk = None
         if node.dtype.is_varlen:
-            then_codes, else_codes, dict_thunk = self._merge_dictionaries(
-                then_v, else_v, node.dtype)
-            value = torch.where(sel, then_codes, else_codes)
+            (t_then, t_else), dict_thunk = merge_dictionaries(
+                self.ctx, then_v, else_v, node.dtype)
+            value = torch.where(
+                sel, gather_by_code(t_then, self._codes(then_v)),
+                gather_by_code(t_else, self._codes(else_v)))
         elif isinstance(then_v.value, tuple):  # decimal limb pairs
             value = tuple(torch.where(sel, t, e)
                           for t, e in zip(then_v.value, else_v.value))
@@ -304,48 +336,13 @@ class ExprDecomposer:
                                    as_valid_mask(else_v, cap, dev))
         return Val(value, validity, node.dtype, dict_thunk=dict_thunk)
 
-    def _branch_dictionary(self, v: Val, arrow_type):
-        """A string branch's (dictionary thunk, codes): a column's or a
-        computed string's own; a literal's one entry at code 0; a null
-        literal's empty dictionary."""
-        if v.dict_thunk is not None:
-            return v.dict_thunk, v.value
-        import pyarrow as pa
-
-        entries = pa.array([] if v.literal is None else [v.literal],
-                           type=arrow_type)
-        zero = self._const(("zero", dt.int32), lambda: np.zeros(
+    def _codes(self, v: Val):
+        """A string value's codes; a string literal's is 0, its one-entry
+        dictionary's (``merge_dictionaries``)."""
+        if v.dict_thunk is not None or v.value is not None:
+            return v.value
+        return self._const(("zero", dt.int32), lambda: np.zeros(
             (), dtype=np.int32))
-        return (lambda batch, _d=entries: _d), zero
-
-    def _merge_dictionaries(self, then_v: Val, else_v: Val, dtype):
-        """The branches' codes remapped into one dictionary: their
-        distinct values, the then-branch's first. Returns (then codes,
-        else codes, the merged dictionary's thunk); the two remap tables
-        are host tables memoized on the batch's dictionaries."""
-        import pyarrow as pa
-
-        arrow_type = pa.string() if dtype.kind is dt.TypeKind.STRING \
-            else pa.binary()
-        branches = [self._branch_dictionary(v, arrow_type)
-                    for v in (then_v, else_v)]
-
-        def merged(batch):
-            values = [x for thunk, _ in branches
-                      for x in thunk(batch).to_pylist()]
-            return pa.array(list(dict.fromkeys(values)), type=arrow_type)
-
-        codes = []
-        for thunk, branch_codes in branches:
-            def remap(batch, _thunk=thunk):
-                at = {x: i for i, x in enumerate(merged(batch).to_pylist())}
-                return at_least_one(np.array(
-                    [at[x] for x in _thunk(batch).to_pylist()],
-                    dtype=np.int32), 0)
-
-            table = self.ctx.add_table(remap, cache_on_dicts=True)
-            codes.append(gather_by_code(table, branch_codes))
-        return codes[0], codes[1], merged
 
     def _boolean(self, node: BooleanNode) -> Val:
         kids = [self.decompose(c) for c in node.children]
@@ -379,24 +376,76 @@ class ExprDecomposer:
             raise ExpressionValidationError(
                 f"Evaluation expression for IN clause returns {ev.dtype} "
                 f"values are of type {node.value_dtype}")
+        self._enter()
         if node.value_dtype.is_varlen:
-            # membership decided per distinct dictionary value on the host
-            dict_thunk = ev.dict_thunk
-            if dict_thunk is None:
-                raise ExpressionValidationError(
-                    "IN on string requires a dictionary-backed input")
-            values = {v if isinstance(v, (str, bytes)) else str(v)
-                      for v in node.values}
-
-            def thunk(batch, _dt=dict_thunk, _vals=values):
-                return at_least_one(np.array(
-                    [x in _vals for x in _dt(batch).to_pylist()],
-                    dtype=bool), False)
-
-            table = self.ctx.add_table(thunk, cache_on_dicts=True)
+            table = string_in_table(self.ctx, ev, node)
             return Val(gather_by_code(table, ev.value), ev.validity,
                        dt.bool_)
         d = node.value_dtype
         vals = self._const(("in", node), lambda: np.array(
             sorted(node.values), dtype=d.np_dtype).view(d.storage_np_dtype))
         return Val(torch.isin(ev.value, vals), ev.validity, dt.bool_)
+
+
+# ---------------------------------------------------------------------------
+# the host side of string if/else and IN, which both routes run: a compiled
+# plan reads these tables in its kernel, the eager route gathers them
+# ---------------------------------------------------------------------------
+
+def _branch_dictionary(v: Val, arrow_type):
+    """A string branch's dictionary thunk: a column's or a computed
+    string's own; a literal's one entry (at code 0); a null literal's
+    empty dictionary."""
+    if v.dict_thunk is not None:
+        return v.dict_thunk
+    import pyarrow as pa
+
+    entries = pa.array([] if v.literal is None else [v.literal],
+                       type=arrow_type)
+    return lambda batch, _d=entries: _d
+
+
+def merge_dictionaries(ctx: TraceContext, then_v: Val, else_v: Val, dtype):
+    """The branches' codes remapped into one dictionary: their distinct
+    values, the then-branch's first. Returns ([then remap table, else
+    remap table], the merged dictionary's thunk); the tables are host
+    tables memoized on the batch's dictionaries, and a literal branch's
+    code is 0."""
+    import pyarrow as pa
+
+    arrow_type = pa.string() if dtype.kind is dt.TypeKind.STRING \
+        else pa.binary()
+    branches = [_branch_dictionary(v, arrow_type) for v in (then_v, else_v)]
+
+    def merged(batch):
+        values = [x for thunk in branches for x in thunk(batch).to_pylist()]
+        return pa.array(list(dict.fromkeys(values)), type=arrow_type)
+
+    tables = []
+    for thunk in branches:
+        def remap(batch, _thunk=thunk):
+            at = {x: i for i, x in enumerate(merged(batch).to_pylist())}
+            return at_least_one(np.array(
+                [at[x] for x in _thunk(batch).to_pylist()],
+                dtype=np.int32), 0)
+
+        tables.append(ctx.add_table(remap, cache_on_dicts=True))
+    return tables, merged
+
+
+def string_in_table(ctx: TraceContext, ev: Val, node: InNode):
+    """IN over a string: membership decided per distinct dictionary value
+    on the host, a bool table by code."""
+    dict_thunk = ev.dict_thunk
+    if dict_thunk is None:
+        raise ExpressionValidationError(
+            "IN on string requires a dictionary-backed input")
+    values = {v if isinstance(v, (str, bytes)) else str(v)
+              for v in node.values}
+
+    def thunk(batch, _dt=dict_thunk, _vals=values):
+        return at_least_one(np.array(
+            [x in _vals for x in _dt(batch).to_pylist()],
+            dtype=bool), False)
+
+    return ctx.add_table(thunk, cache_on_dicts=True)

@@ -9,9 +9,9 @@ body's own float products and sums go through the prelude's ``gt_fmul`` /
 ``gt_fadd`` (round-to-nearest intrinsics nvcc never contracts), so a
 compiled ``a*b + c`` rounds the product first, as the eager route does.
 The result is a shared library with a plain C interface,
-loaded with ``ctypes``. Each stage's launcher takes the column pointers,
-copies them into one struct and passes it to the kernel by value, on the
-current torch stream.
+loaded with ``ctypes``. Each stage's launcher takes the column and host
+table pointers and the tables' lengths, copies them into one struct and
+passes it to the kernel by value, on the current torch stream.
 
 Libraries are cached on disk under ``build/plans/`` at the root of the
 checkout (``config.plan_cache_dir``; ``build/`` is in ``.gitignore``),
@@ -117,9 +117,10 @@ class Library:
     """A loaded plan library: ``run(stage, ...)`` calls the stage's
     launcher and raises on a non-zero status (a refused launch)."""
 
-    _ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-             ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int,
-             ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    _ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_int64,
+             ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+             ctypes.c_void_p]
 
     def __init__(self, path: Path, backend: str):
         self.path = path
@@ -140,17 +141,19 @@ class Library:
         return fn
 
     def run(self, stage: int, pointers: Sequence[int], scalar: Sequence[bool],
-            len_ptr: Optional[int], len_bytes: int, length: int, n: int,
-            sel: Optional[int], sel_bytes: int, flags: Optional[int],
-            blocks: int, stream: Optional[int]) -> None:
+            table_lengths: Sequence[int], len_ptr: Optional[int],
+            len_bytes: int, length: int, n: int, sel: Optional[int],
+            sel_bytes: int, flags: Optional[int], blocks: int,
+            stream: Optional[int]) -> None:
         words = [0] * max(1, -(-len(pointers) // 64))
         for k, s in enumerate(scalar):
             if s:
                 words[k >> 6] |= 1 << (k & 63)
         ptrs = (ctypes.c_void_p * max(1, len(pointers)))(*pointers)
         sc = (ctypes.c_uint64 * len(words))(*words)
-        rc = self._fn(stage)(ptrs, sc, len_ptr, len_bytes, length, n, sel,
-                             sel_bytes, flags, blocks, stream)
+        tn = (ctypes.c_int64 * max(1, len(table_lengths)))(*table_lengths)
+        rc = self._fn(stage)(ptrs, sc, tn, len_ptr, len_bytes, length, n,
+                             sel, sel_bytes, flags, blocks, stream)
         if rc != 0:
             raise RuntimeError(f"plan kernel {stage} of {self.path.name} "
                                f"failed to launch: CUDA error {rc}")

@@ -45,7 +45,8 @@ import torch
 from .. import dtypes as dt
 from ..batch import Batch, Column, column_to_arrow, from_arrow
 from ..device import DEFAULT_DEVICE, resolve_device
-from ..expr.nodes import Condition, Expression, FunctionNode, Node
+from ..expr.nodes import (Condition, Expression, FieldNode, FunctionNode,
+                          IfNode, LiteralNode, Node)
 from ..ops.compaction import compact_best
 from ..ops.kernels import LAUNCHES
 from ..registry.numeric import torch_dtype
@@ -55,7 +56,8 @@ from ..registry.registry import (EvaluationError,
 from . import codegen, jit, validator
 from .codegen import children as _children
 from .config import Configuration, ConfigurationBuilder
-from .decomposer import ExprDecomposer, TraceContext, as_valid_mask
+from .decomposer import (ExprDecomposer, TraceContext, as_valid_mask,
+                         merge_dictionaries, string_in_table)
 from .selection import (SelectionMode, SelectionVector,
                         check_uint16_capacity, mode_index_dtype)
 
@@ -100,15 +102,13 @@ def _condition_mask(ctx: TraceContext, v: Val):
 
 
 class _KeyedDecomposer(ExprDecomposer):
-    """The decomposer of a compiled plan's eager nodes: each node has a key
-    (its root's index, then its child indices, as codegen numbers them),
-    and a node whose Val is in ``known`` (a kernel's output or an eager
-    node already evaluated) is not evaluated again."""
+    """The decomposer of a compiled plan's eager nodes: a node whose Val is
+    in ``known`` (a kernel's output or an eager node already evaluated),
+    by its key, is not evaluated again."""
 
     def __init__(self, ctx: TraceContext):
         super().__init__(ctx)
         self.known: Dict[codegen.Key, Val] = {}
-        self._at = [(), 0]              # (parent key, next child index)
 
     def decompose_at(self, key: codegen.Key, node: Node) -> Val:
         saved, self._at = self._at, [key[:-1], key[-1]]
@@ -119,15 +119,34 @@ class _KeyedDecomposer(ExprDecomposer):
 
     def decompose(self, node: Node) -> Val:
         parent, j = self._at
-        self._at[1] += 1
         key = parent + (j,)
         if key in self.known:
+            self._at[1] += 1
             return self.known[key]
-        saved, self._at = self._at, [key, 0]
-        try:
-            return super().decompose(node)
-        finally:
-            self._at = saved
+        return super().decompose(node)
+
+    def host_arg(self, key: codegen.Key, node: Node) -> Val:
+        """A compiled node's argument on its host side, which reads no
+        value: its Val in ``known`` (an eager node's, a kernel output's or
+        an earlier host side's), a field's dictionary, a literal, or else
+        its type alone."""
+        if key in self.known:
+            return self.known[key]
+        if isinstance(node, FieldNode):
+            return Val(None, None, node.dtype,
+                       dict_thunk=_field_dictionary(node.field.name)
+                       if node.dtype.is_varlen else None,
+                       source_field=node.field.name)
+        if isinstance(node, LiteralNode):
+            return self._literal(node)
+        return Val(None, None, node.dtype)
+
+
+def _field_dictionary(name: str):
+    """A string field's dictionary thunk: the batch's column's."""
+    def thunk(batch):
+        return batch.column(name).dictionary
+    return thunk
 
 
 def _pointer(t: torch.Tensor, dtype: torch.dtype):
@@ -181,6 +200,7 @@ class _CompiledPlan:
         which the kernels read their fields through."""
         prog = self._program
         dec = _KeyedDecomposer(ctx)
+        tables: Dict[codegen.Key, List[torch.Tensor]] = {}
         sites = []
         flags = None
         if ctx.check_errors and prog.sites:
@@ -193,8 +213,10 @@ class _CompiledPlan:
                 sites += [(prog.post[key], j - n0, ctx.error_flags[j],
                            ctx.error_messages[j])
                           for j in range(n0, len(ctx.error_flags))]
+            for key in stage.hosts:
+                tables[key], dec.known[key] = self._host_side(key, ctx, dec)
             if stage.launches:
-                self._launch(stage, ctx, dec.known, flags, selection)
+                self._launch(stage, ctx, dec.known, flags, selection, tables)
         outs = [dec.decompose_at((i,), root)
                 for i, root in enumerate(self._roots)]
         if flags is not None:
@@ -208,12 +230,36 @@ class _CompiledPlan:
             ctx.length = ctx.capacity      # the kernel applied the length
         return outs
 
+    def _host_side(self, key: codegen.Key, ctx: TraceContext,
+                   dec: _KeyedDecomposer):
+        """A compiled node's host side, before its kernel: (its tables,
+        the Val of its dictionary and literal, value None), which joins
+        ``dec.known`` until the kernel writes the node's value."""
+        node = self._program.nodes[key]
+        args = [dec.host_arg(key + (j,), child)
+                for j, child in enumerate(_children(node))]
+        ctx.at(key)
+        if isinstance(node, FunctionNode):
+            types = [a.dtype for a in args]
+            tables, out = global_registry().lookup_or_raise(
+                node.name, types).host(ctx, args)
+        elif isinstance(node, IfNode):
+            tables, thunk = merge_dictionaries(ctx, args[1], args[2],
+                                               node.dtype)
+            out = Val(None, None, node.dtype, dict_thunk=thunk)
+        else:
+            tables, out = [string_in_table(ctx, args[0], node)], None
+        return tables, out or Val(None, None, node.dtype)
+
     def _launch(self, stage: codegen.Stage, ctx: TraceContext, known,
-                flags, selection=None) -> None:
-        """One stage's kernel over the plan's columns and ``known`` Vals;
-        its outputs join ``known``. Over a ``selection`` the kernel reads
-        each field at the selected rows of the batch's column."""
+                flags, selection=None, tables=None) -> None:
+        """One stage's kernel over the plan's columns, ``known`` Vals and
+        the host ``tables`` of its nodes; its outputs join ``known``, with
+        the dictionaries their host sides left there. Over a ``selection``
+        the kernel reads each field at the selected rows of the batch's
+        column."""
         cap, dev = ctx.capacity, ctx.device
+        tables = {} if tables is None else tables
         keep, ptrs, scalar = [], [], []
         sides = {}           # a distinct operand's bytes moved, by side
 
@@ -250,6 +296,20 @@ class _CompiledPlan:
             for limb in limbs:
                 operand(limb, store, rows=rows)
             operand(v.validity, torch.bool, rows=rows)
+        lengths = []
+        for key in stage.hosts:      # the kernel reads what was built
+            read = sum(k == key for k, _, _ in stage.tables)
+            if len(tables[key]) != read:
+                raise RuntimeError(f"node {key}'s host side built "
+                                   f"{len(tables[key])} tables, its "
+                                   f"kernel reads {read}")
+        for key, j, ct in stage.tables:
+            table = tables[key][j]
+            if table.dtype != codegen.TABLE_DTYPES[ct]:
+                raise TypeError(f"host table {j} of node {key} is "
+                                f"{table.dtype}, its kernel reads {ct}")
+            operand(table, table.dtype)
+            lengths.append(int(table.shape[0]))
         for port in stage.outputs:
             if port.mask:
                 mask = torch.empty(cap, dtype=torch.bool, device=dev)
@@ -261,8 +321,13 @@ class _CompiledPlan:
             limbs = [torch.empty(cap, dtype=store, device=dev)
                      for _ in range(port.limbs)]
             valid = torch.empty(cap, dtype=torch.bool, device=dev)
+            h = known.get(port.ref[1], Val(None, None, t))
             known[port.ref[1]] = Val(tuple(limbs) if t.is_decimal
-                                     else limbs[0], valid, t)
+                                     else limbs[0], valid, t,
+                                     dict_thunk=h.dict_thunk,
+                                     literal=h.literal,
+                                     is_literal=h.is_literal,
+                                     source_field=h.source_field)
             for limb in limbs:
                 operand(limb, store, "written")
             operand(valid, torch.bool, "written")
@@ -286,8 +351,8 @@ class _CompiledPlan:
                              ("read", index.numel() * index.element_size()))
             sel, sel_bytes = index.data_ptr(), index.element_size()
         cuda = dev.type == "cuda"
-        args = (stage.index, ptrs, scalar, len_ptr, len_bytes, int(length),
-                cap, sel, sel_bytes,
+        args = (stage.index, ptrs, scalar, lengths, len_ptr, len_bytes,
+                int(length), cap, sel, sel_bytes,
                 None if flags is None else flags.data_ptr())
         if cuda:
             blocks = min(-(-cap // codegen.THREADS), 16 * torch.cuda
@@ -308,10 +373,8 @@ class _CompiledPlan:
         for f in self.schema:
             if f.name not in cols:
                 continue
-            thunk = None
-            if f.dtype.is_varlen:
-                def thunk(batch, _n=f.name):
-                    return batch.column(_n).dictionary
+            thunk = _field_dictionary(f.name) if f.dtype.is_varlen \
+                else None
             out[f.name] = Val(*cols[f.name], f.dtype, dict_thunk=thunk,
                               source_field=f.name)
         return out

@@ -48,6 +48,12 @@ GT_HD void gt_i128_write(int64_t* hi, int64_t* lo, int64_t i, gt_i128 x) {
   lo[i] = (int64_t)(uint64_t)(gt_u128)x;
 }
 
+// a dictionary code clamped into a host table of n >= 1 entries, as the
+// eager route's gather_by_code clamps it
+GT_HD int64_t gt_code(int64_t c, int64_t n) {
+  return c < 0 ? 0 : c >= n ? n - 1 : c;
+}
+
 // -- wrapping integer arithmetic ------------------------------------------
 // the unsigned type arithmetic of T is done in: at least 32 bits, so no
 // operand is promoted to a signed int
@@ -79,6 +85,15 @@ template <class F> GT_HD F gt_fsub(F a, F b) {
   else return __dsub_rn(a, b);
 #else
   return a - b;
+#endif
+}
+
+// a * b + c rounded once (the eager route's fma_f64 emulates it)
+GT_HD double gt_fma(double a, double b, double c) {
+#ifdef __CUDA_ARCH__
+  return __fma_rn(a, b, c);
+#else
+  return fma(a, b, c);
 #endif
 }
 
@@ -297,6 +312,46 @@ GT_HD gt_i128 gt_mul128_i64(gt_i128 a, int64_t m) {
   const gt_u128 p = gt_u128_mag(a) * (gt_u128)um;
   return ((a < 0) != (m < 0)) ? (gt_i128)((gt_u128)0 - p) : (gt_i128)p;
 }
+// round(a * b / 10^k) half away from zero through the full 256-bit
+// product, the quotient truncated to 128 bits, as int128.mul256_div_pow10
+// (both operands over 18 digits): the magnitudes' product (|-2^127| is
+// 2^127) in four 64-bit words, plus half = 5 * 10^(k-1) (its words h0..h3,
+// low first; 0 when k = 0), divided by 10^k at most 10^19 at a time
+GT_HD gt_i128 gt_mul256_div_pow10(gt_i128 a, gt_i128 b, int k, uint64_t h0,
+                                  uint64_t h1, uint64_t h2, uint64_t h3) {
+  const gt_u128 x = gt_u128_mag(a), y = gt_u128_mag(b);
+  const uint64_t x0 = (uint64_t)x, x1 = (uint64_t)(x >> 64);
+  const uint64_t y0 = (uint64_t)y, y1 = (uint64_t)(y >> 64);
+  const gt_u128 p00 = (gt_u128)x0 * y0, p01 = (gt_u128)x0 * y1;
+  const gt_u128 p10 = (gt_u128)x1 * y0, p11 = (gt_u128)x1 * y1;
+  uint64_t w[4];
+  w[0] = (uint64_t)p00;
+  const gt_u128 mid = (p00 >> 64) + (uint64_t)p01 + (uint64_t)p10;
+  w[1] = (uint64_t)mid;
+  const gt_u128 top = (mid >> 64) + (p01 >> 64) + (p10 >> 64) + (uint64_t)p11;
+  w[2] = (uint64_t)top;
+  w[3] = (uint64_t)(top >> 64) + (uint64_t)(p11 >> 64);
+  const uint64_t h[4] = {h0, h1, h2, h3};
+  gt_u128 carry = 0;
+  for (int j = 0; j < 4; ++j) {
+    const gt_u128 t = (gt_u128)w[j] + h[j] + carry;
+    w[j] = (uint64_t)t;
+    carry = t >> 64;
+  }
+  for (int left = k; left > 0;) {
+    const int step = left < 19 ? left : 19;
+    left -= step;
+    uint64_t d = 1;
+    for (int j = 0; j < step; ++j) d *= 10;
+    gt_u128 r = 0;
+    for (int j = 3; j >= 0; --j) {          // r < d: each quotient fits
+      const gt_u128 t = (r << 64) | w[j];
+      w[j] = (uint64_t)gt_udivmod128(t, d, &r);
+    }
+  }
+  const gt_u128 q = ((gt_u128)w[1] << 64) | w[0];
+  return (a < 0) != (b < 0) ? (gt_i128)((gt_u128)0 - q) : (gt_i128)q;
+}
 // decimal divide: x is the dividend already scaled, a and b the operands
 // as given (their signs pick the rounding direction); quotient rounded
 // half away from zero, 0 for a zero divisor
@@ -474,7 +529,8 @@ GT_HD int64_t gt_ts_plus_months(int64_t ms, int64_t months) {
       gt_mul<int64_t>(gt_add_months_days(day, months), GT_MS_PER_DAY), time);
 }
 // months_between(ms1, ms2): r1 = 1 / 86,400,000 and r31 = 1 / 31, the
-// reciprocals the eager route multiplies by
+// reciprocals the eager route multiplies by; (t1 - t2) * r1 + (dd1 - dd2)
+// is one fused multiply-add, as the reference's compiled program fuses it
 GT_HD double gt_months_between(int64_t ms1, int64_t ms2, double r1,
                                double r31) {
   const int64_t d1 = gt_floordiv_i64(ms1, GT_MS_PER_DAY);
@@ -489,8 +545,7 @@ GT_HD double gt_months_between(int64_t ms1, int64_t ms2, double r1,
   const int64_t t1 = gt_sub<int64_t>(ms1, gt_mul<int64_t>(d1, GT_MS_PER_DAY));
   const int64_t t2 = gt_sub<int64_t>(ms2, gt_mul<int64_t>(d2, GT_MS_PER_DAY));
   const double frac = gt_fmul(
-      gt_fadd((double)(dd1 - dd2),
-              gt_fmul((double)gt_sub<int64_t>(t1, t2), r1)), r31);
+      gt_fma((double)gt_sub<int64_t>(t1, t2), r1, (double)(dd1 - dd2)), r31);
   return gt_fadd(months, frac);
 }
 // timestampdiff in months, truncated toward zero on a partial month, then

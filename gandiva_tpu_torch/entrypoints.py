@@ -25,6 +25,11 @@ module-level dictionary.
 Q9 and Q16; ``part_arrow`` makes PART as a pyarrow batch on the host, and
 ``part`` brings it onto the device through ``from_arrow``.
 
+``tpch_q22_customer_scan`` — Q22's inner CUSTOMER predicate, a string →
+string function (substring) under a string IN beside a decimal compare;
+``customer_arrow`` and ``customer`` make CUSTOMER as ``part_arrow`` and
+``part`` make PART.
+
 All take ``device`` and default to the card.
 """
 from __future__ import annotations
@@ -532,4 +537,68 @@ def tpch_q16_part_scan(device=DEFAULT_DEVICE) -> FilterProject:
         B.make_in_expression_int32(f["p_size"], list(Q16_SIZES))]))
     exprs = [B.make_expression(f[n], dt.Field(n, schema.field(n).dtype))
              for n in ("p_brand", "p_type", "p_size")]
+    return FilterProject.make(schema, cond, exprs, device=device)
+
+
+# ---------------------------------------------------------------------------
+# TPC-H CUSTOMER (§4.2.3) and Q22's inner predicate (§2.4.22)
+# ---------------------------------------------------------------------------
+
+CUSTOMER_SF10_ROWS = 1_500_000           # CUSTOMER's row count at SF10
+ACCTBAL = dt.decimal128(12, 2)           # c_acctbal's DECIMAL
+Q22_CODES = ("13", "31", "23", "29", "30", "18", "17")   # I1 .. I7
+
+
+def customer_schema() -> dt.Schema:
+    return dt.Schema([dt.Field("c_custkey", dt.int64, nullable=False),
+                      dt.Field("c_nationkey", dt.int32, nullable=False),
+                      dt.Field("c_phone", dt.string, nullable=False),
+                      dt.Field("c_acctbal", ACCTBAL, nullable=False)])
+
+
+def customer_arrow(n: int, seed: int = 0) -> "pa.RecordBatch":
+    """``n`` CUSTOMER rows of Q22's columns as a pyarrow batch made on the
+    host from a numpy seed, with the distributions of TPC-H §4.2.3:
+    c_custkey 1..n; c_nationkey uniform 0..24; c_phone 'CC-LLL-LLL-LLLL'
+    with the country code CC = c_nationkey + 10 and the three local
+    numbers uniform in 100..999, 100..999 and 1000..9999 (so nearly every
+    phone is distinct); c_acctbal uniform in -999.99 .. 9999.99. Plain
+    string arrays, as a reader hands them over."""
+    rng = np.random.default_rng(seed)
+    nation = rng.integers(0, 25, n)
+    parts = [nation + 10, rng.integers(100, 1000, n),
+             rng.integers(100, 1000, n), rng.integers(1000, 10000, n)]
+    phone = pc.binary_join_element_wise(
+        *(pa.array(p).cast(pa.string()) for p in parts), "-")
+    cents = rng.integers(-99_999, 1_000_000, n)
+    words = np.stack([cents, cents >> 63], axis=1)       # lo, hi (LE)
+    acctbal = pa.Array.from_buffers(
+        pa.decimal128(ACCTBAL.precision, ACCTBAL.scale), n,
+        [None, pa.py_buffer(np.ascontiguousarray(words).tobytes())])
+    return pa.RecordBatch.from_arrays(
+        [pa.array(np.arange(1, n + 1, dtype=np.int64)),
+         pa.array(nation.astype(np.int32)), phone, acctbal],
+        names=[f.name for f in customer_schema()])
+
+
+def customer(n: int, seed: int = 0, device=DEFAULT_DEVICE) -> Batch:
+    """``customer_arrow(n, seed)`` on ``device``, through ``from_arrow``:
+    c_phone is dictionary-encoded there."""
+    return from_arrow(customer_arrow(n, seed), device=device)
+
+
+def tpch_q22_customer_scan(device=DEFAULT_DEVICE) -> FilterProject:
+    """Q22's inner CUSTOMER predicate with I1..I7 = '13', '31', '23',
+    '29', '30', '18', '17': ``substring(c_phone from 1 for 2) in (...)
+    and c_acctbal > 0.00``; project c_custkey and c_acctbal."""
+    schema = customer_schema()
+    f = {n.name: B.make_field(n) for n in schema}
+    code = B.make_function("substr", [f["c_phone"], B.make_int64_literal(1),
+                                      B.make_int64_literal(2)], dt.string)
+    cond = B.make_condition(B.make_and([
+        B.make_in_expression_string(code, list(Q22_CODES)),
+        _call("greater_than", [f["c_acctbal"], _dec("0.00", 3, 2)],
+              dt.bool_)]))
+    exprs = [B.make_expression(f[n], dt.Field(n, schema.field(n).dtype))
+             for n in ("c_custkey", "c_acctbal")]
     return FilterProject.make(schema, cond, exprs, device=device)

@@ -48,6 +48,43 @@ def _i64(x):
     return x.to(torch.int64)
 
 
+def _split(a):
+    """Veltkamp's split of a float64: hi + lo == a, each of 26 bits."""
+    c = a * 134217729.0                    # 2^27 + 1
+    hi = c - (c - a)
+    return hi, a - hi
+
+
+def _two_sum(a, b):
+    """s + e == a + b exactly, s = a + b rounded."""
+    s = a + b
+    bb = s - a
+    return s, (a - (s - bb)) + (b - bb)
+
+
+def fma_f64(a, b, c):
+    """a * b + c rounded once, as a fused multiply-add rounds it, in
+    float64 torch operations that each round by themselves: the exact
+    product as two floats (Dekker), its exact sum with c (Knuth), and
+    the low words summed rounded to odd, so that the last addition
+    rounds the exact value once (Boldo and Melquiond, "Emulation of FMA
+    and correctly rounded sums: proved algorithms using rounding to
+    odd", 2008). Exact for finite values whose product neither
+    overflows nor underflows."""
+    p = a * b
+    ah, al = _split(a)
+    bh, bl = _split(b)
+    pe = ((ah * bh - p) + ah * bl + al * bh) + al * bl
+    th, tl = _two_sum(c, p)
+    v, e = _two_sum(tl, pe)
+    # round to odd: an inexact sum whose last bit is even moves one ulp
+    # toward the part it dropped
+    inexact_even = (e != 0) & ((v.view(torch.int64) & 1) == 0)
+    toward = torch.where(e > 0, torch.inf, -torch.inf).to(v.dtype)
+    v = torch.where(inexact_even, torch.nextafter(v, toward), v)
+    return th + v
+
+
 # -- emitters: C++ text of one row (compiler/codegen.py's protocol) ---------
 
 def _c_i64(a) -> str:
@@ -477,9 +514,11 @@ def _months_between(ctx, args):
     t1 = ms1 - d1 * MS_PER_DAY
     t2 = ms2 - d2 * MS_PER_DAY
     # the reference's compiler divides by a constant as a multiply by its
-    # reciprocal; so does this, for the same bits
-    frac = ((dd1 - dd2).to(torch.float64)
-            + (t1 - t2).to(torch.float64) * (1.0 / MS_PER_DAY)) * (1.0 / 31.0)
+    # reciprocal, and fuses (t1 - t2) * (1 / MS_PER_DAY) + (dd1 - dd2) into
+    # one multiply-add; so does this, for the same bits
+    x = (t1 - t2).to(torch.float64)
+    frac = fma_f64(x, torch.full_like(x, 1.0 / MS_PER_DAY),
+                   (dd1 - dd2).to(torch.float64)) * (1.0 / 31.0)
     return torch.where(last1 & last2, months, months + frac)
 
 
@@ -585,26 +624,44 @@ for _it in (dt.int64, dt.int32):
                            f"(int64_t){MS_PER_SECOND})"))
 
 
-def _next_day_impl(ctx, args):
-    """next_day(date, dow_literal): first date after ``date`` that falls on
-    the given weekday ('SU','MO',... or full names)."""
-    datev, dowv = args
+def _weekday(dowv) -> int:
+    """next_day's weekday literal ('SU', 'MO', … or full names) as
+    extractDow numbers it (1 = Sunday)."""
     if not dowv.is_literal:
         raise ExpressionValidationError("next_day requires a literal weekday")
     name = str(dowv.literal).upper()[:2]
     targets = {"SU": 1, "MO": 2, "TU": 3, "WE": 4, "TH": 5, "FR": 6, "SA": 7}
     if name not in targets:
         raise ExpressionValidationError(f"invalid weekday {dowv.literal!r}")
+    return targets[name]
+
+
+def _next_day_impl(ctx, args):
+    """next_day(date, dow_literal): first date after ``date`` that falls on
+    the given weekday."""
+    datev, dowv = args
+    target = _weekday(dowv)
     days = _to_days(datev)
-    delta = (targets[name] - _extract_dow(days)) % 7
+    delta = (target - _extract_dow(days)) % 7
     out = days + torch.where(delta == 0, 7, delta)
     if datev.dtype.kind is dt.TypeKind.DATE32:
         return out.to(torch.int32)
     return out * MS_PER_DAY
 
 
+def _emit_next_day(g, args, rt):
+    datev, dowv = args
+    days = g.tmp("int64_t", _c_days(datev))
+    delta = g.tmp("int64_t", _fm(f"{_weekday(dowv)} - gt_dow({days})", 7))
+    out = f"gt_add<int64_t>({days}, {delta} == 0 ? 7 : {delta})"
+    if datev.dtype.kind is dt.TypeKind.DATE32:
+        return f"(int32_t)({out})"
+    return f"gt_mul<int64_t>({out}, GT_MS_PER_DAY)"
+
+
 for _dt_ in DATE_TYPES:
-    _R.register("next_day", [_dt_, dt.string], _dt_, _next_day_impl)
+    _R.register("next_day", [_dt_, dt.string], _dt_, _next_day_impl,
+                emit=_emit_next_day)
 
 
 # ---------------------------------------------------------------------------
@@ -639,12 +696,12 @@ def sql_format_to_strptime(fmt: str) -> str:
     return "".join(out)
 
 
-def _parse_table(ctx, sval, fmt: str):
-    """Host tables — epoch milliseconds and a parse-ok flag per distinct
-    value — gathered by code: (ms, ok) device tensors."""
+def _parse_tables(ctx, sval, fmt: str):
+    """The parse's host side: epoch milliseconds and a parse-ok flag per
+    distinct value, [ms table, ok table]."""
     import datetime as _dt
 
-    from ..compiler.decomposer import at_least_one, gather_by_code
+    from ..compiler.decomposer import at_least_one
 
     strp = sql_format_to_strptime(fmt)
     dthunk = sval.dict_thunk
@@ -676,9 +733,16 @@ def _parse_table(ctx, sval, fmt: str):
                 pass
         return at_least_one(out, False)
 
-    tv = ctx.add_table(values_thunk, cache_on_dicts=True)
-    tok = ctx.add_table(ok_thunk, cache_on_dicts=True)
-    return gather_by_code(tv, sval.value), gather_by_code(tok, sval.value)
+    return [ctx.add_table(values_thunk, cache_on_dicts=True),
+            ctx.add_table(ok_thunk, cache_on_dicts=True)]
+
+
+def _parse_table(ctx, sval, fmt: str):
+    """The parse's tables gathered by code: (ms, ok) device tensors."""
+    from ..compiler.decomposer import gather_by_code
+
+    return tuple(gather_by_code(t, sval.value)
+                 for t in _parse_tables(ctx, sval, fmt))
 
 
 def _require_string_column(s: Val, fname: str) -> None:
@@ -686,14 +750,34 @@ def _require_string_column(s: Val, fname: str) -> None:
         raise ExpressionValidationError(f"{fname} requires a string column")
 
 
+def _to_date_format(args) -> str:
+    _require_string_column(args[0], "to_date")
+    if not args[1].is_literal:
+        raise ExpressionValidationError("to_date format must be a literal")
+    return str(args[1].literal)
+
+
+def _date_format(args) -> str:
+    _require_string_column(args[0], "castDATE")
+    return "YYYY-MM-DD"
+
+
+def _ts_formats(args):
+    _require_string_column(args[0], "castTIMESTAMP")
+    return ("YYYY-MM-DD HH24:MI:SS", "YYYY-MM-DD")
+
+
+def _is_date_format(args) -> str:
+    _require_string_column(args[0], "is_date")
+    return "YYYY-MM-DD" if len(args) < 2 or not args[1].is_literal \
+        else str(args[1].literal)
+
+
 def _to_date_impl(ctx, args):
     """to_date(string, format[, suppress_errors]) → date64; unparseable →
     null (NULL_INTERNAL, matching the holder's suppress-errors mode)."""
     s = args[0]
-    _require_string_column(s, "to_date")
-    if not args[1].is_literal:
-        raise ExpressionValidationError("to_date format must be a literal")
-    ms, ok = _parse_table(ctx, s, str(args[1].literal))
+    ms, ok = _parse_table(ctx, s, _to_date_format(args))
     days_ms = (ms // MS_PER_DAY) * MS_PER_DAY
     validity = ok if s.validity is None else (ok & s.validity)
     return Val(days_ms, validity, dt.date64)
@@ -702,17 +786,16 @@ def _to_date_impl(ctx, args):
 def _cast_date_from_string(ctx, args):
     """castDATE(utf8) — ISO YYYY-MM-DD."""
     s = args[0]
-    _require_string_column(s, "castDATE")
-    ms, ok = _parse_table(ctx, s, "YYYY-MM-DD")
+    ms, ok = _parse_table(ctx, s, _date_format(args))
     validity = ok if s.validity is None else (ok & s.validity)
     return Val(ms, validity, dt.date64)
 
 
 def _cast_ts_from_string(ctx, args):
     s = args[0]
-    _require_string_column(s, "castTIMESTAMP")
-    ms, ok = _parse_table(ctx, s, "YYYY-MM-DD HH24:MI:SS")
-    ms2, ok2 = _parse_table(ctx, s, "YYYY-MM-DD")
+    long_fmt, short_fmt = _ts_formats(args)
+    ms, ok = _parse_table(ctx, s, long_fmt)
+    ms2, ok2 = _parse_table(ctx, s, short_fmt)
     out = torch.where(ok, ms, ms2)
     okc = ok | ok2
     validity = okc if s.validity is None else (okc & s.validity)
@@ -721,27 +804,57 @@ def _cast_ts_from_string(ctx, args):
 
 def _is_date_impl(ctx, args):
     s = args[0]
-    _require_string_column(s, "is_date")
-    fmt = "YYYY-MM-DD" if len(args) < 2 or not args[1].is_literal \
-        else str(args[1].literal)
-    _, ok = _parse_table(ctx, s, fmt)
+    _, ok = _parse_table(ctx, s, _is_date_format(args))
     if s.validity is not None:
         ok = ok & s.validity
     return Val(ok, None, dt.bool_)
 
 
-_R.register("to_date", [dt.string, dt.string], dt.date64, _to_date_impl,
-            nullability=Nullability.NULL_INTERNAL)
-_R.register("to_date", [dt.string, dt.string, dt.int32], dt.date64,
-            _to_date_impl, nullability=Nullability.NULL_INTERNAL)
-_R.register("castDATE", [dt.string], dt.date64, _cast_date_from_string,
-            nullability=Nullability.NULL_INTERNAL)
-_R.register("castTIMESTAMP", [dt.string], dt.timestamp, _cast_ts_from_string,
-            nullability=Nullability.NULL_INTERNAL)
-_R.register("is_date", [dt.string], dt.bool_, _is_date_impl,
-            nullability=Nullability.NULL_NEVER)
-_R.register("is_date", [dt.string, dt.string], dt.bool_, _is_date_impl,
-            nullability=Nullability.NULL_NEVER)
+# the parses' emitters: the kernel reads the ms and ok tables at the row's
+# code (in the order _parse_tables builds them), and a failed parse is null
+
+def _emit_parse(kind: str):
+    def emit(g, args, rt):
+        code, valid = args[0].v, args[0].m
+        ms = g.table("int64_t", code)
+        ok = g.table("bool", code)
+        if kind == "to_date":
+            return (f"gt_mul<int64_t>(gt_floordiv_i64({ms}, GT_MS_PER_DAY), "
+                    "GT_MS_PER_DAY)", f"({ok}) && ({valid})")
+        if kind == "castDATE":
+            return ms, f"({ok}) && ({valid})"
+        if kind == "is_date":
+            return f"({ok}) && ({valid})", None
+        ms2 = g.table("int64_t", code)
+        ok2 = g.table("bool", code)
+        return f"({ok}) ? {ms} : {ms2}", f"(({ok}) || ({ok2})) && ({valid})"
+    return emit
+
+
+def _parse_host(formats):
+    """A parse's host side: the tables of each of ``formats(args)``."""
+    def host(ctx, args):
+        fmts = formats(args)
+        return [t for f in ([fmts] if isinstance(fmts, str) else fmts)
+                for t in _parse_tables(ctx, args[0], f)], None
+    return host
+
+
+for _name, _params, _rt, _impl, _null, _formats in (
+        ("to_date", [dt.string, dt.string], dt.date64, _to_date_impl,
+         Nullability.NULL_INTERNAL, _to_date_format),
+        ("to_date", [dt.string, dt.string, dt.int32], dt.date64,
+         _to_date_impl, Nullability.NULL_INTERNAL, _to_date_format),
+        ("castDATE", [dt.string], dt.date64, _cast_date_from_string,
+         Nullability.NULL_INTERNAL, _date_format),
+        ("castTIMESTAMP", [dt.string], dt.timestamp, _cast_ts_from_string,
+         Nullability.NULL_INTERNAL, _ts_formats),
+        ("is_date", [dt.string], dt.bool_, _is_date_impl,
+         Nullability.NULL_NEVER, _is_date_format),
+        ("is_date", [dt.string, dt.string], dt.bool_, _is_date_impl,
+         Nullability.NULL_NEVER, _is_date_format)):
+    _R.register(_name, _params, _rt, _impl, nullability=_null,
+                emit=_emit_parse(_name), host=_parse_host(_formats))
 
 
 # ---------------------------------------------------------------------------

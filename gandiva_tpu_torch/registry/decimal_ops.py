@@ -138,6 +138,8 @@ def _emit_addsub(sub: bool):
 
 
 def _emit_multiply(g, args, rt):
+    from ..compiler.codegen import pow10
+
     a, b = args
     out_t = result_type("multiply", a.dtype, b.dtype)
     raw_scale = a.dtype.scale + b.dtype.scale
@@ -145,8 +147,16 @@ def _emit_multiply(g, args, rt):
         p = f"gt_mul_i64({_lo64(a.v)}, {_lo64(b.v)})"
     elif _fits_int64(b.dtype):
         p = f"gt_mul128_i64({a.v}, {_lo64(b.v)})"
-    else:
+    elif _fits_int64(a.dtype):
         p = f"gt_mul128_i64({b.v}, {_lo64(a.v)})"
+    else:
+        # both operands over 18 digits: the 256-bit product, rounded down
+        # to the result's scale (int128.mul256_div_pow10)
+        k = raw_scale - out_t.scale
+        half = 5 * 10 ** (k - 1) if k > 0 else 0
+        words = ", ".join(f"0x{(half >> (64 * j)) & ((1 << 64) - 1):x}ULL"
+                          for j in range(4))
+        return f"gt_mul256_div_pow10({a.v}, {b.v}, {k}, {words})"
     return _emit_rescale(p, raw_scale, out_t.scale)
 
 
@@ -515,13 +525,11 @@ for _t in (dt.int32, dt.int64, dt.float32, dt.float64):
 
 
 def register_decimal_for(t1: dt.DataType, t2: dt.DataType):
-    """The binary signatures of one concrete (t1, t2) pair. The multiply
-    of two operands over 18 digits (the 256-bit product) has no emitter."""
-    wide = not (_fits_int64(t1) or _fits_int64(t2))
+    """The binary signatures of one concrete (t1, t2) pair."""
     for name, impl, emit in [
             ("add", _addsub(False), _emit_addsub(False)),
             ("subtract", _addsub(True), _emit_addsub(True)),
-            ("multiply", _multiply, None if wide else _emit_multiply),
+            ("multiply", _multiply, _emit_multiply),
             ("divide", _divide, _emit_divide), ("mod", _mod, _emit_mod)]:
         if _R.lookup(name, [t1, t2]) is None:
             _R.register(name, [t1, t2], result_type(name, t1, t2), impl,

@@ -39,6 +39,14 @@ generated kernel, as Gandiva's registry points at precompiled bitcode that
 its JIT inlines. An entry without one stays eager inside a compiled plan.
 ``emit`` computes exactly what ``impl`` does, bit for bit (the protocol is
 in codegen.py's docstring).
+
+A string or binary entry also carries ``host``: ``host(ctx, args) ->
+(tables, out)``, its work on the host. It builds the entry's host tables
+through ``ctx.add_table``, in the order its emitter declares them
+(``g.table``), and returns them with ``out``, a Val whose value is None
+that carries the result's dictionary (``dict_thunk``), literal and source
+field. ``impl`` calls it, and so does a compiled plan before its kernel
+reads the tables: both routes build every table with the same code.
 """
 from __future__ import annotations
 
@@ -82,6 +90,8 @@ class NativeFunction:
     needs_return_type: bool = False
     # the row's C++ text for the plan compiler, or None (stays eager)
     emit: Optional[Callable] = None
+    # a string entry's host side: (ctx, args) -> (tables, Val)
+    host: Optional[Callable] = None
 
     @property
     def name(self) -> str:
@@ -101,13 +111,14 @@ class FunctionRegistry:
                  nullability: Nullability = Nullability.NULL_IF_NULL,
                  aliases: Sequence[str] = (),
                  needs_return_type: bool = False,
-                 emit: Optional[Callable] = None):
+                 emit: Optional[Callable] = None,
+                 host: Optional[Callable] = None):
         sig = FunctionSignature(name, tuple(param_types), return_type)
         key = (name, sig.param_types)
         if key in self._table:
             raise ValueError(f"duplicate registration: {sig}")
         self._table[key] = NativeFunction(sig, impl, nullability,
-                                          needs_return_type, emit)
+                                          needs_return_type, emit, host)
         for a in aliases:
             self._aliases.setdefault(a, name)
 

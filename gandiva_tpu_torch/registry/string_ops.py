@@ -16,9 +16,16 @@ Three lowering shapes:
   host per batch; comparisons run on device over the rank columns.
 
 Host tables go through ``TraceContext.add_table``, which uploads them and
-memoizes the dictionary-pure ones per plan. Two routes read device values
+memoizes the dictionary-pure ones per plan. Each entry's host side
+(``host``: its tables and its result's dictionary) is one function that
+both routes call: the eager ``impl`` gathers its tables by code on whole
+columns, and a compiled plan's kernel reads them a row at a time, through
+the entry's emitter (compiler/codegen.py): a lookup of the row's code
+(string → scalar), the argument's code itself (string → string), or two
+lookups and an integer compare (string × string). Two routes read device values
 back to the host (a sync each): concat's per-row route (each column's
-codes) and castVARCHAR / castVARBINARY of a numeric or decimal value. LIKE, ILIKE
+codes) and castVARCHAR / castVARBINARY of a numeric or decimal value;
+they have no emitter and stay eager in a compiled plan. LIKE, ILIKE
 and the string hashes run in the native host runtime (``native/``) over the
 dictionary's utf8 buffers; a dictionary of another layout (large_string)
 takes Python's ``re`` and ``hash_bytes_np``, which give the same results.
@@ -34,6 +41,7 @@ import numpy as np
 import torch
 
 from .. import dtypes as dt
+from ..compiler.codegen import table_ctype
 from ..compiler.decomposer import at_least_one, gather_by_code
 from .registry import ExpressionValidationError, Val, global_registry
 
@@ -64,9 +72,9 @@ def _require_literal(val: Val, fname: str, argname: str):
     return val.literal
 
 
-def _gather_table(ctx, val: Val, per_value: Callable[[List], np.ndarray],
-                  fill, fname: str):
-    """Host table over the input dictionary, gathered by device code."""
+def _table(ctx, val: Val, per_value: Callable[[List], np.ndarray], fill,
+           fname: str):
+    """The host table of ``per_value`` over the input's dictionary."""
     _require_dict(val, fname)
     dthunk = val.dict_thunk
 
@@ -74,8 +82,44 @@ def _gather_table(ctx, val: Val, per_value: Callable[[List], np.ndarray],
         d = _dict_list(_dt(batch))
         return at_least_one(np.asarray(_f(d)), fill)
 
-    return gather_by_code(ctx.add_table(thunk, cache_on_dicts=True),
-                          val.value)
+    return ctx.add_table(thunk, cache_on_dicts=True)
+
+
+def _register_lookup(name, params, ret, table, out_np, arg=0, aliases=()):
+    """A string → scalar entry: ``table(ctx, args)`` builds its one host
+    table, of ``out_np`` entries, over ``args[arg]``'s dictionary (its host
+    side); its value is the table's entry at the row's code."""
+    ct = table_ctype(out_np)
+
+    def host(ctx, args):
+        return [table(ctx, args)], None
+
+    def impl(ctx, args):
+        return gather_by_code(table(ctx, args), args[arg].value)
+
+    def emit(g, args, rt):
+        return g.table(ct, args[arg].v)
+
+    _R.register(name, params, ret, impl, aliases=aliases, emit=emit,
+                host=host)
+
+
+def _emit_codes(j: int):
+    """A dictionary transform's emitter: its value is argument ``j``'s
+    code."""
+    def emit(g, args, rt):
+        return args[j].v
+
+    return emit
+
+
+def _register_transform(name, params, ret, impl, aliases=()):
+    """A string → string (or binary) entry whose ``impl`` only composes
+    its argument's dictionary (``_transform_dict``): that is its host side
+    too, and its value is its argument's code."""
+    _R.register(name, params, ret, impl, aliases=aliases,
+                emit=_emit_codes(0),
+                host=lambda ctx, args: ([], impl(ctx, args)))
 
 
 def _transform_dict(val: Val, transform: Callable[[List], List],
@@ -116,8 +160,8 @@ def _reg_transform(name, per_value, extra_types=(), aliases=()):
             s, lambda d: [None if v is None else _f(v, *lits) for v in d],
             _name)
 
-    _R.register(name, [dt.string] + list(extra_types), dt.string, impl,
-                aliases=aliases)
+    _register_transform(name, [dt.string] + list(extra_types), dt.string,
+                        impl, aliases=aliases)
 
 
 _reg_transform("upper", lambda v: v.upper())
@@ -236,8 +280,10 @@ def _row_values(batch, field_name: str, dict_thunk):
     return [d[c] for c in codes]
 
 
-def _concat(ctx, args):
-    """concat(s1, s2): product dictionary; codes combine on device.
+def _concat_host(ctx, args):
+    """concat(s1, s2)'s host side: a literal operand makes it a transform
+    of the other's dictionary; two strings make the product dictionary,
+    whose codes combine on the device (``a * len(b's dictionary) + b``).
 
     High-cardinality fallback (VERDICT r3 #5): when the product dictionary
     would exceed MAX_PRODUCT_DICT and both inputs trace back to direct
@@ -245,17 +291,19 @@ def _concat(ctx, args):
     batch's thunks switch to a per-ROW host concat + re-dictionarization:
     the result dictionary is bounded by the row count instead of the
     distinct-value cross product. The device graph carries both code
-    formulas and selects by a per-batch flag table."""
+    formulas and selects by a per-batch flag table. Returns ([len(b's
+    dictionary)] and, with the per-row route, [its flag, its per-row
+    codes], the result's Val)."""
     a, b = args[0], args[1]
     # literal operands become single-entry dictionaries
     if a.is_literal and b.is_literal:
         raise ExpressionValidationError("concat of two literals unsupported")
     if a.is_literal:
-        return _transform_dict(
+        return [], _transform_dict(
             b, lambda d, _l=a.literal: [None if v is None else _l + v
                                         for v in d], "concat")
     if b.is_literal:
-        return _transform_dict(
+        return [], _transform_dict(
             a, lambda d, _l=b.literal: [None if v is None else v + _l
                                         for v in d], "concat")
     _require_dict(a, "concat")
@@ -295,8 +343,7 @@ def _concat(ctx, args):
     def nb_thunk(batch, _tb=tb):
         return np.array([len(_tb(batch))], dtype=np.int32)
 
-    nb = ctx.add_table(nb_thunk, cache_on_dicts=True)[0]
-    codes = a.value * nb + b.value
+    tables = [ctx.add_table(nb_thunk, cache_on_dicts=True)]
     if can_row:
         def flag_thunk(batch):
             return np.array([1 if _use_row(batch) else 0], dtype=np.int32)
@@ -310,8 +357,19 @@ def _concat(ctx, args):
             out[:len(inv)] = inv.astype(np.int32)
             return out
 
-        use_row = ctx.add_table(flag_thunk, cache_on_dicts=True)[0]
-        rows_t = ctx.add_table(row_codes_thunk)
+        tables += [ctx.add_table(flag_thunk, cache_on_dicts=True),
+                   ctx.add_table(row_codes_thunk)]
+    return tables, Val(None, None, dt.string, dict_thunk=new_thunk)
+
+
+def _concat(ctx, args):
+    tables, out = _concat_host(ctx, args)
+    if not tables:                  # a literal operand: a transform
+        return out
+    a, b = args
+    codes = a.value * tables[0][0] + b.value
+    if len(tables) == 3:            # the per-row route, when it is taken
+        use_row, rows_t = tables[1][0], tables[2]
         row_codes = rows_t.expand(ctx.capacity) if rows_t.shape[0] == 1 \
             else rows_t
         codes = torch.where(use_row > 0, row_codes, codes)
@@ -323,11 +381,25 @@ def _concat(ctx, args):
         validity = a.validity
     else:
         validity = a.validity & b.validity
-    return Val(codes, validity, dt.string, dict_thunk=new_thunk)
+    return Val(codes, validity, dt.string, dict_thunk=out.dict_thunk)
+
+
+def _emit_concat(g, args, rt):
+    """concat with a literal operand: a transform of the other operand's
+    dictionary, whose codes pass on."""
+    a, b = args
+    return (b if a.is_literal else a).v
+
+
+# two strings neither of which is a literal may take the per-row route
+# (decided per batch, reading their codes back to the host): such a concat
+# stays eager, and the product route with it
+_emit_concat.eager_if = lambda lits: not any(lits)
 
 
 _R.register("concat", [dt.string, dt.string], dt.string, _concat,
-            aliases=["concatOperator", "||"])
+            aliases=["concatOperator", "||"], emit=_emit_concat,
+            host=_concat_host)
 
 
 # ---------------------------------------------------------------------------
@@ -336,19 +408,17 @@ _R.register("concat", [dt.string, dt.string], dt.string, _concat,
 
 def _reg_scalar(name, ret, per_value, fill=0, extra_types=(), aliases=(),
                 out_np=np.int32):
-    def impl(ctx, args, _f=per_value, _name=name):
-        s = args[0]
+    def table(ctx, args, _f=per_value, _name=name):
         lits = [_require_literal(a, _name, f"#{i + 2}")
                 for i, a in enumerate(args[1:])]
-        out = _gather_table(
-            ctx, s,
+        return _table(
+            ctx, args[0],
             lambda d: np.array([_f(_str_or(v), *lits) for v in d],
                                dtype=out_np),
             fill, _name)
-        return out
 
-    _R.register(name, [dt.string] + list(extra_types), ret, impl,
-                aliases=aliases)
+    _register_lookup(name, [dt.string] + list(extra_types), ret, table,
+                     out_np, aliases=aliases)
 
 
 _reg_scalar("length", dt.int32, lambda v: len(v), aliases=["char_length",
@@ -361,23 +431,24 @@ _reg_scalar("strpos", dt.int32, lambda v, sub: v.find(sub) + 1,
             extra_types=[dt.string], aliases=["position"])
 
 
-def _locate_impl(ctx, args):
+def _locate_table(ctx, args):
     # locate(needle_literal, haystack[, start])
     needle = _require_literal(args[0], "locate", "#1")
     hay = args[1]
     start = 1
     if len(args) == 3:
         start = _require_literal(args[2], "locate", "#3")
-    return _gather_table(
+    return _table(
         ctx, hay,
         lambda d: np.array([_str_or(v).find(needle, max(0, start - 1)) + 1
                             for v in d], dtype=np.int32),
         0, "locate")
 
 
-_R.register("locate", [dt.string, dt.string], dt.int32, _locate_impl)
-_R.register("locate", [dt.string, dt.string, dt.int32], dt.int32,
-            _locate_impl)
+_register_lookup("locate", [dt.string, dt.string], dt.int32, _locate_table,
+                 np.int32, arg=1)
+_register_lookup("locate", [dt.string, dt.string, dt.int32], dt.int32,
+                 _locate_table, np.int32, arg=1)
 _reg_scalar("levenshtein", dt.int32,
             lambda v, other: _levenshtein(v, other),
             extra_types=[dt.string])
@@ -398,21 +469,18 @@ def _levenshtein(a, b):
 
 # numeric casts from string
 def _reg_cast_from_string(name, ret, conv, out_np):
-    def impl(ctx, args):
-        s = args[0]
+    def per(d):
+        out = np.zeros(len(d), dtype=out_np)
+        for i, v in enumerate(d):
+            try:
+                out[i] = conv(v) if v is not None else 0
+            except (ValueError, TypeError, OverflowError):
+                out[i] = 0
+        return out
 
-        def per(d):
-            out = np.zeros(len(d), dtype=out_np)
-            for i, v in enumerate(d):
-                try:
-                    out[i] = conv(v) if v is not None else 0
-                except (ValueError, TypeError, OverflowError):
-                    out[i] = 0
-            return out
-
-        return _gather_table(ctx, s, per, 0, name)
-
-    _R.register(name, [dt.string], ret, impl)
+    _register_lookup(name, [dt.string], ret,
+                     lambda ctx, args: _table(ctx, args[0], per, 0, name),
+                     out_np)
 
 
 _reg_cast_from_string("castBIGINT", dt.int64, int, np.int64)
@@ -449,20 +517,18 @@ def sql_like_to_regex(pattern: str, escape: str = "\\") -> str:
 
 def _reg_predicate(name, matcher_factory, extra_types=(dt.string,),
                    aliases=()):
-    def impl(ctx, args, _name=name):
-        s = args[0]
+    def table(ctx, args, _name=name):
         lits = [_require_literal(a, _name, f"#{i + 2}")
                 for i, a in enumerate(args[1:])]
         match = matcher_factory(*lits)
-        out = _gather_table(
-            ctx, s,
+        return _table(
+            ctx, args[0],
             lambda d: np.array([bool(match(_str_or(v))) for v in d],
                                dtype=bool),
             False, _name)
-        return out
 
-    _R.register(name, [dt.string] + list(extra_types), dt.bool_, impl,
-                aliases=aliases)
+    _register_lookup(name, [dt.string] + list(extra_types), dt.bool_, table,
+                     bool, aliases=aliases)
 
 
 def _reg_like(name, ignore_case, with_escape=False):
@@ -470,7 +536,7 @@ def _reg_like(name, ignore_case, with_escape=False):
     host runtime is loaded (the LikeHolder analogue in C++), python regex
     fallback otherwise."""
 
-    def impl(ctx, args, _name=name):
+    def table(ctx, args, _name=name):
         s = args[0]
         pat = _require_literal(args[1], _name, "#2")
         esc = _require_literal(args[2], _name, "#3") if with_escape else None
@@ -490,11 +556,10 @@ def _reg_like(name, ignore_case, with_escape=False):
                               for v in _dict_list(d)], dtype=bool)
             return at_least_one(np.asarray(m, dtype=bool), False)
 
-        return gather_by_code(ctx.add_table(thunk, cache_on_dicts=True),
-                              s.value)
+        return ctx.add_table(thunk, cache_on_dicts=True)
 
     types = [dt.string, dt.string] + ([dt.string] if with_escape else [])
-    _R.register(name, types, dt.bool_, impl)
+    _register_lookup(name, types, dt.bool_, table, bool)
 
 
 _reg_like("like", ignore_case=False)
@@ -513,21 +578,18 @@ _reg_predicate(
 # string comparisons (rank-based)
 # ---------------------------------------------------------------------------
 
-def _rank_pair(ctx, a: Val, b: Val):
-    """Merged-dictionary rank columns for two string Vals (device arrays)."""
+def _rank_tables(ctx, a: Val, b: Val):
+    """A string compare's host side: against a literal, one table of the
+    compare's sign per distinct value of the column; between two columns,
+    the rank of each one's values in their merged, sorted dictionary."""
     if a.is_literal or b.is_literal:
-        # literal vs column: table of cmp sign per distinct value
-        col, lit, flip = (b, a.literal, True) if a.is_literal else \
-            (a, b.literal, False)
-        sign = _gather_table(
+        col, lit = (b, a.literal) if a.is_literal else (a, b.literal)
+        return [_table(
             ctx, col,
             lambda d: np.array(
                 [0 if v is None else (-1 if v < lit else (1 if v > lit else 0))
                  for v in d], dtype=np.int8),
-            0, "string compare")
-        if flip:
-            sign = -sign
-        return sign, torch.zeros_like(sign)
+            0, "string compare")]
     _require_dict(a, "string compare")
     _require_dict(b, "string compare")
     ta, tb = a.dict_thunk, b.dict_thunk
@@ -542,25 +604,40 @@ def _rank_pair(ctx, a: Val, b: Val):
                 np.array([merged[v] for v in src], dtype=np.int32), 0)
         return thunk
 
-    t_a = ctx.add_table(rank_thunk(0), cache_on_dicts=True)
-    t_b = ctx.add_table(rank_thunk(1), cache_on_dicts=True)
-    return gather_by_code(t_a, a.value), gather_by_code(t_b, b.value)
+    return [ctx.add_table(rank_thunk(0), cache_on_dicts=True),
+            ctx.add_table(rank_thunk(1), cache_on_dicts=True)]
 
 
-def _reg_string_cmp(name, op):
+def _reg_string_cmp(name, op, c_op: str):
     def impl(ctx, args):
-        ra, rb = _rank_pair(ctx, args[0], args[1])
-        return op(ra, rb)
+        a, b = args
+        tables = _rank_tables(ctx, a, b)
+        if len(tables) == 2:
+            return op(gather_by_code(tables[0], a.value),
+                      gather_by_code(tables[1], b.value))
+        sign = gather_by_code(tables[0], (b if a.is_literal else a).value)
+        if a.is_literal:
+            sign = -sign
+        return op(sign, torch.zeros_like(sign))
 
-    _R.register(name, [dt.string, dt.string], dt.bool_, impl)
+    def emit(g, args, rt):
+        a, b = args
+        if not (a.is_literal or b.is_literal):
+            return (f"{g.table('int32_t', a.v)} {c_op} "
+                    f"{g.table('int32_t', b.v)}")
+        sign = g.table("int8_t", (b if a.is_literal else a).v)
+        return f"{'-' if a.is_literal else ''}(int){sign} {c_op} 0"
+
+    _R.register(name, [dt.string, dt.string], dt.bool_, impl, emit=emit,
+                host=lambda ctx, args: (_rank_tables(ctx, *args), None))
 
 
-_reg_string_cmp("equal", lambda a, b: a == b)
-_reg_string_cmp("not_equal", lambda a, b: a != b)
-_reg_string_cmp("less_than", lambda a, b: a < b)
-_reg_string_cmp("less_than_or_equal_to", lambda a, b: a <= b)
-_reg_string_cmp("greater_than", lambda a, b: a > b)
-_reg_string_cmp("greater_than_or_equal_to", lambda a, b: a >= b)
+_reg_string_cmp("equal", lambda a, b: a == b, "==")
+_reg_string_cmp("not_equal", lambda a, b: a != b, "!=")
+_reg_string_cmp("less_than", lambda a, b: a < b, "<")
+_reg_string_cmp("less_than_or_equal_to", lambda a, b: a <= b, "<=")
+_reg_string_cmp("greater_than", lambda a, b: a > b, ">")
+_reg_string_cmp("greater_than_or_equal_to", lambda a, b: a >= b, ">=")
 
 
 # ---------------------------------------------------------------------------
@@ -582,39 +659,49 @@ def hash_bytes_np(values: List, seed: int = 0) -> np.ndarray:
     return out
 
 
-def _hash_string_impl(bits):
+def _hash_table(ctx, args):
+    """The string hashes' host side: the 64-bit hash of each distinct
+    value."""
+    s = args[0]
+    seed = 0
+    if len(args) == 2:
+        seed = _require_literal(args[1], "hash", "#2") or 0
+    _require_dict(s, "hash")
+    dthunk = s.dict_thunk
+
+    def thunk(batch, _dt=dthunk, _seed=seed):
+        from .. import native
+
+        d = _dt(batch)
+        h = native.hash_bytes(d, _seed)
+        if h is None:     # not a plain utf8 dictionary
+            h = hash_bytes_np(_dict_list(d), _seed)
+        return at_least_one(h.view(np.int64), 0)
+
+    return ctx.add_table(thunk, cache_on_dicts=True)
+
+
+def _register_string_hash(params, bits: int, aliases=()):
     def impl(ctx, args):
-        s = args[0]
-        seed = 0
-        if len(args) == 2:
-            seed = _require_literal(args[1], "hash", "#2") or 0
-        _require_dict(s, "hash")
-        dthunk = s.dict_thunk
-
-        def thunk(batch, _dt=dthunk, _seed=seed):
-            from .. import native
-
-            d = _dt(batch)
-            h = native.hash_bytes(d, _seed)
-            if h is None:     # not a plain utf8 dictionary
-                h = hash_bytes_np(_dict_list(d), _seed)
-            return at_least_one(h.view(np.int64), 0)
-
-        t = gather_by_code(ctx.add_table(thunk, cache_on_dicts=True),
-                           s.value)
+        t = gather_by_code(_hash_table(ctx, args), args[0].value)
         if bits == 32:
             t = t & 0xFFFFFFFF     # the low 32 bits as int32's bits
             return (t - ((t >> 31) << 32)).to(torch.int32)
         return t
 
-    return impl
+    def emit(g, args, rt):
+        h = g.table("int64_t", args[0].v)
+        return f"(int32_t)(uint32_t)(uint64_t){h}" if bits == 32 else h
+
+    _R.register(f"hash{bits}", params, dt.int32 if bits == 32 else dt.int64,
+                impl, aliases=aliases, emit=emit,
+                host=lambda ctx, args: ([_hash_table(ctx, args)], None))
 
 
-_R.register("hash32", [dt.string], dt.int32, _hash_string_impl(32),
-            aliases=["hash"])
-_R.register("hash64", [dt.string], dt.int64, _hash_string_impl(64))
-_R.register("hash32", [dt.string, dt.int32], dt.int32, _hash_string_impl(32))
-_R.register("hash64", [dt.string, dt.int64], dt.int64, _hash_string_impl(64))
+_register_string_hash([dt.string], 32, aliases=["hash"])
+_register_string_hash([dt.string], 64)
+_register_string_hash([dt.string, dt.int32], 32)
+_register_string_hash([dt.string, dt.int64], 64)
 
 
 # ---------------------------------------------------------------------------
@@ -741,11 +828,11 @@ def _cast_varbinary_bytes(ctx, args):
     return _transform_dict(a, f, "castVARBINARY", out_dtype=dt.binary)
 
 
-_R.register("castVARBINARY", [dt.string, dt.int64], dt.binary,
-            _cast_varbinary_bytes)
-_R.register("castVARBINARY", [dt.binary, dt.int64], dt.binary,
-            _cast_varbinary_bytes)
-_R.register("castBINARY", [dt.string], dt.binary,
+_register_transform("castVARBINARY", [dt.string, dt.int64], dt.binary,
+                    _cast_varbinary_bytes)
+_register_transform("castVARBINARY", [dt.binary, dt.int64], dt.binary,
+                    _cast_varbinary_bytes)
+_register_transform("castBINARY", [dt.string], dt.binary,
             lambda ctx, args: _transform_dict(
                 args[0],
                 lambda d: [None if v is None else
@@ -785,7 +872,7 @@ def _to_hex_binary(ctx, args):
         "to_hex")
 
 
-_R.register("to_hex", [dt.binary], dt.string, _to_hex_binary)
+_register_transform("to_hex", [dt.binary], dt.string, _to_hex_binary)
 
 
 # ---------------------------------------------------------------------------
@@ -819,10 +906,10 @@ def _convert_to_utf8(ctx, args):
         "convert_toUTF8", out_dtype=dt.binary)
 
 
-_R.register("convert_fromUTF8", [dt.binary], dt.string, _convert_from_utf8,
-            aliases=["convert_fromutf8"])
-_R.register("convert_toUTF8", [dt.string], dt.binary, _convert_to_utf8,
-            aliases=["convert_toutf8"])
+_register_transform("convert_fromUTF8", [dt.binary], dt.string,
+                    _convert_from_utf8, aliases=["convert_fromutf8"])
+_register_transform("convert_toUTF8", [dt.string], dt.binary,
+                    _convert_to_utf8, aliases=["convert_toutf8"])
 
 
 def _from_hex(ctx, args):
@@ -844,8 +931,8 @@ def _from_hex(ctx, args):
     return _transform_dict(args[0], f, "from_hex", out_dtype=dt.binary)
 
 
-_R.register("from_hex", [dt.string], dt.binary, _from_hex,
-            aliases=["unhex"])
+_register_transform("from_hex", [dt.string], dt.binary, _from_hex,
+                    aliases=["unhex"])
 
 
 def _chr_impl(ctx, args):
@@ -866,6 +953,25 @@ def _space_impl(ctx, args):
                is_literal=True)
 
 
+def _emit_literal_string(impl, fname: str):
+    """chr / space: a literal string made at Make from a literal argument,
+    code 0 of its one-entry dictionary in the kernel."""
+    from ..compiler.codegen import CArg
+
+    def emit(g, args, rt):
+        if not args[0].is_literal:
+            raise ExpressionValidationError(
+                f"{fname}: argument #1 must be a literal")
+        v = impl(None, [Val(None, None, args[0].dtype,
+                            literal=args[0].literal, is_literal=True)])
+        return CArg("((int32_t)0)", "true", rt, v.literal, True)
+
+    emit.literal = True
+    return emit
+
+
 for _t in (dt.int32, dt.int64):
-    _R.register("chr", [_t], dt.string, _chr_impl)
-    _R.register("space", [_t], dt.string, _space_impl)
+    for _name, _impl in (("chr", _chr_impl), ("space", _space_impl)):
+        _R.register(_name, [_t], dt.string, _impl,
+                    emit=_emit_literal_string(_impl, _name),
+                    host=lambda ctx, args, _i=_impl: ([], _i(ctx, args)))

@@ -101,9 +101,14 @@ def held_elsewhere(sig) -> bool:
 
 def emitter_signatures():
     """Every (name, parameter type names, return type name) with an
-    emitter: the numeric, cast, math, rounding, hash, date/time, interval
-    and decimal entries (decimals at the four test types, every pair for
-    the binary functions; castDECIMAL to CAST_DECIMAL_TARGETS)."""
+    emitter that names no string or binary type, but isnull / isnotnull,
+    which are held here over string and binary columns too: the numeric,
+    cast, math, rounding, hash, date/time, interval and decimal entries
+    (decimals at the four test types, every pair for the binary
+    functions, the 256-bit multiply among them; castDECIMAL to
+    CAST_DECIMAL_TARGETS). The other string and binary emitters, whose
+    arguments after the first are literals, are held by
+    test_torch_codegen_strings.py."""
     reg = gt.global_registry()
     decs = [dtype_of(gt, t) for t in DEC_TYPES]
     for a in decs:
@@ -118,6 +123,10 @@ def emitter_signatures():
                for p in params):
             continue
         rt = f.signature.return_type
+        if (any(t.is_varlen for t in f.signature.param_types) or (
+                rt is not None and rt.is_varlen)) and \
+                f.signature.name not in ("isnull", "isnotnull"):
+            continue
         for ret in (CAST_DECIMAL_TARGETS if rt is None else (str(rt),)):
             sigs.add((f.signature.name, params, ret))
     return sorted(sigs)
@@ -195,10 +204,14 @@ def test_every_emitter_family_is_covered():
     for a in DEC_TYPES:
         for b in DEC_TYPES:
             assert (a, b) in params
-    # the 256-bit multiply (both operands over 18 digits) stays eager
-    assert not any(s[:2] == ("multiply", ("decimal128(32,4)",
-                                          "decimal128(38,6)"))
-                   for s in emitter_signatures())
+    # the 256-bit multiply (both operands over 18 digits) compiles
+    assert any(s[:2] == ("multiply", ("decimal128(32,4)",
+                                      "decimal128(38,6)"))
+               for s in emitter_signatures())
+    # isnull / isnotnull over strings and binaries (they read the validity)
+    for name in ("isnull", "isnotnull"):
+        for t in ("string", "binary"):
+            assert (name, (t,), "bool") in emitter_signatures(), (name, t)
 
 
 def _bool_tree(p, schema):
@@ -280,15 +293,15 @@ PLANS = {
     "q1": (t_entry.tpch_q1_scan, lambda: t_entry.lineitem(N, 1, CPU), 0),
     "q6": (t_entry.tpch_q6_scan, lambda: t_entry.lineitem(N, 1, CPU), 0),
     "q7": (t_entry.tpch_q7_scan, lambda: t_entry.lineitem(N, 1, CPU), 0),
-    "q12": (t_entry.tpch_q12_scan, lambda: t_entry.lineitem(N, 1, CPU), 1),
-    "q19": (t_entry.tpch_q19_scan, lambda: t_entry.lineitem(N, 1, CPU), 2),
+    "q12": (t_entry.tpch_q12_scan, lambda: t_entry.lineitem(N, 1, CPU), 0),
+    "q19": (t_entry.tpch_q19_scan, lambda: t_entry.lineitem(N, 1, CPU), 0),
 }
 
 
 @pytest.mark.parametrize("name", sorted(PLANS))
 def test_plan_matches_reference(name):
-    """The plan's compiled route (one kernel; only the nodes without an
-    emitter eager: Q12's and Q19's string predicates) against
+    """The plan's compiled route (one kernel, nothing eager: Q12's and
+    Q19's string predicates read their host tables in it) against
     gandiva_tpu's FilterProject, selection and outputs."""
     make, make_batch, eager = PLANS[name]
     plan = jit.host_build(make(CPU))
@@ -380,10 +393,11 @@ def test_configuration_optimize_flag():
 
 
 def test_eager_nodes_of_a_mixed_plan():
-    """Strings and random stay eager (kernel inputs); a string function
-    of a compiled value, read back by a compiled cast, runs between two
-    kernels; the compiled route equals the eager one, random draws
-    included."""
+    """random and castVARCHAR of a number stay eager (kernel inputs); the
+    string functions compile, reading their host tables; castVARCHAR of a
+    compiled value runs between two kernels, and the second reads its
+    codes and its dictionary's table (length); the compiled route equals
+    the eager one, random draws included."""
     B, dt = gt.TreeExprBuilder, gt.dtypes
     schema = dt.Schema([dt.Field("s", dt.string), dt.Field("x", dt.float64),
                         dt.Field("k", dt.int64)])
@@ -421,10 +435,10 @@ def test_eager_nodes_of_a_mixed_plan():
     by_name = {str(prog.nodes[key].name): kind
                for key, kind in prog.kinds.items()
                if isinstance(prog.nodes[key], gt.FunctionNode)}
-    for name in ("upper", "equal", "random", "castVARCHAR", "length",
-                 "like"):                                   # equal(utf8)
+    for name in ("random", "castVARCHAR"):
         assert by_name[name] == "eager", name
-    for name in ("add", "multiply", "castFLOAT8", "not"):
+    for name in ("add", "multiply", "castFLOAT8", "not", "upper", "equal",
+                 "length", "like"):                         # equal(utf8)
         assert by_name[name] == "compiled", name
     assert prog.kernels == 2     # castVARCHAR reads a compiled add
     for kind in ("eager", "compiled"):
@@ -435,7 +449,7 @@ def test_eager_nodes_of_a_mixed_plan():
         n = e.result_field.name
         assert_same_column(want.column(n), got.column(n), n)
     cost = plan.cost_analysis(batch)
-    assert cost["eager nodes"] == 7 and cost["compiled nodes"] == 6
+    assert cost["eager nodes"] == 2 and cost["compiled nodes"] == 11
     assert cost["plan bytes written"] > 0 and cost["plan bytes read"] > 0
 
 
@@ -531,17 +545,26 @@ def test_selected_and_streamed_routes():
     assert got[0].equals(want[0])
     # the kernel reads a and b at the selected rows: no gather launches
     assert eager_gathers.n == 4 and gathers.n == 0
-    # an eager node's field is gathered (codes and validity), no other
+    # an eager node's field is gathered (data and validity), no other; a
+    # string field a compiled node reads is read at the selected rows
     B, dt = gt.TreeExprBuilder, gt.dtypes
-    schema = dt.Schema([dt.Field("s", dt.string), dt.Field("x", dt.int64)])
-    s_, x = (B.make_field(schema.field(n)) for n in ("s", "x"))
+    schema = dt.Schema([dt.Field("s", dt.string), dt.Field("x", dt.int64),
+                        dt.Field("y", dt.int64)])
+    s_, x, y = (B.make_field(schema.field(n)) for n in ("s", "x", "y"))
+
+    def length_of(node):
+        return B.make_function("castBIGINT", [B.make_function(
+            "length", [node], dt.int32)], dt.int64)
+
     exprs = [B.make_expression(B.make_function("add", [
-        x, B.make_function("castBIGINT", [B.make_function(
-            "length", [s_], dt.int32)], dt.int64)], dt.int64),
-        dt.Field("r", dt.int64))]
+        y, length_of(B.make_function("castVARCHAR", [
+            x, B.make_int64_literal(20)], dt.string))], dt.int64),
+        dt.Field("r", dt.int64)),
+        B.make_expression(length_of(s_), dt.Field("u", dt.int64))]
     rng = np.random.default_rng(8)
     cols = {"s": ("string", *text_column("string", rng, N, ["a", "bbb"])),
-            "x": ("int64", rng.integers(-9, 9, N), rng.random(N) >= 0.1)}
+            "x": ("int64", rng.integers(-9, 9, N), rng.random(N) >= 0.1),
+            "y": ("int64", rng.integers(-9, 9, N), rng.random(N) >= 0.1)}
     mixed = gt.from_columns_numpy(cols, N, device=CPU)
     picked = gt.SelectionVector.from_mask(
         torch.from_numpy(rng.random(N) < 0.3), gt.SelectionMode.UINT32)
@@ -549,15 +572,15 @@ def test_selected_and_streamed_routes():
                                use_cache=False, device=CPU)
              for _ in range(2)]
     jit.host_build(plans[1])
-    assert plans[1]._program.eager_fields == ["s"]
+    assert plans[1]._program.eager_fields == ["x"]
     outs = []
-    # eager: both columns' data and validity and length's table gather by
-    # code; compiled: x stays ungathered
-    for plan, n in zip(plans, (5, 3)):
+    # eager: the three columns' data and validity and the two length
+    # tables gather by code; compiled: only x's data and validity
+    for plan, n in zip(plans, (8, 2)):
         with _IndexSelects() as gathers:
-            outs.append(plan.evaluate(mixed, selection=picked)[0])
+            outs.append(plan.evaluate(mixed, selection=picked))
         assert gathers.n == n
-    assert outs[0].equals(outs[1])
+    assert all(a.equals(b) for a, b in zip(*outs))
 
 
 class _IndexSelects:

@@ -70,34 +70,39 @@ def _col(t: str, values, rng, n: int = N):
 # ---------------------------------------------------------------------------
 
 def test_registry_emitters_by_family():
-    """Every date/time, interval, fixed-width hash, math, rounding and
-    castDECIMAL entry has an emitter; random, every string and binary
-    entry and the 256-bit decimal multiply have none."""
+    """Every registry entry has an emitter but the ones that stay eager by
+    design (ROADMAP §1 item 3): random (its draws are the eager route's
+    torch.Generator stream) and the per-row string routes that read device
+    values back to the host, castVARCHAR / castVARBINARY of a number or a
+    decimal. (concat of two non-literal strings, the third per-row route,
+    has an emitter and stays eager by node: test_torch_codegen_strings.py.)
+    Every entry that takes a string or binary argument has a host side
+    (its tables, the parses' among them), but isnull / isnotnull, which
+    read the validity only, and next_day, whose weekday is a literal the
+    source holds."""
     from gandiva_tpu_torch.registry import decimal_ops
 
     reg = gt.global_registry()
     wide = [dtype_of(gt, "decimal128(32,4)"), dtype_of(gt, "decimal128(38,6)")]
     decimal_ops.ensure_registered(wide)
-    seen = set()
+    seen, eager = set(), set()
     for (name, params), f in reg._table.items():
         module = f.impl.__module__.rsplit(".", 1)[-1]
-        types = list(params) + ([] if f.signature.return_type is None
-                                else [f.signature.return_type])
-        varlen = any(t.is_varlen for t in types)
-        wide_product = name == "multiply" and all(
-            t.is_decimal and t.precision > 18 for t in params)
-        if module == "string_ops" or name == "random" or wide_product:
-            assert f.emit is None, f.signature
-        elif not varlen:
-            assert f.emit is not None, f.signature
-            seen.add(module)
-        else:                   # the string-typed date functions, isnull…
-            assert name in ("to_date", "castDATE", "castTIMESTAMP",
-                            "is_date", "next_day", "isnull", "isnotnull",
-                            "castVARCHAR"), \
-                f.signature
+        per_row = name in ("castVARCHAR", "castVARBINARY") and \
+            not params[0].is_varlen
+        if name == "random" or per_row:
+            assert f.emit is None and f.host is None, f.signature
+            eager.add((name, str(params[0]) if params else None))
+            continue
+        assert f.emit is not None, f.signature
+        seen.add(module)
+        if any(p.is_varlen for p in params) and name not in (
+                "isnull", "isnotnull", "next_day"):
+            assert f.host is not None, f.signature
     assert seen == {"numeric", "cast", "datetime_ops", "hash_ops",
-                    "decimal_ops"}
+                    "decimal_ops", "string_ops"}
+    assert {n for n, _ in eager} == {"random", "castVARCHAR",
+                                     "castVARBINARY"}
 
 
 # ---------------------------------------------------------------------------
@@ -341,24 +346,12 @@ def _hazard_temporal(types, rng):
 
 
 def _hold_sigs(sigs, cols):
-    """The signatures compiled, bit for bit against the reference but
-    months_between, and every output bit for bit against the port's eager
-    route. months_between is held to the reference within 2^-52: the
-    reference's XLA fuses ``(t1 - t2) * (1 / 86,400,000) + (d1 - d2)``
-    into one FMA, where the port rounds the product first (ROADMAP §3)."""
-    fused = {f"o{i}" for i, sig in enumerate(sigs)
-             if sig[0] == "months_between"}
-
-    def hold(ref, port, name):
-        if name not in fused:
-            return assert_same_column(ref, port, name)
-        rv = np.asarray(ref.validity)
-        np.testing.assert_array_equal(port.validity.numpy(), rv, name)
-        np.testing.assert_allclose(port.data.numpy()[rv],
-                                   np.asarray(ref.data)[rv], rtol=4e-16,
-                                   atol=2.0 ** -52, err_msg=name)
-
-    plan = hold_compiled(lambda p, s: project(p, s, sigs), cols, hold=hold)
+    """The signatures compiled, bit for bit against the reference, and
+    every output bit for bit against the port's eager route.
+    months_between is held bit for bit too: the reference's XLA fuses
+    ``(t1 - t2) * (1 / 86,400,000) + (d1 - d2)`` into one FMA, and both of
+    the port's routes compute that multiply-add rounded once."""
+    plan = hold_compiled(lambda p, s: project(p, s, sigs), cols)
     assert plan._program.count("eager") == 0
     assert plan._program.kernels == 1
     batch = gt.from_columns_numpy(cols, len(next(iter(cols.values()))[1]),

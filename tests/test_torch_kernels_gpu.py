@@ -1211,12 +1211,13 @@ def _column_cpu(c):
 
 
 @pytest.mark.parametrize("name", ["configs[0]", "q1", "q6", "q7", "q12",
-                                  "q19", "q9", "q16"])
+                                  "q19", "q9", "q16", "q22"])
 def test_compiled_plan_on_card_matches_eager(name):
     """The entry points' plans compiled (the default) against the same
-    plans with optimize off, on the card: one generated kernel a call
-    (none for Q9's, whose one node is eager), the same selection and
-    outputs bit for bit."""
+    plans with optimize off, on the card: one generated kernel a call,
+    nothing eager (the string scans' nodes read their host tables in it;
+    Q22's is the substring under a string IN beside a decimal compare),
+    the same selection and outputs bit for bit."""
     dev = _card()
     import numpy as np
 
@@ -1234,6 +1235,9 @@ def test_compiled_plan_on_card_matches_eager(name):
     elif name in ("q9", "q16"):
         batch = e.part(20000, seed=2, device=dev)
         make = getattr(e, f"tpch_{name}_part_scan")
+    elif name == "q22":
+        batch = e.customer(20000, seed=2, device=dev)
+        make = e.tpch_q22_customer_scan
     else:
         batch = e.lineitem(100_003, seed=2, device=dev)
         make = getattr(e, f"tpch_{name}_scan")
@@ -1241,14 +1245,14 @@ def test_compiled_plan_on_card_matches_eager(name):
     eager = gt.make_filter_project(comp.schema, comp.condition, comp.exprs,
                                    config=_eager(gt), use_cache=False,
                                    device=dev)
+    assert comp._program.count("eager") == 0
     reset_launches()
     got = comp.evaluate_device(batch)
-    assert LAUNCHES["plan"] == (0 if name == "q9" else 1)
+    assert LAUNCHES["plan"] == 1
     want = eager.evaluate_device(batch)
-    assert LAUNCHES["plan"] == (0 if name == "q9" else 1)
+    assert LAUNCHES["plan"] == 1
     _hold_plan_outputs(got, want)
-    if name != "q9":
-        assert "__global__" in comp.dump_hlo()
+    assert "__global__" in comp.dump_hlo()
 
 
 @pytest.mark.parametrize("part", range(16))
@@ -1279,6 +1283,38 @@ def test_emitters_compiled_on_card_match_eager(part):
     for e in exprs:
         n = e.result_field.name
         assert same_column(got.column(n), _column_cpu(want.column(n))), \
+            e.root.to_string()
+
+
+@pytest.mark.parametrize("part", range(4))
+def test_string_emitters_compiled_on_card_match_eager(part):
+    """Every string and binary signature with an emitter
+    (chip_smoke.string_emitter_plans' ``part`` of 4) compiled against the
+    eager route on the card at 4,096 rows, dictionaries of 1,000 values
+    with nulls: values, validities and string outputs' dictionaries."""
+    dev = _card()
+    import numpy as np
+
+    import gandiva_tpu_torch as gt
+    from chip_smoke import (STRING_EMIT_BATCHES, same_string_column,
+                            string_column, string_emitter_plans)
+
+    assert STRING_EMIT_BATCHES == 4
+    schema, exprs, spec, _ = string_emitter_plans(gt)[part]
+    rng = np.random.default_rng(part)
+    cols = {k: (t, *string_column(t, 4096, rng, name))
+            for k, (t, name) in spec.items()}
+    batch = gt.from_columns_numpy(cols, 4096, device=dev)
+    comp = gt.make_projector(schema, exprs, use_cache=False, device=dev)
+    assert comp._program.count("eager") == 0
+    got = comp.evaluate_device(batch)
+    want = gt.make_projector(schema, exprs, config=_eager(gt),
+                             use_cache=False,
+                             device=dev).evaluate_device(batch)
+    for e in exprs:
+        n = e.result_field.name
+        assert same_string_column(got.column(n),
+                                  _column_cpu(want.column(n))), \
             e.root.to_string()
 
 
