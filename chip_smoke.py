@@ -909,46 +909,39 @@ def hold_tpch_prefix(gt, plan, batch, query: str) -> int:
 
 
 def host_split(plan, batch) -> dict:
-    """Where one scan call's wall goes on the host (median of 7 calls, ms):
-    before K1's wrapper (decomposing the plan and enqueueing its elementwise
-    chain), inside it, waiting at ``int(count)`` for the device, after it
-    (packing the outputs), and the device wait after the call returns."""
-    from gandiva_tpu_torch.compiler import projector
+    """Where one scan call's wall goes on the host (median of 7 calls, ms),
+    read from the program's spans, which a CPU profiler session turns on:
+    each child of the call's ``gt.plan.evaluate`` by name (preparing the
+    columns and the context, the host tables, the eager nodes, the
+    kernel's launch, K1's wrapper, the wait at ``int(count)``, the
+    outputs), the rest of the call, and the device wait after it returns.
+    The profiler's recording of each torch operation is inside these
+    times, so they are not comparable with a split timed with no profiler
+    session."""
+    from torch.profiler import ProfilerActivity, profile
 
-    marks = {}
-    real_compact, real_count = projector.compact_best, plan._count
+    from gandiva_tpu_torch import tracing
 
-    def timed_compact(*a, **k):
-        marks["in"] = time.perf_counter()
-        out = real_compact(*a, **k)
-        marks["out"] = time.perf_counter()
-        return out
-
-    def timed_count(*a, **k):
-        marks["synced"] = time.perf_counter()
-        return real_count(*a, **k)
-
-    parts = {"before_k1_ms": [], "k1_wrapper_ms": [], "count_wait_ms": [],
-             "after_ms": [], "device_wait_ms": [], "wall_ms": []}
-    projector.compact_best, plan._count = timed_compact, timed_count
-    try:
-        for _ in range(7):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
+    parts = {}
+    for _ in range(7):
+        tracing.clear()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU]):
             plan.evaluate_device(batch)
-            t1 = time.perf_counter()
+            returned = time.time_ns()
             torch.cuda.synchronize()
-            t2 = time.perf_counter()
-            for key, s in (("before_k1_ms", marks["in"] - t0),
-                           ("k1_wrapper_ms", marks["out"] - marks["in"]),
-                           ("count_wait_ms", marks["synced"] - marks["out"]),
-                           ("after_ms", t1 - marks["synced"]),
-                           ("device_wait_ms", t2 - t1),
-                           ("wall_ms", t2 - t0)):
-                parts[key].append(s * 1e3)
-    finally:
-        projector.compact_best = real_compact
-        del plan._count
+            done = time.time_ns()
+        spans = tracing.spans()
+        call = {"device_wait": done - returned, "wall": done - spans[0].start,
+                "rest": spans[0].end - spans[0].start}
+        for s in spans[1:]:
+            if s.parent == 0:
+                key = s.name.split(".")[-1]
+                call[key] = call.get(key, 0) + s.end - s.start
+                call["rest"] -= s.end - s.start
+        for key, ns in call.items():
+            parts.setdefault(f"{key}_ms", []).append(ns / 1e6)
+    tracing.clear()
     return {k: sorted(v)[len(v) // 2] for k, v in parts.items()}
 
 

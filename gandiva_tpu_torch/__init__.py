@@ -30,6 +30,12 @@ ops, utils); the plans' ``profile`` (a torch.profiler Chrome trace) and
 distribution layer (``parallel``: the partition mesh, the all-to-all
 shuffle, the distributed join / aggregate / sort, the configs[4] pipeline,
 ``entrypoints.distributed_step``).
+
+Tracing turns on with any ``torch.profiler`` session: while one records,
+the program's own spans (``gt.plan.*``, ``gt.compact``, ``gt.pipeline``,
+the operators', and ``gt.sync.*`` at every read that waits for the card)
+go to an in-memory store on the profiler's clock; ``tracing.spans()``
+reads it and ``tracing.clear()`` empties it (``tracing.py``).
 """
 from __future__ import annotations
 
@@ -57,7 +63,7 @@ from .compiler.selection import SelectionMode, SelectionVector
 from .compiler.projector import (Filter, FilterProject, Projector,
                                  make_filter, make_filter_project,
                                  make_projector)
-from . import io, native, ops, parallel
+from . import io, native, ops, parallel, tracing
 from .plan import (Plan, PlanError, dump_plan, load_plan,
                    make_filter_from_plan, make_projector_from_plan)
 
@@ -85,7 +91,7 @@ __all__ = [
     "ExpressionValidationError", "EvaluationError",
     "Plan", "PlanError", "load_plan", "dump_plan",
     "make_projector_from_plan", "make_filter_from_plan",
-    "io", "native", "ops", "parallel",
+    "io", "native", "ops", "parallel", "tracing",
 ]
 
 __version__ = "0.1.0"

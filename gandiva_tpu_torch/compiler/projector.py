@@ -43,6 +43,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 import torch
 
 from .. import dtypes as dt
+from .. import tracing
 from ..batch import Batch, Column, column_to_arrow, from_arrow
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..expr.nodes import (Condition, Expression, FieldNode, FunctionNode,
@@ -208,15 +209,20 @@ class _CompiledPlan:
                                 device=ctx.device)
         for stage in prog.stages:
             for key in stage.eager:
-                n0 = len(ctx.error_flags)
-                dec.known[key] = dec.decompose_at(key, prog.nodes[key])
-                sites += [(prog.post[key], j - n0, ctx.error_flags[j],
-                           ctx.error_messages[j])
-                          for j in range(n0, len(ctx.error_flags))]
+                with tracing.span("gt.plan.eager"):
+                    n0 = len(ctx.error_flags)
+                    dec.known[key] = dec.decompose_at(key, prog.nodes[key])
+                    sites += [(prog.post[key], j - n0, ctx.error_flags[j],
+                               ctx.error_messages[j])
+                              for j in range(n0, len(ctx.error_flags))]
             for key in stage.hosts:
-                tables[key], dec.known[key] = self._host_side(key, ctx, dec)
+                with tracing.span("gt.plan.host_tables"):
+                    tables[key], dec.known[key] = self._host_side(key, ctx,
+                                                                  dec)
             if stage.launches:
-                self._launch(stage, ctx, dec.known, flags, selection, tables)
+                with tracing.span("gt.plan.launch"):
+                    self._launch(stage, ctx, dec.known, flags, selection,
+                                 tables)
         outs = [dec.decompose_at((i,), root)
                 for i, root in enumerate(self._roots)]
         if flags is not None:
@@ -424,19 +430,22 @@ class _CompiledPlan:
         (compiled route only): (the batch's columns, the selected rows'
         indices), which the kernels read their fields through; ``cols``
         then holds the gathered columns the eager nodes read."""
-        capacity = (int(selection[1].shape[0]) if selection is not None else
-                    int(_limbs(next(iter(cols.values()))[0])[0].shape[0]))
-        ctx = TraceContext(capacity, length, {}, self.device, seed=seed,
-                           check_errors=self.config.raise_errors,
-                           consts=self._consts, batch=batch,
-                           tables=None if batch is None
-                           else self._tables_for(batch))
-        ctx.columns = self._make_vals(cols)
+        with tracing.span("gt.plan.prepare"):
+            capacity = (int(selection[1].shape[0]) if selection is not None
+                        else int(_limbs(next(iter(cols.values()))[0])[0]
+                                 .shape[0]))
+            ctx = TraceContext(capacity, length, {}, self.device, seed=seed,
+                               check_errors=self.config.raise_errors,
+                               consts=self._consts, batch=batch,
+                               tables=None if batch is None
+                               else self._tables_for(batch))
+            ctx.columns = self._make_vals(cols)
         if self._program is not None:
             outs = self._run_program(ctx, selection)
         else:
-            dec = ExprDecomposer(ctx)
-            outs = [dec.decompose(r) for r in self._roots]
+            with tracing.span("gt.plan.eager"):
+                dec = ExprDecomposer(ctx)
+                outs = [dec.decompose(r) for r in self._roots]
         res = (finish or self._finish)(ctx, outs)
         if ctx.table_builds:
             self.stats["table_builds"] = (self.stats.get("table_builds", 0)
@@ -505,7 +514,8 @@ class _CompiledPlan:
         if not self.config.raise_errors:
             return outs
         outs, err = outs
-        code = int(err)
+        with tracing.sync("errors"):
+            code = int(err)
         if code:
             raise EvaluationError(self._error_messages[code - 1])
         return outs
@@ -544,8 +554,10 @@ class _CompiledPlan:
         return self.dump_hlo()
 
     def _evaluate_once(self, batch: Batch):
-        return self._run(self._cols_of(batch), batch.length,
-                         self._next_seed(), batch=batch)
+        with tracing.span("gt.plan.evaluate"):
+            tracing.add("rows_in", batch.length)
+            return self._run(self._cols_of(batch), batch.length,
+                             self._next_seed(), batch=batch)
 
     def profile(self, batch, trace_dir: Optional[str] = None) -> str:
         """Trace one evaluation over ``batch`` with ``torch.profiler`` (the
@@ -565,11 +577,15 @@ class _CompiledPlan:
         activities = [ProfilerActivity.CPU]
         if self.device.type == "cuda":
             activities.append(ProfilerActivity.CUDA)
+        tracing.clear()
         with profile(activities=activities) as prof:
             self._evaluate_once(batch)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
-        prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
+        path = os.path.join(trace_dir, "trace.json")
+        prof.export_chrome_trace(path)
+        _add_span_track(path, tracing.spans())
+        tracing.clear()
         return trace_dir
 
     def cost_analysis(self, batch) -> Dict[str, int]:
@@ -607,6 +623,31 @@ class _CompiledPlan:
     def llvm_ir(self) -> str:
         """Name-compatible alias for pyarrow's Projector.llvm_ir."""
         return self.dump_hlo()
+
+
+def _add_span_track(path: str, spans) -> None:
+    """Write the program's ``spans`` into the Chrome trace at ``path`` as a
+    track of their own, ``gandiva_tpu_torch spans``, beside the profiler's
+    (one timeline: both are on the Unix clock)."""
+    import json
+
+    with open(path) as f:
+        doc = json.load(f)
+    base = doc.get("baseTimeNanoseconds", 0)
+    pid = "gandiva_tpu_torch spans"
+    events = doc.setdefault("traceEvents", [])
+    events.append({"ph": "M", "name": "process_name", "pid": pid, "tid": 0,
+                   "args": {"name": pid}})
+    for i, s in enumerate(spans):
+        args = {"index": i, "parent": s.parent, "request": s.request,
+                **s.counters}
+        if s.device_ms is not None:
+            args["device_ms"] = s.device_ms
+        events.append({"ph": "X", "cat": "gt_span", "name": s.name,
+                       "pid": pid, "tid": 0, "ts": (s.start - base) / 1e3,
+                       "dur": (s.end - s.start) / 1e3, "args": args})
+    with open(path, "w") as f:
+        json.dump(doc, f)
 
 
 def _tensors(tree):
@@ -675,13 +716,20 @@ class Projector(_CompiledPlan):
 
     def _finish(self, ctx: TraceContext, outs: List[Val]):
         cap = ctx.capacity
-        return [(_full(v.value, cap), as_valid_mask(v, cap, ctx.device))
-                for v in outs]
+        with tracing.span("gt.plan.outputs"):
+            return [(_full(v.value, cap), as_valid_mask(v, cap, ctx.device))
+                    for v in outs]
 
     # ---- public API ----------------------------------------------------
     def evaluate_device(self, batch: Batch,
                         selection: Optional[SelectionVector] = None) -> Batch:
         """Evaluate and keep results on the device as a Batch."""
+        with tracing.span("gt.plan.evaluate"):
+            tracing.add("rows_in", batch.length)
+            return self._evaluate_device(batch, selection)
+
+    def _evaluate_device(self, batch: Batch,
+                         selection: Optional[SelectionVector]) -> Batch:
         cols = self._cols_of(batch)
         seed = self._next_seed()
         if selection is None:
@@ -705,12 +753,15 @@ class Projector(_CompiledPlan):
             idx = selection.indices.to(mode_index_dtype(self.selection_mode))
             outs, dicts = self._unwrap_errors(self._run_selected(
                 cols, seed, idx, selection.count, self._with_dicts, batch))
-            length = int(selection.count)
+            with tracing.sync("count"):
+                length = int(selection.count)
         self._count(batch, length)
-        return Batch({e.result_field.name: _out_column(
-            value, validity, e.result_field.dtype, dictionary)
-            for e, (value, validity), dictionary in zip(self.exprs, outs,
-                                                        dicts)}, length)
+        tracing.add("rows_out", length)
+        with tracing.span("gt.plan.outputs"):
+            return Batch({e.result_field.name: _out_column(
+                value, validity, e.result_field.dtype, dictionary)
+                for e, (value, validity), dictionary in zip(self.exprs, outs,
+                                                            dicts)}, length)
 
     def evaluate(self, batch, selection: Optional[SelectionVector] = None):
         """Evaluate a batch; returns a list of pyarrow Arrays (mirrors
@@ -742,7 +793,9 @@ class Filter(_CompiledPlan):
         return Filter(schema, condition, config, device)
 
     def _finish(self, ctx: TraceContext, outs: List[Val]):
-        idx, count, _ = compact_best(_condition_mask(ctx, outs[0]))
+        mask = _condition_mask(ctx, outs[0])
+        with tracing.span("gt.compact"):
+            idx, count, _ = compact_best(mask)
         return idx, count
 
     def evaluate(self, batch, mode: SelectionMode = SelectionMode.UINT32
@@ -750,14 +803,18 @@ class Filter(_CompiledPlan):
         """Evaluate the condition; rows where it is true AND valid land in the
         selection (gandiva.pyx:247-280; semantics test_gandiva.py:113-114)."""
         batch = self._as_batch(batch)
-        idx, count = self._unwrap_errors(
-            self._run(self._cols_of(batch), batch.length,
-                      self._next_seed(), batch=batch))
-        self.stats["evaluations"] += 1
-        self.stats["rows_in"] += batch.length
-        if mode is SelectionMode.UINT16:
-            check_uint16_capacity(batch.capacity)
-        return SelectionVector(idx.to(mode_index_dtype(mode)), count, mode)
+        with tracing.span("gt.plan.evaluate"):
+            tracing.add("rows_in", batch.length)
+            idx, count = self._unwrap_errors(
+                self._run(self._cols_of(batch), batch.length,
+                          self._next_seed(), batch=batch))
+            self.stats["evaluations"] += 1
+            self.stats["rows_in"] += batch.length
+            if mode is SelectionMode.UINT16:
+                check_uint16_capacity(batch.capacity)
+            with tracing.span("gt.plan.outputs"):
+                return SelectionVector(idx.to(mode_index_dtype(mode)), count,
+                                       mode)
 
 
 class FilterProject(_CompiledPlan):
@@ -803,16 +860,28 @@ class FilterProject(_CompiledPlan):
         return _condition_mask(ctx, outs[0]), payload
 
     def _finish(self, ctx: TraceContext, outs: List[Val]):
-        return compact_best(*self._dense(ctx, outs))
+        mask, payload = self._dense(ctx, outs)
+        with tracing.span("gt.compact"):
+            tracing.add("payload_columns", len(payload))
+            return compact_best(mask, payload)
 
     def evaluate_device(self, batch: Batch):
         """Returns (SelectionVector, Batch of projected columns) — both
         logically ``count`` rows long."""
-        (idx, count, packed), dicts = self._unwrap_errors(
-            self._run(self._cols_of(batch), batch.length,
-                      self._next_seed(), self._with_dicts, batch))
-        length = int(count)
-        self._count(batch, length)
+        with tracing.span("gt.plan.evaluate"):
+            tracing.add("rows_in", batch.length)
+            (idx, count, packed), dicts = self._unwrap_errors(
+                self._run(self._cols_of(batch), batch.length,
+                          self._next_seed(), self._with_dicts, batch))
+            with tracing.sync("count"):
+                length = int(count)
+            self._count(batch, length)
+            tracing.add("rows_out", length)
+            with tracing.span("gt.plan.outputs"):
+                return self._outputs(idx, count, packed, dicts, length)
+
+    def _outputs(self, idx, count, packed, dicts, length: int):
+        """The SelectionVector and the Batch of the projected columns."""
         out_cols = {}
         pos = 0
         for e, dictionary in zip(self.exprs, dicts[1:]):

@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import tracing
 from ..utils.hashing import hash32
 from ..utils.ints import widen
 from .sort import normalize_key
@@ -90,11 +91,12 @@ def group_ids(keys: torch.Tensor, valid=None, max_groups: int = 4096,
     dump = torch.full((n,), T, dtype=torch.int64, device=dev)
     rows = torch.arange(n, device=dev) if deterministic else None
     for _ in range(T):
-        if deterministic:
-            pending, full = torch.stack([unresolved.any(),
-                                         table_occ[:T].all()]).tolist()
-        else:
-            pending, full = bool(unresolved.any()), False
+        with tracing.sync("group_ids"):
+            if deterministic:
+                pending, full = torch.stack([unresolved.any(),
+                                             table_occ[:T].all()]).tolist()
+            else:
+                pending, full = bool(unresolved.any()), False
         if not pending:
             break
         if full:
@@ -203,10 +205,12 @@ def distinct_small(keys: torch.Tensor, valid=None, max_groups: int = 256):
     if valid is None:
         valid = torch.ones(n, dtype=torch.bool, device=dev)
     is_max = valid & (k64 == _I64_MAX)
-    distinct = torch.unique(k64[valid & ~is_max], sorted=True)
+    with tracing.sync("distinct"):        # a mask index and unique
+        distinct = torch.unique(k64[valid & ~is_max], sorted=True)
     found = distinct[:max_groups]
-    count = (torch.tensor(found.shape[0], dtype=torch.int32, device=dev)
-             + is_max.any().to(torch.int32))
+    with tracing.sync("distinct_count"):  # a host value to the device
+        count = torch.tensor(found.shape[0], dtype=torch.int32, device=dev)
+    count = count + is_max.any().to(torch.int32)
     uniq = torch.full((max_groups,), _I64_MAX, dtype=torch.int64, device=dev)
     uniq[:found.shape[0]] = found
     pos = torch.searchsorted(uniq, k64).clamp(max=max_groups - 1)

@@ -49,6 +49,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import tracing
 from ..utils.hashing import hash32
 from ..utils.ints import signed_view, widen
 from .compaction import compact_fragnet, compact_sort
@@ -134,7 +135,9 @@ def _walk(table, pos, lo, hi, unres, start, ln):
     empty slot (absent). Chains run un-wrapped into the slack tail, so the
     table's size bounds every walk. One host sync per round."""
     for _ in range(table.shape[0]):
-        if not bool(unres.any()):
+        with tracing.sync("walk"):
+            pending = bool(unres.any())
+        if not pending:
             break
         g = table.index_select(0, torch.where(unres, pos, 0))
         occ = g[:, 3] > 0
@@ -164,38 +167,40 @@ def build_join_table(build_keys, build_valid=None, build_exists=None,
     fast-expansion types (inner/left/semi/anti) store ORIGINAL build rows
     for length-1 runs, while right/full store sorted positions throughout
     (their unmatched-build pass walks sorted run ranges)."""
-    how = how.lower()
-    _check_how(how)
-    nb = build_keys.shape[0]
-    _check_rows(nb, "build")
-    dev = build_keys.device
-    if build_exists is None:
-        build_exists = torch.ones(nb, dtype=torch.bool, device=dev)
-    if build_length is not None:
-        build_exists = build_exists & (torch.arange(nb, device=dev)
-                                       < build_length)
-    build_kv = build_exists if build_valid is None \
-        else (build_valid & build_exists)
+    with tracing.span("gt.join.build", device=build_keys.device):
+        how = how.lower()
+        _check_how(how)
+        nb = build_keys.shape[0]
+        _check_rows(nb, "build")
+        dev = build_keys.device
+        if build_exists is None:
+            build_exists = torch.ones(nb, dtype=torch.bool, device=dev)
+        if build_length is not None:
+            build_exists = build_exists & (torch.arange(nb, device=dev)
+                                           < build_length)
+        build_kv = build_exists if build_valid is None \
+            else (build_valid & build_exists)
 
-    # ---- sort build keys; key-invalid rows sort last (K4, then K3) -------
-    perm, (sorted_norm,) = _sort_full(
-        [SortKey(build_keys, validity=build_kv, nulls_first=False)], None)
-    if build_keys.is_floating_point():
-        # the sort zeroes NaN norms (its rank word places NaN); the table
-        # holds the key's own norm, as the reference's does
-        sorted_norm = normalize_key(build_keys).index_select(0, perm)
-    sorted_valid = build_kv.index_select(0, perm)
-    sorted_exists = build_exists.index_select(0, perm)
-    n_build_valid = build_kv.sum(dtype=torch.int32)
-    # invalid rows sit past the valid prefix; pin them to the max norm, as
-    # the reference does (run lengths clamp to the valid prefix, so a real
-    # max-valued key stays correct)
-    sorted_keys = torch.where(sorted_valid, _widen(sorted_norm),
-                              _unsigned_max(sorted_norm))
-    fast_how = how in _FAST_HOWS
-    table, all_unique = _build_ranges_table(
-        sorted_keys, n_build_valid, perm if fast_how else None, table_factor)
-    return JoinTable(table, perm, sorted_exists, n_build_valid, all_unique)
+        # ---- sort build keys; key-invalid rows sort last (K4, then K3) ---
+        perm, (sorted_norm,) = _sort_full(
+            [SortKey(build_keys, validity=build_kv, nulls_first=False)], None)
+        if build_keys.is_floating_point():
+            # the sort zeroes NaN norms (its rank word places NaN); the table
+            # holds the key's own norm, as the reference's does
+            sorted_norm = normalize_key(build_keys).index_select(0, perm)
+        sorted_valid = build_kv.index_select(0, perm)
+        sorted_exists = build_exists.index_select(0, perm)
+        n_build_valid = build_kv.sum(dtype=torch.int32)
+        # invalid rows sit past the valid prefix; pin them to the max norm, as
+        # the reference does (run lengths clamp to the valid prefix, so a real
+        # max-valued key stays correct)
+        sorted_keys = torch.where(sorted_valid, _widen(sorted_norm),
+                                  _unsigned_max(sorted_norm))
+        fast_how = how in _FAST_HOWS
+        table, all_unique = _build_ranges_table(
+            sorted_keys, n_build_valid, perm if fast_how else None,
+            table_factor)
+        return JoinTable(table, perm, sorted_exists, n_build_valid, all_unique)
 
 
 def join(probe_keys, build_keys, capacity: int, how: str = "inner",
@@ -299,71 +304,75 @@ def probe_chunk(jt: JoinTable, probe_keys, capacity: int,
     ``build_unique`` (a PK-FK declaration) only adds the contract check:
     the general path detects a unique build itself and takes the identity
     expansion; duplicate build keys then surface through ``overflow``."""
-    how = how.lower()
-    _check_how(how)
-    np_ = probe_keys.shape[0]
-    _check_rows(np_, "probe")
-    dev = probe_keys.device
-    C = capacity
-    perm = jt.perm
-    if probe_exists is None:
-        probe_exists = torch.ones(np_, dtype=torch.bool, device=dev)
-    if probe_length is not None:
-        probe_exists = probe_exists & (torch.arange(np_, device=dev)
-                                       < probe_length)
-    probe_kv = probe_exists if probe_valid is None \
-        else (probe_valid & probe_exists)
+    with tracing.span("gt.join.probe", device=probe_keys.device):
+        how = how.lower()
+        _check_how(how)
+        np_ = probe_keys.shape[0]
+        _check_rows(np_, "probe")
+        dev = probe_keys.device
+        C = capacity
+        perm = jt.perm
+        if probe_exists is None:
+            probe_exists = torch.ones(np_, dtype=torch.bool, device=dev)
+        if probe_length is not None:
+            probe_exists = probe_exists & (torch.arange(np_, device=dev)
+                                           < probe_length)
+        probe_kv = probe_exists if probe_valid is None \
+            else (probe_valid & probe_exists)
 
-    fast_how = how in _FAST_HOWS
-    lo, ln, _ = _probe_ranges_table(jt.table, perm.shape[0],
-                                    normalize_key(probe_keys), probe_kv)
-    uniq = jt.all_unique if fast_how \
-        else torch.zeros((), dtype=torch.bool, device=dev)
+        fast_how = how in _FAST_HOWS
+        lo, ln, _ = _probe_ranges_table(jt.table, perm.shape[0],
+                                        normalize_key(probe_keys), probe_kv)
+        uniq = jt.all_unique if fast_how \
+            else torch.zeros((), dtype=torch.bool, device=dev)
 
-    # The identity expansion: unique build AND every probe row emits
-    # exactly one output (referential-integrity joins, THE common PK-FK
-    # case). Deciding it reads one flag from the device.
-    matched = probe_kv & (ln > 0)
-    if how == "left":
-        fast_flag = uniq & probe_exists.all()
-    elif fast_how:
-        fast_flag = uniq & matched.all()
-    else:
-        fast_flag = None
-    if fast_flag is not None and bool(fast_flag):
-        probe_out, build_out, total = _unique_expand(how, lo, matched, C)
-    else:
-        probe_out, build_out, total = _general_expand(
-            how, lo, ln, probe_kv, probe_exists, perm, C)
+        # The identity expansion: unique build AND every probe row emits
+        # exactly one output (referential-integrity joins, THE common PK-FK
+        # case). Deciding it reads one flag from the device.
+        matched = probe_kv & (ln > 0)
+        if how == "left":
+            fast_flag = uniq & probe_exists.all()
+        elif fast_how:
+            fast_flag = uniq & matched.all()
+        else:
+            fast_flag = None
+        if fast_flag is not None:
+            with tracing.sync("fast_flag"):
+                fast_flag = bool(fast_flag)
+        if fast_flag:
+            probe_out, build_out, total = _unique_expand(how, lo, matched, C)
+        else:
+            probe_out, build_out, total = _general_expand(
+                how, lo, ln, probe_kv, probe_exists, perm, C)
 
-    # ---- right/full: append unmatched build rows ------------------------
-    if how in ("right", "full"):
-        nb = perm.shape[0]
-        # lo holds SORTED positions here (fast_how is false); clamp against
-        # the valid prefix as the general expansion does
-        hi = torch.minimum(lo + ln, jt.n_build_valid)
-        lo = torch.minimum(lo, jt.n_build_valid)
-        cnt = torch.where(probe_kv, hi - lo, 0)
-        # matched sorted-build positions via ±1 run marks + cumsum
-        touch = cnt > 0
-        marks = torch.zeros(nb + 1, dtype=torch.int32, device=dev)
-        ones = torch.ones(np_, dtype=torch.int32, device=dev)
-        marks.index_add_(0, torch.where(touch, lo, nb).long(), ones)
-        marks.index_add_(0, torch.where(touch, hi, nb).long(), -ones)
-        covered = torch.cumsum(marks[:nb], 0, dtype=torch.int32) > 0
-        # existing-but-unmatched build rows, including null-key rows
-        unmatched = jt.sorted_exists & ~covered
-        upos, n_unmatched = _exclusive_cumsum(unmatched.to(torch.int32))
-        dst = total + upos
-        uslot = torch.where(unmatched & (dst < C), dst, C)
-        build_out = _scatter_back(build_out, uslot, perm)
-        total = total + n_unmatched
+        # ---- right/full: append unmatched build rows ------------------------
+        if how in ("right", "full"):
+            nb = perm.shape[0]
+            # lo holds SORTED positions here (fast_how is false); clamp against
+            # the valid prefix as the general expansion does
+            hi = torch.minimum(lo + ln, jt.n_build_valid)
+            lo = torch.minimum(lo, jt.n_build_valid)
+            cnt = torch.where(probe_kv, hi - lo, 0)
+            # matched sorted-build positions via ±1 run marks + cumsum
+            touch = cnt > 0
+            marks = torch.zeros(nb + 1, dtype=torch.int32, device=dev)
+            ones = torch.ones(np_, dtype=torch.int32, device=dev)
+            marks.index_add_(0, torch.where(touch, lo, nb).long(), ones)
+            marks.index_add_(0, torch.where(touch, hi, nb).long(), -ones)
+            covered = torch.cumsum(marks[:nb], 0, dtype=torch.int32) > 0
+            # existing-but-unmatched build rows, including null-key rows
+            unmatched = jt.sorted_exists & ~covered
+            upos, n_unmatched = _exclusive_cumsum(unmatched.to(torch.int32))
+            dst = total + upos
+            uslot = torch.where(unmatched & (dst < C), dst, C)
+            build_out = _scatter_back(build_out, uslot, perm)
+            total = total + n_unmatched
 
-    overflow = total > C
-    if build_unique and fast_how:
-        overflow = overflow | ~uniq
-    count = total.clamp(max=C).to(torch.int32)
-    return JoinResult(probe_out, build_out, count, overflow)
+        overflow = total > C
+        if build_unique and fast_how:
+            overflow = overflow | ~uniq
+        count = total.clamp(max=C).to(torch.int32)
+        return JoinResult(probe_out, build_out, count, overflow)
 
 
 def _stack(items):
@@ -438,22 +447,24 @@ def gather_payload(result: JoinResult, probe_cols=None, build_cols=None):
 
     Each cols dict maps name → (values, validity-or-None); unmatched side
     rows come out null. Returns ({name: (values, validity)}, row_valid)."""
-    out = {}
-    r = torch.arange(result.probe_idx.shape[0],
-                     device=result.probe_idx.device)
-    row_ok = r < result.count
-    for cols, idx in ((probe_cols, result.probe_idx),
-                      (build_cols, result.build_idx)):
-        if not cols:
-            continue
-        present = (idx >= 0) & row_ok
-        safe = idx.clamp(min=0).long()
-        for name, (vals, validity) in cols.items():
-            g = signed_view(vals).index_select(0, safe).view(vals.dtype)
-            gv = present if validity is None \
-                else (validity.index_select(0, safe) & present)
-            out[name] = (g, gv)
-    return out, row_ok
+    with tracing.span("gt.join.gather",
+                      device=result.probe_idx.device):
+        out = {}
+        r = torch.arange(result.probe_idx.shape[0],
+                         device=result.probe_idx.device)
+        row_ok = r < result.count
+        for cols, idx in ((probe_cols, result.probe_idx),
+                          (build_cols, result.build_idx)):
+            if not cols:
+                continue
+            present = (idx >= 0) & row_ok
+            safe = idx.clamp(min=0).long()
+            for name, (vals, validity) in cols.items():
+                g = signed_view(vals).index_select(0, safe).view(vals.dtype)
+                gv = present if validity is None \
+                    else (validity.index_select(0, safe) & present)
+                out[name] = (g, gv)
+        return out, row_ok
 
 
 def join_multi(probe_keys_list, build_keys_list, capacity: int,
@@ -855,7 +866,9 @@ def _probe_ranges_hot(table, nb: int, pk_norm, probe_kv, K: int):
     ln = _scatter_back(ln, tgt1, ln_s)
 
     # ---- 5. overflow fallback: full-width walk from home ----------------
-    if bool((n1 > C1) | (n2 > C2)):
+    with tracing.sync("probe_capacity"):
+        overflowed = bool((n1 > C1) | (n2 > C2))
+    if overflowed:
         rank1 = torch.cumsum(cold, 0, dtype=torch.int32)
         rank2 = torch.cumsum(unres_s, 0, dtype=torch.int32)
         unres_full = (cold & (rank1 > C1)) | _scatter_back(
@@ -905,7 +918,9 @@ def _hash_probe_unique(probe_keys, build_keys, probe_kv, build_kv):
                         torch.ones(nb, dtype=torch.int32, device=dev)], 1)
     unresolved = build_kv.clone()
     for _ in range(T):
-        if not bool(unresolved.any()):
+        with tracing.sync("unique_build"):
+            pending = bool(unresolved.any())
+        if not pending:
             break
         slot = torch.where(unresolved, pos, T)
         claim = unresolved & ~(table.index_select(0, slot)[:, 3] > 0)
@@ -933,7 +948,9 @@ def _hash_probe_unique(probe_keys, build_keys, probe_kv, build_kv):
     bidx = _full(np_, -1, torch.int32, dev)
     unresolved = probe_kv.clone()
     for _ in range(T):
-        if not bool(unresolved.any()):
+        with tracing.sync("unique_probe"):
+            pending = bool(unresolved.any())
+        if not pending:
             break
         got = table.index_select(0, torch.where(unresolved, pos, T))
         occ = got[:, 3] > 0

@@ -33,6 +33,7 @@ from typing import List, Sequence, Tuple
 
 import torch
 
+from ... import tracing
 from . import LAUNCHES, build
 
 MAX_PAYLOADS = 8
@@ -180,7 +181,8 @@ def compact_columns_plain(mask: torch.Tensor, columns: Sequence[torch.Tensor]
     outputs (tail zero). Syncs the host on a card (nonzero's size)."""
     _validate(mask, columns)
     n = mask.shape[0]
-    sel = torch.nonzero(mask).flatten()
+    with tracing.sync("nonzero"):
+        sel = torch.nonzero(mask).flatten()
     c = sel.shape[0]
     indices = torch.zeros(n, dtype=torch.int32, device=mask.device)
     indices[:c] = sel.to(torch.int32)

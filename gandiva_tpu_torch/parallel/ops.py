@@ -26,6 +26,7 @@ from typing import Dict, List, Tuple
 
 import torch
 
+from .. import tracing
 from ..ops.compaction import compact_sort
 from ..ops.groupby import group_ids, key_to_i64
 from ..ops.hash_aggregate import hash_aggregate
@@ -58,18 +59,20 @@ def _shuffle_cols(keys, valid, cols: Dict[str, Tuple], mesh: Mesh,
     ``cols[name] = (values, validity-or-None)``, each a per-partition list.
     Returns (keys, valid, cols, overflow), the first three flattened to
     ``[P*cap]`` per partition."""
-    if part_ids is None:
-        part_ids = [partition_of(k, mesh.size, seed) for k in keys]
-    payload = {"__key": keys}
-    for name, (vals, vv) in cols.items():
-        payload[name] = vals
-        if vv is not None:
-            payload[f"{name}__v"] = vv
-    recv, counts, overflow = exchange(part_ids, valid, payload, mesh,
-                                      capacity)
-    flat, fvalid = flatten_received(recv, counts)
-    out_cols = {name: (flat[name], flat.get(f"{name}__v")) for name in cols}
-    return flat["__key"], fvalid, out_cols, overflow
+    with tracing.span("gt.exchange", device=keys[0].device):
+        if part_ids is None:
+            part_ids = [partition_of(k, mesh.size, seed) for k in keys]
+        payload = {"__key": keys}
+        for name, (vals, vv) in cols.items():
+            payload[name] = vals
+            if vv is not None:
+                payload[f"{name}__v"] = vv
+        recv, counts, overflow = exchange(part_ids, valid, payload, mesh,
+                                          capacity)
+        flat, fvalid = flatten_received(recv, counts)
+        out_cols = {name: (flat[name], flat.get(f"{name}__v"))
+                    for name in cols}
+        return flat["__key"], fvalid, out_cols, overflow
 
 
 def dist_hash_aggregate(keys, row_valid, values: Dict[str, Tuple], aggs,
@@ -281,9 +284,17 @@ def _is_in_table(keys, table_keys, table_valid):
                            device=keys.device)
     k, t = key_to_i64(keys), key_to_i64(table_keys)
     # invalid entries repeat the first valid key, so they add no member
-    t = torch.where(table_valid, t, t[torch.argmax(table_valid.to(
-        torch.int32))])
-    return torch.isin(k, t) & table_valid.any()
+    with tracing.sync("hot_table"):       # a 0-d tensor index reads it
+        first = t[torch.argmax(table_valid.to(torch.int32))]
+    t = torch.where(table_valid, t, first)
+    # isin sorts once the table holds 10·n^0.145 entries or more (numpy's
+    # rule, which ATen keeps), and then waits three times: two unique
+    # counts and a flag copied from the host; below that it does not wait
+    waits = 3 if k.numel() and t.numel() >= int(10.0 * k.numel() ** 0.145) \
+        else 0
+    with tracing.sync("hot_isin"):
+        tracing.add("reads", waits)
+        return torch.isin(k, t) & table_valid.any()
 
 
 def dist_join_skewed(probe_keys, probe_valid, probe_cols,
@@ -317,38 +328,40 @@ def dist_join_skewed(probe_keys, probe_valid, probe_cols,
     P, L = mesh.size, mesh.local
     outer_build = how in ("right", "full")
 
-    hot_keys, hot_valid = detect_hot_keys(probe_keys, probe_valid, mesh,
-                                          num_hot)
+    dev = probe_keys[0].device
+    with tracing.span("gt.join.hot_keys", device=dev):
+        hot_keys, hot_valid = detect_hot_keys(probe_keys, probe_valid, mesh,
+                                              num_hot)
 
-    # ---- build side: split hot rows out, replicate them ------------------
-    b_hot, hot_sel, hot_ok, hot_overflow = [], [], [], []
-    for i in range(L):
-        nb = build_keys[i].shape[0]
-        bh = _is_in_table(build_keys[i], hot_keys, hot_valid) \
-            & build_valid[i]
-        bidx, n_bhot, _ = compact_sort(bh)
-        cap_h = min(hot_replicate_capacity, nb)
-        b_hot.append(bh)
-        hot_sel.append(bidx[:cap_h].long().clamp(max=max(nb - 1, 0)))
-        hot_ok.append(torch.arange(cap_h, device=bh.device)
-                      < torch.clamp(n_bhot, max=cap_h))
-        hot_overflow.append(n_bhot > cap_h)
-    cap_h = hot_sel[0].shape[0]
-    rep_keys = mesh.all_gather([_take(build_keys[i], hot_sel[i])
-                                for i in range(L)])            # [P*cap_h]
-    rep_ok = mesh.all_gather(hot_ok)
-    rep_cols = {}
-    for name, (v, vv) in build_cols.items():
-        rep_cols[name] = (
-            mesh.all_gather([_take(v[i], hot_sel[i]) for i in range(L)]),
-            mesh.all_gather([hot_ok[i] if vv is None
-                             else vv[i].index_select(0, hot_sel[i])
-                             & hot_ok[i] for i in range(L)]))
+        # ---- build side: split hot rows out, replicate them --------------
+        b_hot, hot_sel, hot_ok, hot_overflow = [], [], [], []
+        for i in range(L):
+            nb = build_keys[i].shape[0]
+            bh = _is_in_table(build_keys[i], hot_keys, hot_valid) \
+                & build_valid[i]
+            bidx, n_bhot, _ = compact_sort(bh)
+            cap_h = min(hot_replicate_capacity, nb)
+            b_hot.append(bh)
+            hot_sel.append(bidx[:cap_h].long().clamp(max=max(nb - 1, 0)))
+            hot_ok.append(torch.arange(cap_h, device=bh.device)
+                          < torch.clamp(n_bhot, max=cap_h))
+            hot_overflow.append(n_bhot > cap_h)
+        cap_h = hot_sel[0].shape[0]
+        rep_keys = mesh.all_gather([_take(build_keys[i], hot_sel[i])
+                                    for i in range(L)])            # [P*cap_h]
+        rep_ok = mesh.all_gather(hot_ok)
+        rep_cols = {}
+        for name, (v, vv) in build_cols.items():
+            rep_cols[name] = (
+                mesh.all_gather([_take(v[i], hot_sel[i]) for i in range(L)]),
+                mesh.all_gather([hot_ok[i] if vv is None
+                                 else vv[i].index_select(0, hot_sel[i])
+                                 & hot_ok[i] for i in range(L)]))
 
-    # ---- shuffle the cold remainder --------------------------------------
-    part_p = [torch.where(_is_in_table(k, hot_keys, hot_valid),
-                          mesh.index(i), partition_of(k, P, seed))
-              for i, k in enumerate(probe_keys)]
+        # ---- shuffle the cold remainder ----------------------------------
+        part_p = [torch.where(_is_in_table(k, hot_keys, hot_valid),
+                              mesh.index(i), partition_of(k, P, seed))
+                  for i, k in enumerate(probe_keys)]
     pk, pvalid, pcols, ov1 = _shuffle_cols(
         probe_keys, probe_valid, probe_cols, mesh, probe_capacity,
         part_ids=part_p, seed=seed)
@@ -362,31 +375,33 @@ def dist_join_skewed(probe_keys, probe_valid, probe_cols,
     base_how = {"right": "inner", "full": "left"}.get(how, how)
     parts = []
     for i in range(L):
-        blocks_k = [bk[i], rep_keys]
-        blocks_ok = [bvalid[i], rep_ok]
-        blocks_cols = {}
-        for name in build_cols:
-            v1, vv1 = bcols[name]
-            v2, vv2 = rep_cols[name]
-            blocks_cols[name] = ([v1[i], v2],
-                                 [bvalid[i] if vv1 is None else vv1[i], vv2])
-        key_valid = None
-        if outer_build:
-            nulls = ~build_valid[i]
-            blocks_k.append(build_keys[i])
-            blocks_ok.append(nulls)
-            for name, (v, vv) in build_cols.items():
-                blocks_cols[name][0].append(v[i])
-                blocks_cols[name][1].append(nulls if vv is None
-                                            else vv[i] & nulls)
-            key_valid = torch.cat([torch.ones_like(bvalid[i]),
-                                   torch.ones_like(rep_ok), ~nulls])
-        all_bk = torch.cat([signed_view(b) for b in blocks_k]).view(
-            build_keys[i].dtype)
-        all_bvalid = torch.cat(blocks_ok)
-        all_bcols = {name: (torch.cat([signed_view(x) for x in v]).view(
-            v[0].dtype), torch.cat(vv))
-            for name, (v, vv) in blocks_cols.items()}
+        with tracing.span("gt.join.build", device=dev):
+            blocks_k = [bk[i], rep_keys]
+            blocks_ok = [bvalid[i], rep_ok]
+            blocks_cols = {}
+            for name in build_cols:
+                v1, vv1 = bcols[name]
+                v2, vv2 = rep_cols[name]
+                blocks_cols[name] = ([v1[i], v2],
+                                     [bvalid[i] if vv1 is None else vv1[i],
+                                      vv2])
+            key_valid = None
+            if outer_build:
+                nulls = ~build_valid[i]
+                blocks_k.append(build_keys[i])
+                blocks_ok.append(nulls)
+                for name, (v, vv) in build_cols.items():
+                    blocks_cols[name][0].append(v[i])
+                    blocks_cols[name][1].append(nulls if vv is None
+                                                else vv[i] & nulls)
+                key_valid = torch.cat([torch.ones_like(bvalid[i]),
+                                       torch.ones_like(rep_ok), ~nulls])
+            all_bk = torch.cat([signed_view(b) for b in blocks_k]).view(
+                build_keys[i].dtype)
+            all_bvalid = torch.cat(blocks_ok)
+            all_bcols = {name: (torch.cat([signed_view(x) for x in v]).view(
+                v[0].dtype), torch.cat(vv))
+                for name, (v, vv) in blocks_cols.items()}
         res = join(pk[i], all_bk, out_capacity, base_how,
                    probe_valid=None, build_valid=key_valid,
                    probe_exists=pvalid[i], build_exists=all_bvalid,
@@ -394,48 +409,49 @@ def dist_join_skewed(probe_keys, probe_valid, probe_cols,
         parts.append((res, all_bvalid, all_bcols))
 
     if outer_build:
-        C = out_capacity
-        nb_local = bk[0].shape[0]
-        bhits = []
-        for res, all_bvalid, _ in parts:
-            nb_all = all_bvalid.shape[0]
-            r = torch.arange(C, device=res.count.device)
-            pair_ok = (r < res.count) & (res.build_idx >= 0)
-            bi = torch.where(pair_ok, res.build_idx, nb_all).long()
-            bhit = torch.zeros(nb_all + 1, dtype=torch.bool,
-                               device=bi.device)
-            bhit[bi] = True
-            bhits.append(bhit[:nb_all])
-        # replicated block: hit flags combined over the mesh
-        rep_hit = mesh.pmax([b[nb_local:nb_local + P * cap_h]
-                             for b in bhits])
-        for i, (res, all_bvalid, all_bcols) in enumerate(parts):
-            nb_all = all_bvalid.shape[0]
-            dev = all_bvalid.device
-            own = (torch.arange(P * cap_h, device=dev) // max(cap_h, 1)) \
-                == mesh.index(i)
-            unmatched = torch.cat([
-                bvalid[i] & ~bhits[i][:nb_local],
-                rep_ok & ~rep_hit & own,
-                all_bvalid[nb_local + P * cap_h:]])        # null keys
-            n_un = unmatched.sum(dtype=torch.int32)
-            u32 = unmatched.to(torch.int32)
-            upos = torch.cumsum(u32, 0, dtype=torch.int32) - u32
-            total = res.count
-            uslot = torch.where(unmatched & (total + upos < C),
-                                total + upos, C).long()
-            build_out = torch.cat([res.build_idx,
-                                   res.build_idx.new_zeros(1)])
-            build_out[uslot] = torch.arange(nb_all, dtype=build_out.dtype,
-                                            device=dev)
-            probe_out = torch.cat([res.probe_idx,
-                                   res.probe_idx.new_zeros(1)])
-            probe_out[uslot] = -1
-            total2 = total + n_un
-            res = JoinResult(probe_out[:C], build_out[:C],
-                             total2.clamp(max=C).to(torch.int32),
-                             res.overflow | (total2 > C))
-            parts[i] = (res, all_bvalid, all_bcols)
+        with tracing.span("gt.join.probe", device=dev):
+            C = out_capacity
+            nb_local = bk[0].shape[0]
+            bhits = []
+            for res, all_bvalid, _ in parts:
+                nb_all = all_bvalid.shape[0]
+                r = torch.arange(C, device=res.count.device)
+                pair_ok = (r < res.count) & (res.build_idx >= 0)
+                bi = torch.where(pair_ok, res.build_idx, nb_all).long()
+                bhit = torch.zeros(nb_all + 1, dtype=torch.bool,
+                                   device=bi.device)
+                bhit[bi] = True
+                bhits.append(bhit[:nb_all])
+            # replicated block: hit flags combined over the mesh
+            rep_hit = mesh.pmax([b[nb_local:nb_local + P * cap_h]
+                                 for b in bhits])
+            for i, (res, all_bvalid, all_bcols) in enumerate(parts):
+                nb_all = all_bvalid.shape[0]
+                dev = all_bvalid.device
+                own = (torch.arange(P * cap_h, device=dev) // max(cap_h, 1)) \
+                    == mesh.index(i)
+                unmatched = torch.cat([
+                    bvalid[i] & ~bhits[i][:nb_local],
+                    rep_ok & ~rep_hit & own,
+                    all_bvalid[nb_local + P * cap_h:]])        # null keys
+                n_un = unmatched.sum(dtype=torch.int32)
+                u32 = unmatched.to(torch.int32)
+                upos = torch.cumsum(u32, 0, dtype=torch.int32) - u32
+                total = res.count
+                uslot = torch.where(unmatched & (total + upos < C),
+                                    total + upos, C).long()
+                build_out = torch.cat([res.build_idx,
+                                       res.build_idx.new_zeros(1)])
+                build_out[uslot] = torch.arange(nb_all, dtype=build_out.dtype,
+                                                device=dev)
+                probe_out = torch.cat([res.probe_idx,
+                                       res.probe_idx.new_zeros(1)])
+                probe_out[uslot] = -1
+                total2 = total + n_un
+                res = JoinResult(probe_out[:C], build_out[:C],
+                                 total2.clamp(max=C).to(torch.int32),
+                                 res.overflow | (total2 > C))
+                parts[i] = (res, all_bvalid, all_bcols)
 
     results, outs, row_oks, overflows = [], [], [], []
     for i, (res, _, all_bcols) in enumerate(parts):

@@ -20,6 +20,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from .. import tracing
 from ..device import DEFAULT_DEVICE
 from .mesh import Mesh, make_mesh, shard
 from .ops import dist_hash_aggregate, dist_join_skewed
@@ -73,9 +74,11 @@ def _build_filter_join_agg_sort(mesh: Mesh, nper: int, build_per: int,
 
     def fn(ok_, oa, dk, ds):
         L = mesh.local
+        dev = oa[0].device
         # 1. filter (padding-free inputs here)
-        keep = [a > filter_threshold for a in oa]
-        n_keep = [k.sum(dtype=torch.int64) for k in keep]
+        with tracing.span("gt.filter", device=dev):
+            keep = [a > filter_threshold for a in oa]
+            n_keep = [k.sum(dtype=torch.int64) for k in keep]
 
         # 2. skew-aware join orders ⋈ dim
         _, cols, row_ok, ov_join = dist_join_skewed(
@@ -91,10 +94,11 @@ def _build_filter_join_agg_sort(mesh: Mesh, nper: int, build_per: int,
         join_out = [j.sum(dtype=torch.int64) for j in joined_ok]
 
         # 3. aggregate by seg (second shuffle: co-locate groups)
-        agg = dist_hash_aggregate(
-            seg, joined_ok, {"amt": (amt, None)},
-            [("amt", "sum"), ("amt", "count")], mesh, capacity=out_cap,
-            max_groups=G)
+        with tracing.span("gt.aggregate", device=dev):
+            agg = dist_hash_aggregate(
+                seg, joined_ok, {"amt": (amt, None)},
+                [("amt", "sum"), ("amt", "count")], mesh, capacity=out_cap,
+                max_groups=G)
         overflow = mesh.pmax([ov_join[i] | agg["overflow"][i]
                               for i in range(L)])
 
@@ -105,10 +109,13 @@ def _build_filter_join_agg_sort(mesh: Mesh, nper: int, build_per: int,
         # probe rows and rows hashed to their own partition move less.
         row_bytes_join = 8 + oa[0].element_size() + 1
         row_bytes_agg = 8 + amt[0].element_size() + 1
-        dev = oa[0].device
+        rows_in = []
+        for a in oa:
+            with tracing.sync("rows_in"):  # a host-to-device copy waits
+                rows_in.append(torch.tensor(a.shape[0], dtype=torch.int64,
+                                            device=dev))
         metrics = {
-            "rows_in": [torch.tensor(a.shape[0], dtype=torch.int64,
-                                     device=dev) for a in oa],
+            "rows_in": rows_in,
             "filter_out": n_keep,
             "join_out": join_out,
             "agg_groups": [c.to(torch.int64) for c in agg["group_count"]],
@@ -119,18 +126,20 @@ def _build_filter_join_agg_sort(mesh: Mesh, nper: int, build_per: int,
 
         # 4. global sort of the group rows (tiny): gather every
         # partition's groups, present rows first, then by key
-        present = [torch.arange(G, device=dev) < c
-                   for c in agg["group_count"]]
-        all_keys = mesh.all_gather([k[:G] for k in agg["keys"]])
-        all_sum = mesh.all_gather([s[:G] for s in agg["agg:amt:sum"]])
-        all_count = mesh.all_gather([c[:G] for c in agg["agg:amt:count"]])
-        all_present = mesh.all_gather(present)
-        order = torch.sort(all_keys, stable=True).indices
-        order = order[torch.sort((~all_present[order]).to(torch.uint8),
-                                 stable=True).indices]
-        n_groups = all_present.sum(dtype=torch.int32)
-        return (all_keys[order], all_sum[order], all_count[order], n_groups,
-                overflow, metrics)
+        with tracing.span("gt.sort", device=dev):
+            present = [torch.arange(G, device=dev) < c
+                       for c in agg["group_count"]]
+            all_keys = mesh.all_gather([k[:G] for k in agg["keys"]])
+            all_sum = mesh.all_gather([s[:G] for s in agg["agg:amt:sum"]])
+            all_count = mesh.all_gather([c[:G]
+                                         for c in agg["agg:amt:count"]])
+            all_present = mesh.all_gather(present)
+            order = torch.sort(all_keys, stable=True).indices
+            order = order[torch.sort((~all_present[order]).to(torch.uint8),
+                                     stable=True).indices]
+            n_groups = all_present.sum(dtype=torch.int32)
+            return (all_keys[order], all_sum[order], all_count[order],
+                    n_groups, overflow, metrics)
 
     return fn
 
@@ -152,22 +161,30 @@ def run_pipeline(fn, orders_key, orders_amt, dim_key, dim_seg, mesh: Mesh):
     args = [shard(mesh, x) for x in (orders_key, orders_amt, dim_key,
                                      dim_seg)]
     if mesh.device.type == "cuda":
-        torch.cuda.synchronize(mesh.device)
+        with tracing.sync("synchronize"):
+            torch.cuda.synchronize(mesh.device)
     t0 = time.perf_counter()
     skeys, ssum, scount, n_groups, overflow, metrics = fn(*args)
-    ng = int(n_groups)                         # the host's read: a sync
+    with tracing.sync("n_groups"):
+        ng = int(n_groups)                     # the host's read: a sync
     wall = time.perf_counter() - t0
-    if bool(overflow):
+    with tracing.sync("overflow"):
+        overflowed = bool(overflow)
+    if overflowed:
         raise PipelineOverflowError(
             "pipeline capacity overflow — rerun with larger "
             "shuffle_factor/out_factor")
-    totals = mesh.psum([torch.stack([metrics[k][i] for k in metrics])
-                        for i in range(mesh.local)]).tolist()
+    with tracing.sync("metrics"):
+        totals = mesh.psum([torch.stack([metrics[k][i] for k in metrics])
+                            for i in range(mesh.local)]).tolist()
     host_metrics = dict(zip(metrics, totals))
     host_metrics["wall_time_s"] = wall
     host_metrics["rows_per_s"] = host_metrics["rows_in"] / max(wall, 1e-9)
-    return (skeys[:ng].cpu().numpy(), ssum[:ng].cpu().numpy(),
-            scount[:ng].cpu().numpy(), host_metrics)
+    results = []
+    for t in (skeys, ssum, scount):
+        with tracing.sync("results"):
+            results.append(t[:ng].cpu().numpy())
+    return (*results, host_metrics)
 
 
 def run_pipeline_with_retry(mesh: Mesh, orders_key, orders_amt, dim_key,
@@ -179,26 +196,29 @@ def run_pipeline_with_retry(mesh: Mesh, orders_key, orders_amt, dim_key,
     pipeline; on a capacity-overflow flag, double both capacity factors
     and run again (the retry is a HOST decision; the exchanges stay
     fixed-capacity)."""
-    nper = int(orders_key.shape[0]) // mesh.size
-    build_per = int(dim_key.shape[0]) // mesh.size
-    sf, of = shuffle_factor, out_factor
-    last: Optional[PipelineOverflowError] = None
-    for attempt in range(max_retries + 1):
-        fn = build_filter_join_agg_sort(
-            mesh, nper, build_per, num_groups=num_groups,
-            filter_threshold=filter_threshold, shuffle_factor=sf,
-            out_factor=of, **kw)
-        try:
-            keys, sums, counts, metrics = run_pipeline(
-                fn, orders_key, orders_amt, dim_key, dim_seg, mesh)
-            metrics["retries"] = attempt
-            metrics["shuffle_factor"] = sf
-            metrics["out_factor"] = of
-            return keys, sums, counts, metrics
-        except PipelineOverflowError as e:
-            last = e
-            sf, of = sf * 2, of * 2
-    raise last
+    with tracing.span("gt.pipeline"):
+        nper = int(orders_key.shape[0]) // mesh.size
+        build_per = int(dim_key.shape[0]) // mesh.size
+        sf, of = shuffle_factor, out_factor
+        last: Optional[PipelineOverflowError] = None
+        for attempt in range(max_retries + 1):
+            fn = build_filter_join_agg_sort(
+                mesh, nper, build_per, num_groups=num_groups,
+                filter_threshold=filter_threshold, shuffle_factor=sf,
+                out_factor=of, **kw)
+            try:
+                with tracing.span("gt.pipeline.attempt", device=mesh.device):
+                    keys, sums, counts, metrics = run_pipeline(
+                        fn, orders_key, orders_amt, dim_key, dim_seg, mesh)
+                tracing.add("retries", attempt)
+                metrics["retries"] = attempt
+                metrics["shuffle_factor"] = sf
+                metrics["out_factor"] = of
+                return keys, sums, counts, metrics
+            except PipelineOverflowError as e:
+                last = e
+                sf, of = sf * 2, of * 2
+        raise last
 
 
 def _scaling_inputs(rng, total: int, total_build: int, num_groups: int):

@@ -20,6 +20,7 @@ from typing import Dict, List
 
 import torch
 
+from .. import tracing
 from ..utils.hashing import partition_of
 from ..utils.ints import signed_view
 from .mesh import Mesh
@@ -39,7 +40,9 @@ def bucket_by_partition(part_ids: torch.Tensor, valid: torch.Tensor,
     dev = part_ids.device
     part = torch.where(valid, part_ids.to(torch.int32), P)
     order = torch.sort(part, stable=True).indices
-    counts = torch.bincount(part, minlength=P + 1)[:P]
+    with tracing.sync("bincount"):
+        tracing.add("reads", 2)           # on a card: part's min and max
+        counts = torch.bincount(part, minlength=P + 1)[:P]
     start = torch.cumsum(counts, 0) - counts
     # slot (p, s) takes sorted row start[p] + s while s < counts[p]
     s = torch.arange(capacity, device=dev)

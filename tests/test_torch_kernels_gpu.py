@@ -1381,3 +1381,95 @@ def test_compiled_routes_on_card_match_eager():
     reset_launches()
     sel, out = fp.evaluate_device(empty)
     assert int(sel.count) == 0 and LAUNCHES["plan"] == 0
+
+
+def test_device_span_times_its_own_work():
+    """A ``device=True`` span's CUDA-event time is positive and at most
+    the stretch from its start to the end of its work: its host interval
+    plus the queue ahead of it (none here) and its own drain."""
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from gandiva_tpu_torch import tracing
+
+    dev = _card()
+    a = torch.rand(4096, 4096, device=dev)
+    tracing.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        torch.cuda.synchronize()
+        with tracing.span("work", device=dev):
+            for _ in range(8):
+                a = a @ a
+                a = a / a.norm()
+        torch.cuda.synchronize()
+        done = time.time_ns()
+        with tracing.span("nothing", device=dev):
+            pass
+    work, nothing = tracing.spans()
+    tracing.clear()
+    assert 0 < work.device_ms <= (done - work.start) / 1e6
+    assert 0 <= nothing.device_ms < work.device_ms
+
+
+@pytest.mark.parametrize("path", ["q1", "q6", "q7", "q12", "q19",
+                                  "pipeline1", "pipeline4"])
+def test_every_runtime_sync_is_inside_a_sync_span(path):
+    """Every call of the CUDA runtime that makes the host wait, in one
+    traced TPC-H scan or pipeline query, lies inside a ``gt.sync.*`` span,
+    and each such span holds as many as it counts: the kinds of wait the
+    CPU's dispatch test cannot see (a host value copied to the card,
+    ``.tolist()``, ``.cpu()``, torch's reads inside its own card kernels)
+    included."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    import gandiva_tpu_torch as gt
+    from benchmark.harness.trace import SYNC_CALLS
+    from gandiva_tpu_torch import entrypoints as e
+    from gandiva_tpu_torch import tracing
+
+    dev = _card()
+    if path.startswith("pipeline"):
+        rng = np.random.default_rng(11)
+        n, nb = 1 << 18, 1 << 14
+        args = [torch.from_numpy(x).to(dev) for x in (
+            rng.integers(0, nb, n), rng.integers(0, 100, n),
+            np.arange(nb), rng.integers(0, 5, nb))]
+        mesh = gt.parallel.make_mesh(int(path[-1]), device=dev)
+
+        def call():
+            return gt.parallel.run_pipeline_with_retry(mesh, *args,
+                                                       num_groups=5)
+    else:
+        plan = getattr(e, f"tpch_{path}_scan")(dev)
+        batch = e.lineitem(200_000, 3, dev)
+
+        def call():
+            return plan.evaluate_device(batch)
+    call()                            # builds and warms outside the trace
+    torch.cuda.synchronize()
+    tracing.clear()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        call()
+    spans = tracing.spans()
+    tracing.clear()
+    root = spans[0]
+    assert root.parent == -1 and [s for s in spans if s.parent == -1] \
+        == [root]
+    waits = [s for s in spans if s.name.startswith("gt.sync.")]
+    syncs = [(ev.name(), ev.start_ns())
+             for ev in prof.profiler.kineto_results.events()
+             if ev.name() in SYNC_CALLS and "CUDA" not in
+             str(ev.device_type()) and root.start <= ev.start_ns()
+             <= root.end]
+    assert syncs
+    outside = [(name, t) for name, t in syncs
+               if not any(w.start <= t <= w.end for w in waits)]
+    assert not outside, outside
+    miscounted = [(w.name, w.counters.get("reads", 1), held)
+                  for w in waits
+                  for held in [sum(w.start <= t <= w.end for _, t in syncs)]
+                  if held != w.counters.get("reads", 1)]
+    assert not miscounted, miscounted
