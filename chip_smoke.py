@@ -105,14 +105,17 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                 made on the card, build arange(1,048,576)), then with
                 build_unique=True: rows/s (best of 3), launches, outputs
                 checked exactly (count == n, probe_idx == arange(n),
-                build_idx == the probe keys);
+                build_idx == the probe keys); the join build's kernels
+                against the plain chain on the card on one more call's
+                build;
  16. join_stream — the full configs[3]: 16 chunks of 64,000,000 probe rows
                 made on the card from the seed and the chunk index against
                 build arange(10,000,000), each reduced to a checksum: rows/s
                 (best of 2), every chunk's checksum against
                 n + Σ iota + Σ keys, K2/K4/K3 launches, host syncs of one
                 probe_chunk, peak and own device memory, device time by
-                kernel for one call (torch.profiler);
+                kernel for one call (torch.profiler); the join build's
+                kernels against the plain chain on one more call's build;
  17. join vs Arrow — 4,194,341 Zipf probe rows (the hot path) × 1,000,003
                 build rows, 10% null keys on both sides: all six join types
                 and a two-key join_multi against pyarrow.acero's hashjoin,
@@ -175,8 +178,9 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                 exact against pyarrow.acero; rows/s (best of 3), metrics,
                 peak memory, host syncs a call, hot keys, partition
                 balance, the profiler's top 8, launches; K2, K4 with
-                K3's rounds, and K5 against their plain versions on the
-                inputs of each one's largest call in the pipeline;
+                K3's rounds, K5 and the join build's kernels against their
+                plain versions on the inputs of each one's largest call in
+                the pipeline;
  23. distributed_step — entrypoints.distributed_step over one configs[0]
                 batch of 64Mi rows as 4 partitions, 1024 groups, against
                 pyarrow's group_by; rows/s, launches (K1, K5), syncs; K1
@@ -207,14 +211,24 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                 eager route's time over the same nodes, launches a call
                 on each route, and cold and warm Make times; Q7's plan is
                 one generated kernel, then K1, whose time on Q7's mask is
-                printed beside its bound.
+                printed beside its bound;
+ 27. join build — the join build's two kernels (csrc/join_build.cu) at
+                orders_customer_pipeline's build (4,502,048 rows, SF10's
+                1,500,000 customer keys valid, with perm) and at configs[3]'s
+                stream build (10,000,000 rows) through build_join_table,
+                table and all_unique bit for bit against the plain chain on
+                the card; the two kernels' time (torch.profiler), the
+                kernel route's (its zeros and its sort of the home slots
+                included), the plain chain's and torch.cummin +
+                torch.cummax's over the same rows, beside the kernels' byte
+                bound.
 Phases 5-25 run the plans as Make builds them: compiled on the card
 (Configuration.optimize, the default), apart from phases 18 and 20, which
 hold every signature's own eager route. Phase 2 also builds the entry
 points' generated plans and phase 26's, with the kernels, in parallel.
 Then one {"kernels": [...]} line (K1's launches by path include every
-scan and distributed_step; K2-K5's the configs[4] pipeline; the plan
-kernel's every path of phase 26), and last {"ok": true, "device":
+scan and distributed_step; K2-K5's and the join build's the configs[4]
+pipeline; the plan kernel's every path of phase 26), and last {"ok": true, "device":
 {...}}.
 """
 from __future__ import annotations
@@ -1651,10 +1665,11 @@ def clone_args(x):
 
 @contextlib.contextmanager
 def keep_largest_inputs(kept: dict):
-    """While open, the CUDA entries of K1, K2, K4 and K5 keep in
-    ``kept[name]`` clones of the arguments of their call with the most rows,
-    so each can be held against its plain version at the shapes a path
-    gives it."""
+    """While open, the CUDA entries of K1, K2, K4, K5 and the join build
+    keep in ``kept[name]`` clones of the arguments of their call with the
+    most rows, so each can be held against its plain version at the shapes
+    a path gives it."""
+    from gandiva_tpu_torch.ops import hash_join as hj
     from gandiva_tpu_torch.ops.kernels import aggregate as k5
     from gandiva_tpu_torch.ops.kernels import compaction as k1
     from gandiva_tpu_torch.ops.kernels import compaction_fragnet as k2
@@ -1663,7 +1678,8 @@ def keep_largest_inputs(kept: dict):
     entries = [("compact", k1, "compact_columns_cuda"),
                ("compact_fragnet", k2, "compact_fragnet_cuda"),
                ("sort_block", k4, "block_sort_cuda"),
-               ("aggregate", k5, "aggregate_cuda")]
+               ("aggregate", k5, "aggregate_cuda"),
+               ("join_build", hj, "build_ranges_cuda")]
     saved = [getattr(mod, attr) for _, mod, attr in entries]
 
     def recording(name, fn):
@@ -1686,9 +1702,9 @@ def keep_largest_inputs(kept: dict):
 def hold_kept_kernels(kept: dict, what: str, need) -> dict:
     """The kernels named in ``need`` (K1 ``compact``, K2
     ``compact_fragnet``, K4 ``sort_block`` with K3's rounds, K5
-    ``aggregate``) on the inputs ``keep_largest_inputs`` kept, each against
-    its plain version. Returns the largest absolute difference of each
-    (K4 and K3 under ``sort``)."""
+    ``aggregate``, the join build's ``join_build``) on the inputs
+    ``keep_largest_inputs`` kept, each against its plain version. Returns
+    the largest absolute difference of each (K4 and K3 under ``sort``)."""
     from gandiva_tpu_torch.ops.kernels import aggregate as k5
     from gandiva_tpu_torch.ops.kernels import compaction as k1
     from gandiva_tpu_torch.ops.kernels import compaction_fragnet as k2
@@ -1720,7 +1736,29 @@ def hold_kept_kernels(kept: dict, what: str, need) -> dict:
             [c.kind for c in vcols], f"K5 {what}")
         log(f"{what}: K5 matches plain on its largest call ({keys.shape[0]} "
             f"rows, {len(vcols)} columns, max_groups {max_groups})")
+    if "join_build" in need:
+        hold_join_build(kept["join_build"], f"{what} largest build")
+        errs["join_build"] = 0.0
     return errs
+
+
+def hold_join_build(args, what: str) -> None:
+    """The join build's kernels against the plain chain on the card, on the
+    arguments (sorted keys, n_valid, perm, T) a build gave them: the table
+    and all_unique bit for bit."""
+    from gandiva_tpu_torch.ops import hash_join as hj
+    from gandiva_tpu_torch.ops.kernels.join_build import build_ranges_cuda
+
+    sk64, n_valid, perm, T = args
+    got, got_unique = build_ranges_cuda(sk64, n_valid, perm, T)
+    want, want_unique = hj._build_ranges_plain(sk64, n_valid, perm, T)
+    if not torch.equal(got, want) or bool(got_unique) != bool(want_unique):
+        raise AssertionError(f"join build {what}: the kernels' table or "
+                             "all_unique differs from the plain chain's")
+    log(f"{what}: the join build's table ({sk64.shape[0]} rows, "
+        f"{int(n_valid)} valid, {got.shape[0]} slots, perm "
+        f"{'given' if perm is not None else 'none'}) and all_unique "
+        f"{bool(got_unique)} equal the plain chain's on the card")
 
 
 def drive_configs4(gt, dev, smi: str):
@@ -1731,15 +1769,17 @@ def drive_configs4(gt, dev, smi: str):
     walls), the pipeline's metrics, peak memory, host syncs a call, hot
     keys, partition balance, the profiler's top 8 and busy share, and each
     kernel's launches in the first (uniform) call. In each run, K2, K4 with
-    K3's rounds, and K5 are held against their plain versions on the
-    inputs of their largest call in one more pipeline call. Returns the
+    K3's rounds, K5 and the join build's kernels are held against their
+    plain versions on the inputs of their largest call in one more pipeline
+    call. Returns the
     first call's launches and each kernel's largest difference."""
     from gandiva_tpu_torch import parallel
     from gandiva_tpu_torch.ops.kernels import LAUNCHES, reset_launches
 
     mesh = parallel.make_mesh(PIPE_PARTITIONS, device=dev)
     launches, report = None, {}
-    errs = {"compact_fragnet": 0.0, "sort": 0.0, "aggregate": 0.0}
+    errs = {"compact_fragnet": 0.0, "sort": 0.0, "aggregate": 0.0,
+            "join_build": 0.0}
     for name, zipf in (("uniform", False), ("zipf", True)):
         tables = orders_customer(dev, 22 + zipf, zipf)
         torch.cuda.synchronize()
@@ -1780,7 +1820,8 @@ def drive_configs4(gt, dev, smi: str):
         balance = max(per) * len(per) / max(sum(per), 1)
         for k, e in hold_kept_kernels(
                 kept, f"configs[4] {name}",
-                ("compact_fragnet", "sort_block", "aggregate")).items():
+                ("compact_fragnet", "sort_block", "aggregate",
+                 "join_build")).items():
             errs[k] = max(errs[k], e)
         del kept
         busy, _ = profile_call(
@@ -1808,7 +1849,7 @@ def drive_configs4(gt, dev, smi: str):
                         "balance": balance}
         del tables, ok, keep
     if min(launches[k] for k in ("sort_block", "merge_path",
-                                 "aggregate")) == 0:
+                                 "aggregate", "join_build")) == 0:
         raise AssertionError(f"configs[4]: launches {launches}")
     log(f"configs[4] launches in one call: {launches}")
     log(json.dumps({"configs4": {
@@ -2572,6 +2613,103 @@ def drive_plan_compiler(gt, dev, smi: str) -> dict:
     log(json.dumps({"plan_compiler": {"card": smi, "emitters": emitters,
                                       **report}}))
     return report, by_path
+
+
+# -- phase 27: the join build's kernels --------------------------------------
+
+JOIN_CELL_BUILD = 4_502_048      # orders_customer_pipeline's build rows
+JOIN_BUILD_ITERS = 10
+
+
+def join_build_bytes(nb: int, runs: int) -> int:
+    """Bytes the join build's two kernels must move over ``nb`` sorted keys
+    that hold ``runs`` runs of one row: detection reads each key and writes
+    its home word (16 B a row), reads each run's perm entry and writes its
+    16-byte row (20 B a run); placement reads each run's sorted home word,
+    order entry and row and writes the row into the table (44 B a run)."""
+    return nb * 16 + runs * (20 + 44)
+
+
+def drive_join_build(dev, bw: float, smi: str) -> dict:
+    """The join build's two kernels (csrc/join_build.cu) on the builds of
+    orders_customer_pipeline (4,502,048 rows, SF10's 1,500,000 customer
+    keys valid and unique, the rest invalid, as the one partition's padded
+    build holds them) and of configs[3]'s join_stream (arange(10,000,000)),
+    each through build_join_table(how="inner"), so with perm: the table and
+    all_unique held bit for bit against the plain chain on the card; then
+    the two kernels' device time (torch.profiler), the kernel route's (the
+    table's zeros and the sort of the home slots included), the plain
+    chain's, and torch.cummin (int32) + torch.cummax (int64) over as many
+    rows, the library scans the kernels replace, all beside the kernels'
+    byte bound. Returns the times by build."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from gandiva_tpu_torch.ops import hash_join as hj
+    from gandiva_tpu_torch.ops.kernels.join_build import build_ranges_cuda
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(27)
+    report = {}
+    for label, nb, n_valid in (
+            ("orders_customer_pipeline", JOIN_CELL_BUILD, CUSTOMER_SF10),
+            ("configs[3] join_stream", JOIN_FULL_BUILD, JOIN_FULL_BUILD)):
+        keys = torch.zeros(nb, dtype=torch.int64, device=dev)
+        valid = torch.zeros(nb, dtype=torch.bool, device=dev)
+        rows = torch.randperm(nb, generator=g, device=dev)[:n_valid]
+        keys[rows] = torch.arange(1, n_valid + 1, device=dev)
+        valid[rows] = True
+        with keep_largest_inputs({}) as kept:
+            hj.build_join_table(keys, build_valid=valid, how="inner")
+        args = kept["join_build"]
+        hold_join_build(args, label)
+        sk64, nv, perm, T = args
+
+        def route():
+            return build_ranges_cuda(sk64, nv, perm, T)
+
+        route()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(JOIN_BUILD_ITERS):
+                route()
+            torch.cuda.synchronize()
+        us = {"detect_kernel": 0.0, "place_kernel": 0.0}
+        for e in prof.events():
+            for name in us:
+                if e.device_type == DeviceType.CUDA and name in e.name:
+                    us[name] += e.time_range.elapsed_us()
+        start_pos = torch.arange(nb, dtype=torch.int32, device=dev)
+        spread = torch.arange(nb, dtype=torch.int64, device=dev)
+        t = {"rows": nb, "valid": n_valid, "slots": T + nb,
+             # None where the profiler saw no device time (not measured)
+             "detect_ms": us["detect_kernel"] / JOIN_BUILD_ITERS / 1e3
+             if us["detect_kernel"] else None,
+             "place_ms": us["place_kernel"] / JOIN_BUILD_ITERS / 1e3
+             if us["place_kernel"] else None,
+             "route_ms": time_ms(route, iters=JOIN_BUILD_ITERS),
+             "plain_ms": time_ms(lambda: hj._build_ranges_plain(
+                 sk64, nv, perm, T), iters=3, warmup=1),
+             "cummin_ms": time_ms(lambda: torch.cummin(start_pos, 0),
+                                  iters=3, warmup=1),
+             "cummax_ms": time_ms(lambda: torch.cummax(spread, 0),
+                                  iters=3, warmup=1),
+             "bytes": join_build_bytes(nb, n_valid)}
+        t["ms"] = (t["detect_ms"] + t["place_ms"]
+                   if t["detect_ms"] and t["place_ms"] else None)
+        t["library_ms"] = t["cummin_ms"] + t["cummax_ms"]
+        t["bound_ms"] = t["bytes"] / bw * 1e3
+        ms = "not measured" if t["ms"] is None else f"{t['ms']:.4f} ms"
+        log(f"{label} ({smi}): the two kernels {ms} (detection "
+            f"{t['detect_ms']}, placement {t['place_ms']}), the kernel "
+            f"route {t['route_ms']:.4f} ms, the plain chain "
+            f"{t['plain_ms']:.4f} ms, torch.cummin + torch.cummax "
+            f"{t['library_ms']:.4f} ms; bound {t['bound_ms']:.4f} ms")
+        report[label] = t
+        del keys, valid, rows, kept, args, sk64, nv, perm, start_pos, spread
+    log(json.dumps({"join_build": {"card": smi, **report}}))
+    return report
 
 
 def main() -> int:
@@ -3594,7 +3732,8 @@ def main() -> int:
     probe = zipf_keys(N_JOIN, JOIN_BUILD, g)
     build = torch.arange(JOIN_BUILD, device=dev)
     iota = torch.arange(N_JOIN, dtype=torch.int32, device=dev)
-    join_launches = {"compact_fragnet": 0, "sort_block": 0, "merge_path": 0}
+    join_launches = {"compact_fragnet": 0, "sort_block": 0, "merge_path": 0,
+                     "join_build": 0}
     join_report = {}
     for unique in (False, True):
         def join_path(unique=unique):
@@ -3635,6 +3774,10 @@ def main() -> int:
             "rows_per_s": rows_s, "walls_s": walls,
             "max_memory_allocated": peak, "resident_before": resident,
             "launches": launched}
+    with keep_largest_inputs({}) as kept:
+        join_path()
+    hold_kept_kernels(kept, "configs[3] join", ("join_build",))
+    del kept
     diag = hj.probe_diagnostics(hj.build_join_table(build), probe)
     log(f"probe_diagnostics: { {k: int(v) for k, v in diag.items()} }")
     del res, probe, build, iota
@@ -3688,7 +3831,10 @@ def main() -> int:
     log(f"one probe_chunk of {n_chunk} rows: {syncs} host syncs; "
         f"probe_diagnostics {diag}")
     stream_busy, _ = profile_call(stream)
-    del jt_full, keys0, outs
+    with keep_largest_inputs({}) as kept:
+        stream()
+    hold_kept_kernels(kept, "configs[3] join_stream", ("join_build",))
+    del jt_full, keys0, outs, kept
     log(json.dumps({"join_path": {
         "resident": join_report, "rows": N_JOIN, "build_rows": JOIN_BUILD,
         "stream_rows_per_s": full_rows_s, "stream_walls_s": walls,
@@ -3812,6 +3958,11 @@ def main() -> int:
     plan_report, plan_by_path = drive_plan_compiler(gt, dev, smi)
     flagship_region = plan_report["configs[0] flagship_stream"]
 
+    # -- 27. the join build's kernels -------------------------------------
+    phase("the join build's kernels against the plain chain, and their "
+          "times")
+    join_build = drive_join_build(dev, bw, smi)["orders_customer_pipeline"]
+
     # -- the kernels line, then the last line ----------------------------
     # each path's own count, read just after it ran; ``launches`` is the
     # count of the path that brought the kernel in
@@ -3918,6 +4069,27 @@ def main() -> int:
         "bound_ms": flagship_region["bound_ms"],
         "bound_by": "bytes",
         "library_ms": None,
+    }, {
+        # replaces no Pallas kernel: the reference builds the table with
+        # array operations (lax.cummin, lax.cummax) that XLA fuses. ms is
+        # the two kernels' time on orders_customer_pipeline's build
+        "name": "join_build",
+        "route": "cuda",
+        "source": "gandiva_tpu_torch/csrc/join_build.cu",
+        "replaces": "gandiva_tpu/ops/hash_join.py:554",
+        "launches": join_stream_launches["join_build"],
+        "launches_by_path": {
+            "configs[3] join": join_launches["join_build"],
+            "configs[3] join_stream": join_stream_launches["join_build"],
+            "configs[4] pipeline": pipe_launches["join_build"]},
+        "matches_plain": True,
+        "max_abs_err": 0.0,
+        "ms": join_build["ms"],
+        "route_ms": join_build["route_ms"],
+        "plain_ms": join_build["plain_ms"],
+        "bound_ms": join_build["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": join_build["library_ms"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}), flush=True)

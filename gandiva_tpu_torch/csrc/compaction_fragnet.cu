@@ -43,9 +43,9 @@
 //      no registers.
 //   4. Local scan: warp 0 scans the slot counts in shared memory, which
 //      also gives the tile's total.
-//   5. Look back: warp 0 publishes the tile's aggregate as one 64-bit
-//      descriptor (status in the high word, value in the low word) with
-//      atomicExch; it reads the 32 descriptors
+//   5. Look back (lookback.cuh): warp 0 publishes the tile's aggregate as
+//      one 64-bit descriptor (status in the top two bits, value below)
+//      with atomicExch; it reads the 32 descriptors
 //      before its tile at once, one per lane, spinning with __nanosleep
 //      back-off while any is still empty, sums the aggregates up to the
 //      nearest inclusive prefix (or all 32, and moves 32 tiles further
@@ -75,6 +75,7 @@
 #include <cuda_runtime.h>
 
 #include "compaction_tile.cuh"
+#include "lookback.cuh"
 
 namespace {
 
@@ -90,8 +91,6 @@ static_assert(kStageRowBytes >= 8 && kStageRowBytes <= 48,
               "a group must hold one 8-byte column and fit a block's shared "
               "memory");
 constexpr int kMaxShared = kTile * (kStageRowBytes + 2);
-constexpr unsigned long long kStatusAggregate = 1ull;
-constexpr unsigned long long kStatusPrefix = 2ull;
 
 
 constexpr int kSlots = kIters * kWarps;  // 32-row groups per tile
@@ -143,64 +142,15 @@ __device__ __forceinline__ int scan_slots(int* slot_offset) {
   return __shfl_sync(kFull, incl, 31);
 }
 
-__device__ __forceinline__ unsigned long long descriptor(
-    unsigned long long status, int value) {
-  return (status << 32) | static_cast<unsigned>(value);
-}
-
-__device__ __forceinline__ unsigned long long read_descriptor(
-    const unsigned long long* p) {
-  return *reinterpret_cast<const volatile unsigned long long*>(p);
-}
-
-// A descriptor is the only thing a tile publishes to the others, and it is
-// one 64-bit word, so a single atomic store needs no fence before it (a
-// __threadfence here, on the look-back's critical path, was measurably
-// slower: PERF.md).
-__device__ __forceinline__ void publish(unsigned long long* p,
-                                        unsigned long long desc) {
-  atomicExch(p, desc);
-}
-
-// Called by warp 0 with the tile's total in every lane: publishes the
-// aggregate, looks back to the tile's exclusive prefix, publishes the
-// inclusive prefix and returns the exclusive one to every lane.
-__device__ __forceinline__ int look_back(unsigned long long* status,
-                                         long long tile, int total) {
-  const int lane = threadIdx.x & 31;
-  if (tile == 0) {
-    if (lane == 0) publish(&status[0], descriptor(kStatusPrefix, total));
-    return 0;
+// The look-back's operator: a sum of survivor counts, from tile 0 up.
+struct Sum {
+  static constexpr long long kIdentity = 0;
+  static constexpr bool kFromRight = false;
+  static constexpr bool kNearestEnds = false;
+  __device__ static long long combine(long long a, long long b) {
+    return a + b;
   }
-  if (lane == 0) publish(&status[tile], descriptor(kStatusAggregate, total));
-  int exclusive = 0;
-  for (long long end = tile;; end -= 32) {
-    // lane 0 reads the nearest predecessor; before tile 0 lies a prefix of 0
-    const long long i = end - 1 - lane;
-    unsigned long long d = i >= 0 ? read_descriptor(&status[i])
-                                  : descriptor(kStatusPrefix, 0);
-    unsigned sleep_ns = 32;
-    while (__any_sync(kFull, (d >> 32) == 0)) {
-      if ((d >> 32) == 0) {
-        __nanosleep(sleep_ns);
-        d = read_descriptor(&status[i]);
-      }
-      if (sleep_ns < 1024) sleep_ns <<= 1;
-    }
-    const unsigned prefixes = __ballot_sync(kFull, (d >> 32) == kStatusPrefix);
-    // lanes up to the nearest inclusive prefix count, all 32 if there is none
-    const int last = prefixes ? __ffs(prefixes) - 1 : 31;
-    int v = lane <= last ? static_cast<int>(d & 0xffffffffull) : 0;
-#pragma unroll
-    for (int d2 = 16; d2 > 0; d2 >>= 1) v += __shfl_xor_sync(kFull, v, d2);
-    exclusive += v;
-    if (prefixes) break;
-  }
-  if (lane == 0) {
-    publish(&status[tile], descriptor(kStatusPrefix, exclusive + total));
-  }
-  return exclusive;
-}
+};
 
 // A 4- or 8-byte column: one copy per survivor of this thread, row
 // base + j * kThreads + threadIdx.x to tile position j * kThreads +
@@ -329,7 +279,8 @@ lookback_kernel(const uint8_t* __restrict__ mask, long long n,
   __syncthreads();
   const int total = s_total;
   if (warp == 0) {
-    const int offset = look_back(status, tile, total);
+    const int offset = static_cast<int>(
+        gt_lookback::look_back<Sum>(status, tile, tiles, total));
     if (threadIdx.x == 0) {
       s_offset = offset;
       if (tile_counts != nullptr) tile_counts[tile] = total;

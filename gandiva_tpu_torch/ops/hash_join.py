@@ -9,7 +9,9 @@ configs[3] — 1B×10M skewed probe/build). The design is the reference's:
   contiguous runs and a probe match is a [start, start + len) range into
   sorted order; then place one (key lo, key hi, start, len) int32 entry per
   run into a linear-probed table of ``T + nb`` slots, by the closed-form
-  first-fit placement (a second sort, of the runs' home slots);
+  first-fit placement (a second sort, of the runs' home slots); on a card
+  the run detection and the placement are the two scans of
+  ``csrc/join_build.cu``;
 - probe side: each probe key resolves to its (start, len) with one 16-byte
   table gather, the few unresolved rows compacted (kernel K2) and walked
   along their chains; large probes first resolve a sampled set of hot keys
@@ -54,6 +56,7 @@ from ..utils.hashing import hash32
 from ..utils.ints import signed_view, widen
 from .compaction import compact_fragnet, compact_sort
 from .groupby import table_size_for
+from .kernels.join_build import build_ranges_cuda
 from .sort import SortKey, _sort_full, _widen, normalize_key, sort_permutation
 
 _HOWS = ("inner", "left", "right", "full", "semi", "anti")
@@ -622,11 +625,27 @@ def _build_ranges_table(sorted_norm, n_valid, perm=None,
     ``all_unique`` flag to skip the run expansion entirely.
 
     ``n_valid`` is an int or a 0-d tensor. Returns (table int32
-    [T + nb, 4], all_unique)."""
+    [T + nb, 4], all_unique).
+
+    CUDA tensors take the two kernels of ``kernels/join_build.py`` (run
+    detection, then placement after the same sort of the home slots), and
+    the counter ``kernel_rows`` of the open span says how many build rows
+    they took; CPU tensors take the torch chain of _build_ranges_plain."""
     sk64 = _widen(sorted_norm)
     nb = sk64.shape[0]
-    dev = sk64.device
     T = _table_size(nb, table_factor)
+    if sk64.device.type == "cuda":
+        tracing.add("kernel_rows", nb)
+        return build_ranges_cuda(sk64, n_valid, perm, T)
+    return _build_ranges_plain(sk64, n_valid, perm, T)
+
+
+def _build_ranges_plain(sk64, n_valid, perm, T: int):
+    """_build_ranges_table's torch chain over the sorted int64 keys
+    ``sk64``, into ``T`` home slots: the plain version that the kernels of
+    ``kernels/join_build.py`` equal bit for bit (on any device)."""
+    nb = sk64.shape[0]
+    dev = sk64.device
     # slack tail: worst-case first-fit overhang is < nb slots past the
     # last home slot
     T_tot = T + nb

@@ -10,13 +10,15 @@ four value columns. K4 (``sort_block``) counts one per sort; K3
 (``merge_path``) one per merge round, ⌈log2 ⌈n / W⌉⌉ of them per sort,
 each round two launches (its partition pass and its merge). ``plan``
 counts the plan compiler's generated kernels (compiler/jit.py), one per
-launch: one per evaluation of a one-stage plan.
+launch: one per evaluation of a one-stage plan. ``join_build`` counts the
+join build's run detection and placement (csrc/join_build.cu): two per
+build on the card.
 """
 from typing import Dict
 
 LAUNCHES: Dict[str, int] = {"compact": 0, "compact_fragnet": 0,
                             "aggregate": 0, "sort_block": 0, "merge_path": 0,
-                            "plan": 0}
+                            "plan": 0, "join_build": 0}
 
 
 def reset_launches() -> None:

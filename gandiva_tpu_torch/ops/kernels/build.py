@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, loaded with ``ctypes``. Libraries go to
 ``build/kernels/`` at the root of the checkout (listed in ``.gitignore``),
-named by a hash of the source and the flags, so an edited source is rebuilt
-and an unchanged one is reused.
+named by a hash of the source, the headers of ``csrc/`` it includes and the
+flags, so an edited source or header rebuilds the libraries that include it,
+and the others are reused.
 Nothing is compiled at import: the first launch of a kernel builds it, and
 ``build_all`` builds every source at once, one ``nvcc`` each, in parallel.
 A source may also be built with preprocessor ``defines`` (nvcc's ``-D``)
@@ -15,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -26,6 +28,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LOADED: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.M)
 
 
 def sources() -> List[str]:
@@ -47,9 +50,22 @@ def _flags(defines: Sequence[str]) -> List[str]:
     return NVCC_FLAGS + [f"-D{d}" for d in defines]
 
 
+def headers(name: str) -> List[Path]:
+    """The headers of ``csrc/`` that ``csrc/<name>.cu`` includes in quotes,
+    directly or through another of them, sorted."""
+    found, todo = set(), [CSRC / f"{name}.cu"]
+    while todo:
+        for include in _INCLUDE.findall(todo.pop().read_bytes()):
+            path = CSRC / include.decode()
+            if path.is_file() and path not in found:
+                found.add(path)
+                todo.append(path)
+    return sorted(found)
+
+
 def library_path(name: str, defines: Sequence[str] = ()) -> Path:
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
-    for header in sorted(CSRC.glob("*.cuh")):
+    for header in headers(name):
         h.update(header.read_bytes())
     h.update(" ".join(_flags(defines)).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"

@@ -358,3 +358,30 @@ def test_kernel_variant_builds_have_their_own_library():
     wide = build.library_path("compaction_fragnet", ["K2_STAGE_ROW_BYTES=48"])
     assert len({plain, eight, wide}) == 3
     assert all(p.parent == build.BUILD_DIR for p in (plain, eight, wide))
+
+
+def test_library_names_hash_only_the_headers_a_source_includes(
+        tmp_path, monkeypatch):
+    """A library's name follows its source and the headers that source
+    includes, through other headers too; an edit to any other header leaves
+    it as it was."""
+    from gandiva_tpu_torch.ops.kernels import build
+
+    (tmp_path / "a.cu").write_text('#include <cstdint>\n#include "x.cuh"\n')
+    (tmp_path / "b.cu").write_text('  #  include "y.h"\n')
+    (tmp_path / "x.cuh").write_text('#pragma once\n#include "z.cuh"\n')
+    (tmp_path / "y.h").write_text("// y\n")
+    (tmp_path / "z.cuh").write_text("// z\n")
+    (tmp_path / "unused.cuh").write_text("// unused\n")
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    assert build.headers("a") == [tmp_path / "x.cuh", tmp_path / "z.cuh"]
+    assert build.headers("b") == [tmp_path / "y.h"]
+    before = {n: build.library_path(n) for n in ("a", "b")}
+    (tmp_path / "unused.cuh").write_text("// edited\n")
+    assert {n: build.library_path(n) for n in ("a", "b")} == before
+    (tmp_path / "z.cuh").write_text("// z, edited\n")
+    assert build.library_path("a") != before["a"]
+    assert build.library_path("b") == before["b"]
+    (tmp_path / "y.h").write_text("// y, edited\n")
+    assert build.library_path("b") != before["b"]
+

@@ -90,6 +90,37 @@ def test_build_join_table_matches_reference(case, how):
     _same_table(ref, port)
 
 
+@pytest.mark.parametrize("how", ["inner", "right"])
+def test_cpu_build_never_loads_the_join_build_kernels(monkeypatch, how):
+    """CPU tensors take the plain torch chain: the build loads no kernel
+    library (csrc/join_build.cu least of all), its table is the
+    reference's, and its span counts no ``kernel_rows`` (the kernels took
+    no row)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gandiva_tpu_torch import tracing
+    from gandiva_tpu_torch.ops.kernels import build, join_build
+
+    def refuse(*_args, **_kwargs):
+        raise AssertionError("a build on CPU tensors loaded a kernel library")
+
+    monkeypatch.setattr(join_build, "library", refuse)
+    monkeypatch.setattr(build, "load", refuse)
+    rng = np.random.default_rng(17)
+    keys, valid, _ = _build_case("dups_nulls", rng)
+    tracing.clear()
+    try:
+        with profile(activities=[ProfilerActivity.CPU]):
+            port = t_hj.build_join_table(_t(keys), build_valid=_t(valid),
+                                         how=how)
+        spans = [s for s in tracing.spans() if s.name == "gt.join.build"]
+    finally:
+        tracing.clear()
+    assert [s.counters for s in spans] == [{}]
+    _same_table(j_hj.build_join_table(_j(keys), build_valid=_j(valid),
+                                      how=how), port)
+
+
 @pytest.mark.parametrize("with_perm", [False, True])
 @pytest.mark.parametrize("unique", [False, True])
 def test_build_ranges_table_matches_reference(with_perm, unique):

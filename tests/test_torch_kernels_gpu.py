@@ -935,6 +935,141 @@ def test_join_multi_and_stream_on_card_match_cpu():
     assert launched["compact_fragnet"] >= 3
 
 
+# The join build's run detection and placement (csrc/join_build.cu) against
+# the plain torch chain on CPU copies of the same sorted keys: nb 0, 1 and a
+# tile (4,096 rows) ± 1; unique keys, one run of all nb, mixed runs; n_valid
+# below nb with a valid max-key run that the pinned invalid tail would
+# lengthen; perm given or not (inner, right/full); the table factor's steps
+# at 2^21 and 2^22 rows; n_valid as a device tensor or an int.
+_BUILD_RANGES = [
+    # nb, keys, n_valid, max-key run, perm, n_valid a tensor
+    (0, "unique", 0, False, True, False),
+    (1, "unique", 1, False, True, True),
+    (1, "unique", 0, False, False, False),
+    (4095, "unique", 4095, False, True, True),
+    (4096, "one", 4096, False, True, False),
+    (4096, "one", 4096, False, False, True),
+    (4097, "mixed", 4097, False, True, True),
+    (4097, "unique", 4097, False, False, False),
+    (4096, "mixed", 4001, True, True, True),
+    (4097, "unique", 3000, True, False, False),
+    (100_003, "mixed", 99_000, True, True, True),
+    (100_003, "mixed", 99_000, True, False, True),
+    (100_003, "one", 100_003, False, True, False),
+    (100_003, "unique", 50_000, False, True, False),
+    (1 << 21, "mixed", (1 << 21) - 5, True, True, True),
+    ((1 << 21) + 1, "unique", (1 << 21) + 1, False, True, True),
+    (1 << 22, "mixed", 4_000_000, False, False, True),
+    ((1 << 22) + 1, "mixed", (1 << 22) + 1, False, True, True),
+]
+
+
+def _sorted_build_keys(nb, kind, n_valid, max_run, rng):
+    """Sorted 64-bit norms as int64 bits: the first ``n_valid`` valid, the
+    rest pinned to the all-ones norm, as ``build_join_table`` pins them."""
+    import numpy as np
+
+    if kind == "unique":
+        keys = np.cumsum(rng.integers(1, 1000, nb))
+    elif kind == "one":
+        keys = np.full(nb, 12_345)
+    else:
+        keys = np.cumsum(rng.integers(0, 3, nb))
+    keys = keys.astype(np.int64)
+    keys[max(n_valid, 0):] = -1
+    if max_run:
+        keys[max(n_valid - 3, 0):] = -1
+    return keys
+
+
+@pytest.mark.parametrize("case", _BUILD_RANGES,
+                         ids=[f"{c[0]}-{c[1]}-{c[2]}-{'max' if c[3] else 'nomax'}"
+                              f"-{'perm' if c[4] else 'noperm'}"
+                              f"-{'tensor' if c[5] else 'int'}"
+                              for c in _BUILD_RANGES])
+def test_join_build_kernels_match_plain(case):
+    import numpy as np
+
+    from gandiva_tpu_torch.ops.hash_join import _build_ranges_table
+
+    nb, kind, n_valid, max_run, with_perm, nv_tensor = case
+    dev = _card()
+    rng = np.random.default_rng(nb + n_valid)
+    keys = torch.from_numpy(_sorted_build_keys(nb, kind, n_valid, max_run,
+                                               rng))
+    perm = torch.from_numpy(rng.permutation(nb).astype(np.int32)) \
+        if with_perm else None
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        nv = torch.tensor(n_valid, dtype=torch.int32, device=d) \
+            if nv_tensor else n_valid
+        reset_launches()
+        table, unique = _build_ranges_table(
+            keys.to(d), nv, None if perm is None else perm.to(d))
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+            assert LAUNCHES["join_build"] == (2 if nb else 0)
+        out[d.type] = (table.cpu(), bool(unique))
+    assert out["cuda"][0].dtype == torch.int32
+    assert torch.equal(out["cuda"][0], out["cpu"][0])
+    assert out["cuda"][1] == out["cpu"][1]
+
+
+def test_join_build_kernels_place_past_2_31_slots():
+    """A table of more than 2^31 slots (T = 3 * 2^30 home slots, about 52 GB
+    of the card): the kernels' 64-bit homes, positions and scan place every
+    run where the plain chain does on the card, about a quarter of them
+    past slot 2^31."""
+    import numpy as np
+
+    from gandiva_tpu_torch.ops.hash_join import _build_ranges_plain
+    from gandiva_tpu_torch.ops.kernels.join_build import build_ranges_cuda
+
+    dev = _card()
+    rng = np.random.default_rng(31)
+    nb, n_valid = 100_003, 99_000
+    keys = torch.from_numpy(_sorted_build_keys(nb, "mixed", n_valid, True,
+                                               rng)).to(dev)
+    perm = torch.from_numpy(rng.permutation(nb).astype(np.int32)).to(dev)
+    T = 3 << 30
+    placed = []
+    for route in (build_ranges_cuda, _build_ranges_plain):
+        table, unique = route(keys, n_valid, perm, T)
+        assert table.shape == (T + nb, 4)
+        slots = table.any(1).nonzero().flatten()
+        placed.append((slots, table.index_select(0, slots), bool(unique)))
+        del table
+        torch.cuda.empty_cache()
+    (got_slots, got_rows, got_unique), (slots, rows, unique) = placed
+    assert torch.equal(got_slots, slots)
+    assert torch.equal(got_rows, rows)
+    assert got_unique == unique
+    assert int((slots >= 1 << 31).sum()) > 0
+
+
+def test_join_build_kernels_join_and_probe_match_cpu():
+    """build_join_table and probe_chunk on the card: the table, the flag and
+    the JoinResult equal the CPU's, over duplicate and null build keys."""
+    import numpy as np
+
+    from gandiva_tpu_torch.ops import build_join_table, probe_chunk
+
+    rng = np.random.default_rng(9)
+    n, nb = 1_000_003, 300_007
+    arrays = [rng.integers(0, 250_000, n), rng.integers(0, 200_000, nb),
+              rng.random(nb) >= 0.05]
+
+    def run(p, b, bv):
+        jt = build_join_table(b, build_valid=bv)
+        return jt, probe_chunk(jt, p, 4 * n)
+
+    got, want, launched = _join_both(run, arrays)
+    assert torch.equal(got[0].table.cpu(), want[0].table)
+    assert bool(got[0].all_unique) == bool(want[0].all_unique)
+    _same_join(got[1], want[1])
+    assert launched["join_build"] == 2
+
+
 # ---------------------------------------------------------------------------
 # the decimal, date/time, interval and hash registry on the card
 # ---------------------------------------------------------------------------
