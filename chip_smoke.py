@@ -1806,10 +1806,8 @@ def drive_configs4(gt, dev, smi: str):
                                  f"{keys, sums, counts} against "
                                  f"{want_seg, want_sum, want_count}")
         fn = parallel.build_filter_join_agg_sort(
-            mesh, ORDERS_SF10 // PIPE_PARTITIONS,
-            CUSTOMER_SF10 // PIPE_PARTITIONS,
-            shuffle_factor=metrics["shuffle_factor"],
-            out_factor=metrics["out_factor"],
+            mesh, num_groups=metrics["num_groups"],
+            hot_capacity=metrics["hot_capacity"],
             filter_threshold=PIPE_THRESHOLD)
         syncs = count_syncs(lambda: parallel.run_pipeline(fn, *tables, mesh))
         # partition balance: the joined rows each partition received, the

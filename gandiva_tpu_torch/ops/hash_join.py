@@ -21,7 +21,9 @@ configs[3] — 1B×10M skewed probe/build). The design is the reference's:
   finding its probe row by a binary search of the rows' running ends (the
   reference scatters run starts and fills by cummax: the same rows); a
   unique build whose every probe row matches takes the identity instead;
-  capacity overflow is reported, not raised;
+  capacity overflow is reported, not raised; with no capacity the buffer
+  holds the pairs emitted (the identity's probe rows, or the pairs' total
+  read once, ``gt.sync.join_total``) and never overflows;
 - right/full joins: matched sorted build rows by ±1 marks and a cumsum,
   then the unmatched build rows appended.
 
@@ -47,7 +49,7 @@ the host: no ``.item()``, no boolean-mask indexing, no ``nonzero``.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -206,7 +208,8 @@ def build_join_table(build_keys, build_valid=None, build_exists=None,
         return JoinTable(table, perm, sorted_exists, n_build_valid, all_unique)
 
 
-def join(probe_keys, build_keys, capacity: int, how: str = "inner",
+def join(probe_keys, build_keys, capacity: Optional[int],
+         how: str = "inner",
          probe_valid=None, build_valid=None,
          probe_length=None, build_length=None,
          probe_exists=None, build_exists=None,
@@ -217,6 +220,7 @@ def join(probe_keys, build_keys, capacity: int, how: str = "inner",
     ``*_valid``: key validity (null keys never match but their rows still
     emit on the outer sides). ``*_length`` / ``*_exists``: row existence —
     non-existing rows (padding, unfilled shuffle slots) never emit at all.
+    ``capacity`` None: the output holds the pairs emitted (``probe_chunk``).
     """
     how = how.lower()
     _check_how(how)
@@ -228,11 +232,13 @@ def join(probe_keys, build_keys, capacity: int, how: str = "inner",
                        probe_length=probe_length, build_unique=build_unique)
 
 
-def _general_expand(how, lo, ln, probe_kv, probe_exists, perm, C):
+def _general_expand(how, lo, ln, probe_kv, probe_exists, perm, C,
+                    extra=0):
     """Explode each probe row into its emitted pairs: (probe_out, build_out,
-    total pairs as an int64 0-d tensor). ``lo`` is a sorted position for
-    len > 1 runs and, for the fast-expansion types, the ORIGINAL build row
-    for len == 1 runs."""
+    total pairs as an int64 0-d tensor, the capacity). ``lo`` is a sorted
+    position for len > 1 runs and, for the fast-expansion types, the
+    ORIGINAL build row for len == 1 runs. ``C`` None: the pairs' total
+    plus ``extra`` (rows the caller appends), read once."""
     np_ = lo.shape[0]
     nb = perm.shape[0]
     dev = lo.device
@@ -247,9 +253,12 @@ def _general_expand(how, lo, ln, probe_kv, probe_exists, perm, C):
         emit = cnt
     offsets, _ = _exclusive_cumsum(emit)
     total = emit.sum(dtype=torch.int64)
+    if C is None:
+        with tracing.sync("join_total"):
+            C = int(total + extra)
     if np_ == 0:
         none = _full(C, -1, torch.int32, dev)
-        return none, none.clone(), total
+        return none, none.clone(), total, C
     # each pair slot takes the probe row whose pairs [offset, offset + emit)
     # hold it: the first row whose running end passes the slot (a binary
     # search; a scatter of run starts would send every row that emits
@@ -274,7 +283,7 @@ def _general_expand(how, lo, ln, probe_kv, probe_exists, perm, C):
         build_out = torch.where(matched, bperm, -1)
     probe_out = torch.where(in_probe_part, slot_probe, -1)
     build_out = torch.where(in_probe_part, build_out, -1)
-    return probe_out, build_out, total
+    return probe_out, build_out, total, C
 
 
 def _unique_expand(how, lo, matched, C):
@@ -297,7 +306,7 @@ def _unique_expand(how, lo, matched, C):
     return probe_out, build_out, total
 
 
-def probe_chunk(jt: JoinTable, probe_keys, capacity: int,
+def probe_chunk(jt: JoinTable, probe_keys, capacity: Optional[int],
                 how: str = "inner", probe_valid=None, probe_exists=None,
                 probe_length=None, build_unique: bool = False) -> JoinResult:
     """Evaluate one probe chunk against a compiled JoinTable (the Evaluate
@@ -306,14 +315,16 @@ def probe_chunk(jt: JoinTable, probe_keys, capacity: int,
 
     ``build_unique`` (a PK-FK declaration) only adds the contract check:
     the general path detects a unique build itself and takes the identity
-    expansion; duplicate build keys then surface through ``overflow``."""
+    expansion; duplicate build keys then surface through ``overflow``.
+
+    ``capacity`` None sizes the output by the pairs emitted: the probe's
+    rows on the identity expansion, else the total read from the device."""
     with tracing.span("gt.join.probe", device=probe_keys.device):
         how = how.lower()
         _check_how(how)
         np_ = probe_keys.shape[0]
         _check_rows(np_, "probe")
         dev = probe_keys.device
-        C = capacity
         perm = jt.perm
         if probe_exists is None:
             probe_exists = torch.ones(np_, dtype=torch.bool, device=dev)
@@ -329,6 +340,26 @@ def probe_chunk(jt: JoinTable, probe_keys, capacity: int,
         uniq = jt.all_unique if fast_how \
             else torch.zeros((), dtype=torch.bool, device=dev)
 
+        # ---- right/full: the unmatched build rows, appended after the pairs
+        n_unmatched = 0
+        if how in ("right", "full"):
+            nb = perm.shape[0]
+            # lo holds SORTED positions here (fast_how is false); clamp against
+            # the valid prefix as the general expansion does
+            rhi = torch.minimum(lo + ln, jt.n_build_valid)
+            rlo = torch.minimum(lo, jt.n_build_valid)
+            cnt = torch.where(probe_kv, rhi - rlo, 0)
+            # matched sorted-build positions via ±1 run marks + cumsum
+            touch = cnt > 0
+            marks = torch.zeros(nb + 1, dtype=torch.int32, device=dev)
+            ones = torch.ones(np_, dtype=torch.int32, device=dev)
+            marks.index_add_(0, torch.where(touch, rlo, nb).long(), ones)
+            marks.index_add_(0, torch.where(touch, rhi, nb).long(), -ones)
+            covered = torch.cumsum(marks[:nb], 0, dtype=torch.int32) > 0
+            # existing-but-unmatched build rows, including null-key rows
+            unmatched = jt.sorted_exists & ~covered
+            upos, n_unmatched = _exclusive_cumsum(unmatched.to(torch.int32))
+
         # The identity expansion: unique build AND every probe row emits
         # exactly one output (referential-integrity joins, THE common PK-FK
         # case). Deciding it reads one flag from the device.
@@ -343,29 +374,14 @@ def probe_chunk(jt: JoinTable, probe_keys, capacity: int,
             with tracing.sync("fast_flag"):
                 fast_flag = bool(fast_flag)
         if fast_flag:
+            C = np_ if capacity is None else capacity
             probe_out, build_out, total = _unique_expand(how, lo, matched, C)
         else:
-            probe_out, build_out, total = _general_expand(
-                how, lo, ln, probe_kv, probe_exists, perm, C)
+            probe_out, build_out, total, C = _general_expand(
+                how, lo, ln, probe_kv, probe_exists, perm, capacity,
+                n_unmatched)
 
-        # ---- right/full: append unmatched build rows ------------------------
         if how in ("right", "full"):
-            nb = perm.shape[0]
-            # lo holds SORTED positions here (fast_how is false); clamp against
-            # the valid prefix as the general expansion does
-            hi = torch.minimum(lo + ln, jt.n_build_valid)
-            lo = torch.minimum(lo, jt.n_build_valid)
-            cnt = torch.where(probe_kv, hi - lo, 0)
-            # matched sorted-build positions via ±1 run marks + cumsum
-            touch = cnt > 0
-            marks = torch.zeros(nb + 1, dtype=torch.int32, device=dev)
-            ones = torch.ones(np_, dtype=torch.int32, device=dev)
-            marks.index_add_(0, torch.where(touch, lo, nb).long(), ones)
-            marks.index_add_(0, torch.where(touch, hi, nb).long(), -ones)
-            covered = torch.cumsum(marks[:nb], 0, dtype=torch.int32) > 0
-            # existing-but-unmatched build rows, including null-key rows
-            unmatched = jt.sorted_exists & ~covered
-            upos, n_unmatched = _exclusive_cumsum(unmatched.to(torch.int32))
             dst = total + upos
             uslot = torch.where(unmatched & (dst < C), dst, C)
             build_out = _scatter_back(build_out, uslot, perm)

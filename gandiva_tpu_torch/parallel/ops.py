@@ -15,6 +15,15 @@ compacts a large probe's residue), ``gather_payload``, ``hash_aggregate``
 64-bit columns ride the exchange whole: the reference's 32-bit limb pairs
 (``utils/bits``) were a TPU workaround.
 
+Every capacity (``capacity``, ``probe_capacity``, ``build_capacity``,
+``out_capacity``) may be None: the exchange is then sized by the rows that
+move (``shuffle.exchange_sized``) and the local join's output by the
+pairs it emits (``ops.join`` with no capacity), so nothing overflows but
+the hot-key replication's ``hot_replicate_capacity`` and the aggregate's
+``max_groups``. A partition then holds the rows that arrived, all valid,
+and the partitions' lengths differ. An int keeps the reference's
+``[P*cap]`` layouts.
+
 Distributed sort uses sampled range partitioning: every partition
 contributes a key sample, splitters are the global sample quantiles, rows
 shuffle to their range's partition, and a local sort per partition yields
@@ -22,7 +31,7 @@ a globally sorted table (partition p holds keys ≤ partition p+1's).
 """
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -35,7 +44,7 @@ from ..ops.sort import SortKey, _take, normalize_key, sort_permutation
 from ..utils.hashing import partition_of
 from ..utils.ints import UNSIGNED_VIEW, signed_view
 from .mesh import Mesh
-from .shuffle import exchange, flatten_received
+from .shuffle import exchange_flat
 
 _UNSIGNED_OF = {v: k for k, v in UNSIGNED_VIEW.items()}
 
@@ -53,12 +62,13 @@ def _lists(items: List[Dict]) -> Dict[str, List]:
 
 
 def _shuffle_cols(keys, valid, cols: Dict[str, Tuple], mesh: Mesh,
-                  capacity: int, part_ids=None, seed: int = 0):
+                  capacity: Optional[int], part_ids=None, seed: int = 0):
     """Shuffle keys and named columns with their validity by key hash.
 
     ``cols[name] = (values, validity-or-None)``, each a per-partition list.
     Returns (keys, valid, cols, overflow), the first three flattened to
-    ``[P*cap]`` per partition."""
+    ``[P*cap]`` per partition, or to the rows that arrived with
+    ``capacity`` None."""
     with tracing.span("gt.exchange", device=keys[0].device):
         if part_ids is None:
             part_ids = [partition_of(k, mesh.size, seed) for k in keys]
@@ -67,16 +77,15 @@ def _shuffle_cols(keys, valid, cols: Dict[str, Tuple], mesh: Mesh,
             payload[name] = vals
             if vv is not None:
                 payload[f"{name}__v"] = vv
-        recv, counts, overflow = exchange(part_ids, valid, payload, mesh,
-                                          capacity)
-        flat, fvalid = flatten_received(recv, counts)
+        flat, fvalid, overflow = exchange_flat(part_ids, valid, payload,
+                                               mesh, capacity)
         out_cols = {name: (flat[name], flat.get(f"{name}__v"))
                     for name in cols}
         return flat["__key"], fvalid, out_cols, overflow
 
 
 def dist_hash_aggregate(keys, row_valid, values: Dict[str, Tuple], aggs,
-                        mesh: Mesh, capacity: int, key_valid=None,
+                        mesh: Mesh, capacity: Optional[int], key_valid=None,
                         max_groups: int = 4096, seed: int = 0):
     """Shuffle by key, then aggregate each partition locally.
 
@@ -109,8 +118,9 @@ def dist_hash_aggregate(keys, row_valid, values: Dict[str, Tuple], aggs,
 
 def dist_join(probe_keys, probe_valid, probe_cols: Dict[str, Tuple],
               build_keys, build_valid, build_cols: Dict[str, Tuple],
-              mesh: Mesh, probe_capacity: int, build_capacity: int,
-              out_capacity: int, how: str = "inner",
+              mesh: Mesh, probe_capacity: Optional[int],
+              build_capacity: Optional[int], out_capacity: Optional[int],
+              how: str = "inner",
               probe_key_valid=None, build_key_valid=None, seed: int = 0,
               build_unique: bool = False):
     """Co-shuffle both sides by key hash, then join each partition locally.
@@ -180,7 +190,7 @@ def _order_lane(norm: torch.Tensor) -> torch.Tensor:
 
 
 def dist_sort(keys, key_valid, payload: Dict[str, Tuple], mesh: Mesh,
-              capacity: int, ascending: bool = True,
+              capacity: Optional[int], ascending: bool = True,
               nulls_first: bool = True, sample_stride: int = 64,
               exists=None):
     """Sampled range partition → shuffle → local sort.
@@ -299,8 +309,9 @@ def _is_in_table(keys, table_keys, table_valid):
 
 def dist_join_skewed(probe_keys, probe_valid, probe_cols,
                      build_keys, build_valid, build_cols,
-                     mesh: Mesh, probe_capacity: int, build_capacity: int,
-                     out_capacity: int, how: str = "inner",
+                     mesh: Mesh, probe_capacity: Optional[int],
+                     build_capacity: Optional[int],
+                     out_capacity: Optional[int], how: str = "inner",
                      num_hot: int = 64, hot_replicate_capacity: int = 1024,
                      seed: int = 0, build_unique: bool = False):
     """Skew-aware join (inner/semi/left/anti/right/full).
@@ -410,12 +421,11 @@ def dist_join_skewed(probe_keys, probe_valid, probe_cols,
 
     if outer_build:
         with tracing.span("gt.join.probe", device=dev):
-            C = out_capacity
-            nb_local = bk[0].shape[0]
             bhits = []
             for res, all_bvalid, _ in parts:
                 nb_all = all_bvalid.shape[0]
-                r = torch.arange(C, device=res.count.device)
+                r = torch.arange(res.build_idx.shape[0],
+                                 device=res.count.device)
                 pair_ok = (r < res.count) & (res.build_idx >= 0)
                 bi = torch.where(pair_ok, res.build_idx, nb_all).long()
                 bhit = torch.zeros(nb_all + 1, dtype=torch.bool,
@@ -423,31 +433,37 @@ def dist_join_skewed(probe_keys, probe_valid, probe_cols,
                 bhit[bi] = True
                 bhits.append(bhit[:nb_all])
             # replicated block: hit flags combined over the mesh
-            rep_hit = mesh.pmax([b[nb_local:nb_local + P * cap_h]
-                                 for b in bhits])
+            nb_local = [b.shape[0] for b in bk]
+            rep_hit = mesh.pmax([b[n:n + P * cap_h]
+                                 for b, n in zip(bhits, nb_local)])
             for i, (res, all_bvalid, all_bcols) in enumerate(parts):
-                nb_all = all_bvalid.shape[0]
+                nb_all, nl = all_bvalid.shape[0], nb_local[i]
                 dev = all_bvalid.device
                 own = (torch.arange(P * cap_h, device=dev) // max(cap_h, 1)) \
                     == mesh.index(i)
                 unmatched = torch.cat([
-                    bvalid[i] & ~bhits[i][:nb_local],
+                    bvalid[i] & ~bhits[i][:nl],
                     rep_ok & ~rep_hit & own,
-                    all_bvalid[nb_local + P * cap_h:]])        # null keys
+                    all_bvalid[nl + P * cap_h:]])              # null keys
                 n_un = unmatched.sum(dtype=torch.int32)
                 u32 = unmatched.to(torch.int32)
                 upos = torch.cumsum(u32, 0, dtype=torch.int32) - u32
                 total = res.count
+                total2 = total + n_un
+                C = out_capacity
+                if C is None:                  # sized by the rows emitted
+                    with tracing.sync("outer_total"):
+                        C = int(total2)
                 uslot = torch.where(unmatched & (total + upos < C),
                                     total + upos, C).long()
+                pad = C + 1 - res.build_idx.shape[0]
                 build_out = torch.cat([res.build_idx,
-                                       res.build_idx.new_zeros(1)])
+                                       res.build_idx.new_zeros(pad)])
                 build_out[uslot] = torch.arange(nb_all, dtype=build_out.dtype,
                                                 device=dev)
                 probe_out = torch.cat([res.probe_idx,
-                                       res.probe_idx.new_zeros(1)])
+                                       res.probe_idx.new_full((pad,), -1)])
                 probe_out[uslot] = -1
-                total2 = total + n_un
                 res = JoinResult(probe_out[:C], build_out[:C],
                                  total2.clamp(max=C).to(torch.int32),
                                  res.overflow | (total2 > C))

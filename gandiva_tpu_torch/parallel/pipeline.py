@@ -22,7 +22,7 @@ import torch
 
 from .. import tracing
 from ..device import DEFAULT_DEVICE
-from .mesh import Mesh, make_mesh, shard
+from .mesh import Mesh, held, make_mesh
 from .ops import dist_hash_aggregate, dist_join_skewed
 
 # data-sheet rates of the H100 SXM (not measurements): HBM3, and NVLink 4
@@ -33,15 +33,12 @@ H100_NVLINK_BYTES_PER_S = 4.5e11
 _PIPELINE_CACHE: Dict[tuple, object] = {}
 
 
-def build_filter_join_agg_sort(mesh: Mesh, nper: int, build_per: int,
-                               num_groups: int = 64,
+def build_filter_join_agg_sort(mesh: Mesh, num_groups: int = 64,
                                filter_threshold: int = 50,
-                               shuffle_factor: int = 3,
-                               out_factor: int = 4,
                                num_hot: int = 64,
                                hot_capacity: int = 2048):
-    """The canonical pipeline over ``mesh``, memoized on (mesh, every shape
-    and config parameter) as the reference memoizes its jit.
+    """The canonical pipeline over ``mesh``, memoized on (mesh, every
+    config parameter) as the reference memoizes its jit.
 
     Query shape (TPC-H-flavored):
         SELECT g.seg, SUM(o.amt), COUNT(*)
@@ -49,13 +46,16 @@ def build_filter_join_agg_sort(mesh: Mesh, nper: int, build_per: int,
         WHERE o.amt > threshold
         GROUP BY g.seg ORDER BY g.seg
 
-    Inputs per partition: orders (key, amt) of nper rows, dim (key, seg)
-    of build_per rows. Returns fn(ok, oa, dk, ds), each a list with one
-    tensor per held partition (``mesh.shard``), → (seg_sorted, sums,
+    Inputs: orders (key, amt) and dim (key, seg), each a list with one
+    tensor per held partition (``mesh.shard``, or the process's own
+    partitions); a table's partitions hold the same number of rows. Its
+    exchanges are sized by the rows that move, and the join's output by
+    the pairs it emits, so no capacity is a guess but ``num_groups`` (the
+    groups a partition holds) and ``hot_capacity`` (hot build rows a
+    partition replicates). Returns fn(ok, oa, dk, ds) → (seg_sorted, sums,
     counts, n_groups, overflow, metrics): the first four and ``overflow``
     the same on every partition, ``metrics`` per-partition lists."""
-    cache_key = (mesh, nper, build_per, num_groups, filter_threshold,
-                 shuffle_factor, out_factor, num_hot, hot_capacity)
+    cache_key = (mesh, num_groups, filter_threshold, num_hot, hot_capacity)
     fn = _PIPELINE_CACHE.get(cache_key)
     if fn is None:
         fn = _build_filter_join_agg_sort(*cache_key)
@@ -63,13 +63,9 @@ def build_filter_join_agg_sort(mesh: Mesh, nper: int, build_per: int,
     return fn
 
 
-def _build_filter_join_agg_sort(mesh: Mesh, nper: int, build_per: int,
-                                num_groups: int, filter_threshold: int,
-                                shuffle_factor: int, out_factor: int,
-                                num_hot: int, hot_capacity: int):
-    probe_cap = shuffle_factor * nper
-    out_cap = out_factor * nper
-    build_cap = max(128, shuffle_factor * build_per)
+def _build_filter_join_agg_sort(mesh: Mesh, num_groups: int,
+                                filter_threshold: int, num_hot: int,
+                                hot_capacity: int):
     G = num_groups
 
     def fn(ok_, oa, dk, ds):
@@ -84,8 +80,8 @@ def _build_filter_join_agg_sort(mesh: Mesh, nper: int, build_per: int,
         _, cols, row_ok, ov_join = dist_join_skewed(
             ok_, keep, {"amt": (oa, None)},
             dk, [torch.ones_like(k, dtype=torch.bool) for k in dk],
-            {"seg": (ds, None)}, mesh, probe_capacity=probe_cap,
-            build_capacity=build_cap, out_capacity=out_cap, how="inner",
+            {"seg": (ds, None)}, mesh, probe_capacity=None,
+            build_capacity=None, out_capacity=None, how="inner",
             num_hot=num_hot,
             hot_replicate_capacity=min(hot_capacity, dk[0].shape[0]))
         amt, amt_ok = cols["amt"]
@@ -97,7 +93,7 @@ def _build_filter_join_agg_sort(mesh: Mesh, nper: int, build_per: int,
         with tracing.span("gt.aggregate", device=dev):
             agg = dist_hash_aggregate(
                 seg, joined_ok, {"amt": (amt, None)},
-                [("amt", "sum"), ("amt", "count")], mesh, capacity=out_cap,
+                [("amt", "sum"), ("amt", "count")], mesh, capacity=None,
                 max_groups=G)
         overflow = mesh.pmax([ov_join[i] | agg["overflow"][i]
                               for i in range(L)])
@@ -145,21 +141,22 @@ def _build_filter_join_agg_sort(mesh: Mesh, nper: int, build_per: int,
 
 
 class PipelineOverflowError(RuntimeError):
-    """Capacity overflow surfaced from a fixed-capacity exchange — the
-    Status-style contract (SURVEY.md §5.3): device code never resizes; it
-    flags, and the host retries with doubled capacity."""
+    """Capacity overflow surfaced from the pipeline — the Status-style
+    contract (SURVEY.md §5.3): device code never resizes; it flags, and
+    the host retries with larger capacities."""
 
 
 def run_pipeline(fn, orders_key, orders_amt, dim_key, dim_seg, mesh: Mesh):
-    """The host side: shard the inputs (numpy arrays or tensors) onto the
-    mesh, run, unpack results and metrics.
+    """The host side: take the inputs onto the mesh (``parallel.held``: this
+    process's own partitions as given, or global columns split by
+    ``shard``), run, unpack results and metrics.
 
     Metrics (SURVEY.md §5.5): per-operator row counts and bytes_shuffled
     summed over the mesh, and wall_time_s and rows_per_s of the whole step,
     from a synchronized start to the host's read of the group count (the
     join's data-dependent decisions sync the host inside it too)."""
-    args = [shard(mesh, x) for x in (orders_key, orders_amt, dim_key,
-                                     dim_seg)]
+    args = [held(mesh, x) for x in (orders_key, orders_amt, dim_key,
+                                    dim_seg)]
     if mesh.device.type == "cuda":
         with tracing.sync("synchronize"):
             torch.cuda.synchronize(mesh.device)
@@ -173,7 +170,7 @@ def run_pipeline(fn, orders_key, orders_amt, dim_key, dim_seg, mesh: Mesh):
     if overflowed:
         raise PipelineOverflowError(
             "pipeline capacity overflow — rerun with larger "
-            "shuffle_factor/out_factor")
+            "num_groups/hot_capacity")
     with tracing.sync("metrics"):
         totals = mesh.psum([torch.stack([metrics[k][i] for k in metrics])
                             for i in range(mesh.local)]).tolist()
@@ -190,34 +187,36 @@ def run_pipeline(fn, orders_key, orders_amt, dim_key, dim_seg, mesh: Mesh):
 def run_pipeline_with_retry(mesh: Mesh, orders_key, orders_amt, dim_key,
                             dim_seg, num_groups: int = 64,
                             filter_threshold: int = 50,
-                            shuffle_factor: int = 3, out_factor: int = 4,
+                            hot_capacity: int = 2048,
                             max_retries: int = 3, **kw):
     """Overflow → retry loop (SURVEY.md §7 hard part #1): run the
-    pipeline; on a capacity-overflow flag, double both capacity factors
-    and run again (the retry is a HOST decision; the exchanges stay
-    fixed-capacity)."""
+    pipeline; on a capacity-overflow flag, double the capacities that are
+    still guesses (``num_groups``, ``hot_capacity``) and run again (the
+    retry is a HOST decision).
+
+    Each table is this process's partitions, one tensor per held partition
+    on the mesh's device (no process needs the whole table), or a global
+    column that every process holds whole (numpy array or tensor). Results
+    and metrics are the same on every process."""
     with tracing.span("gt.pipeline"):
-        nper = int(orders_key.shape[0]) // mesh.size
-        build_per = int(dim_key.shape[0]) // mesh.size
-        sf, of = shuffle_factor, out_factor
+        groups, hot = num_groups, hot_capacity
         last: Optional[PipelineOverflowError] = None
         for attempt in range(max_retries + 1):
             fn = build_filter_join_agg_sort(
-                mesh, nper, build_per, num_groups=num_groups,
-                filter_threshold=filter_threshold, shuffle_factor=sf,
-                out_factor=of, **kw)
+                mesh, num_groups=groups, filter_threshold=filter_threshold,
+                hot_capacity=hot, **kw)
             try:
                 with tracing.span("gt.pipeline.attempt", device=mesh.device):
                     keys, sums, counts, metrics = run_pipeline(
                         fn, orders_key, orders_amt, dim_key, dim_seg, mesh)
                 tracing.add("retries", attempt)
                 metrics["retries"] = attempt
-                metrics["shuffle_factor"] = sf
-                metrics["out_factor"] = of
+                metrics["num_groups"] = groups
+                metrics["hot_capacity"] = hot
                 return keys, sums, counts, metrics
             except PipelineOverflowError as e:
                 last = e
-                sf, of = sf * 2, of * 2
+                groups, hot = groups * 2, hot * 2
         raise last
 
 
@@ -260,9 +259,7 @@ def measure_scaling_efficiency(partition_counts, total_rows: int,
     results, wall_0 = [], None
     for n in counts:
         mesh = make_mesh(n, device=device)
-        fn = build_filter_join_agg_sort(mesh, total_rows // n,
-                                        total_build // n,
-                                        num_groups=num_groups, **kw)
+        fn = build_filter_join_agg_sort(mesh, num_groups=num_groups, **kw)
         best = _best_wall(mesh, fn, inputs, repeats)
         if wall_0 is None:
             wall_0 = best * counts[0]
@@ -293,9 +290,7 @@ def measure_weak_scaling(partition_counts, rows_per_shard: int,
         inputs = _scaling_inputs(rng, total, build_per_shard * n,
                                  num_groups)
         mesh = make_mesh(n, device=device)
-        fn = build_filter_join_agg_sort(mesh, rows_per_shard,
-                                        build_per_shard,
-                                        num_groups=num_groups, **kw)
+        fn = build_filter_join_agg_sort(mesh, num_groups=num_groups, **kw)
         best = _best_wall(mesh, fn, inputs, repeats)
         if wall_0 is None:
             wall_0 = best

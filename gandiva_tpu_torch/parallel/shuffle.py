@@ -13,10 +13,19 @@ of each partition's ``[P, cap]`` receive buffer, ``recv_counts[s]`` of
 them. Each argument that the reference takes per shard is here a list with
 one tensor per held partition. The sort, the counts and the gathers are
 ordinary torch operations: no kernel of the TPU package is involved.
+
+``exchange_sized`` is the same exchange sized by the rows that move, the
+engine's own path (a capacity is then no guess and never overflows): every
+partition counts its rows per destination, the counts go round the mesh
+and the host reads them once (``gt.sync.exchange_counts``), and each
+buffer then holds exactly the rows it carries. A partition receives the
+rows of source s in block s as above, the blocks back to back with no
+padding: the rows of the ``[P, cap]`` layout where it is valid, in the
+same order.
 """
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import torch
 
@@ -81,6 +90,63 @@ def exchange(part_ids: List[torch.Tensor], valid: List[torch.Tensor],
     return recv, recv_counts, overflow
 
 
+def exchange_sized(part_ids: List[torch.Tensor], valid: List[torch.Tensor],
+                   payload: Dict[str, List[torch.Tensor]], mesh: Mesh):
+    """``exchange`` with buffers sized by the rows that move.
+
+    Returns ({name: [per held partition its received rows]}, [per held
+    partition the number of rows received]): block s of a partition's
+    rows came from partition s, in that partition's order."""
+    P, L, W = mesh.size, mesh.local, mesh.world
+    dev = part_ids[0].device
+    # a row's sort key: its destination d, then its held source i (d·L +
+    # i), rows outside ``valid`` last; sorted, this process's rows are its
+    # send buffer: by destination process, then destination, then source
+    keys = [torch.where(valid[i], part_ids[i].to(torch.int32) * L + i,
+                        P * L) for i in range(L)]
+    kdt = torch.uint8 if P * L < 256 else torch.int32
+    skey, order = torch.sort((keys[0] if L == 1 else torch.cat(keys))
+                             .to(kdt), stable=True)
+    bounds = torch.searchsorted(skey, torch.arange(P * L + 1, device=dev,
+                                                   dtype=kdt))
+    every = mesh.all_gather([bounds[1:] - bounds[:-1]])
+    with tracing.sync("exchange_counts"):
+        c = every.tolist()
+
+    def n(s: int, d: int) -> int:
+        """Rows of partition s for partition d."""
+        return c[((s // L) * P + d) * L + s % L]
+
+    me, mine = mesh.rank, range(mesh.first, mesh.first + L)
+    send_splits = [sum(n(me * L + i, d) for d in range(r * L, r * L + L)
+                       for i in range(L)) for r in range(W)]
+    recv_splits = [sum(n(r * L + i, d) for d in mine for i in range(L))
+                   for r in range(W)]
+    sizes = [sum(n(s, d) for s in range(P)) for d in mine]
+    # rows from process r arrive by destination, then r's source; with
+    # several processes each holding several partitions, regroup them by
+    # destination: the blocks of each destination, source by source
+    segs = [[] for _ in mine]
+    if W > 1 and L > 1:
+        at = 0
+        for r in range(W):
+            for j, d in enumerate(mine):
+                for i in range(L):
+                    segs[j].append((at, n(r * L + i, d)))
+                    at += segs[j][-1][1]
+    rows = order[:sum(send_splits)]
+    out = {}
+    for name, cols in payload.items():
+        w = signed_view(cols[0]) if L == 1 else \
+            torch.cat([signed_view(x) for x in cols])
+        recv = mesh.all_to_all_rows(w.index_select(0, rows), send_splits,
+                                    recv_splits).view(cols[0].dtype)
+        out[name] = ([torch.cat([recv.narrow(0, a, k) for a, k in seg])
+                      for seg in segs] if segs[0] else
+                     list(recv.split(sizes)))
+    return out, sizes
+
+
 def flatten_received(recv: Dict[str, List[torch.Tensor]],
                      recv_counts: List[torch.Tensor]):
     """``[P, cap]`` receive buffers → flat ``[P*cap]`` columns and each
@@ -98,12 +164,33 @@ def flatten_received(recv: Dict[str, List[torch.Tensor]],
 
 def shuffle_by_key(keys: List[torch.Tensor], valid: List[torch.Tensor],
                    payload: Dict[str, List[torch.Tensor]], mesh: Mesh,
-                   capacity: int, seed: int = 0):
+                   capacity: Optional[int], seed: int = 0):
     """Hash-partition rows by key and exchange: the engine's repartition
     primitive. Returns (flat payload {name: [per partition [P*cap]]}, flat
-    validity per partition, overflow)."""
+    validity per partition, overflow); with ``capacity`` None the exchange
+    is sized by its rows (``exchange_sized``): each partition's rows, all
+    valid, and no overflow."""
     part = [partition_of(k, mesh.size, seed) for k in keys]
-    recv, recv_counts, overflow = exchange(part, valid, payload, mesh,
-                                           capacity)
-    flat, flat_valid = flatten_received(recv, recv_counts)
-    return flat, flat_valid, overflow
+    return exchange_flat(part, valid, payload, mesh, capacity)
+
+
+def exchange_flat(part_ids, valid, payload, mesh: Mesh,
+                  capacity: Optional[int]):
+    """``exchange`` then ``flatten_received`` (``capacity`` an int), or
+    ``exchange_sized`` (``capacity`` None): (flat payload, flat validity,
+    overflow). The sized exchange adds the counters ``slots`` (rows its
+    receive buffers hold) and ``rows`` (rows that moved) to the innermost
+    open span, the caller's ``gt.exchange``."""
+    if capacity is not None:
+        recv, recv_counts, overflow = exchange(part_ids, valid, payload,
+                                               mesh, capacity)
+        flat, flat_valid = flatten_received(recv, recv_counts)
+        return flat, flat_valid, overflow
+    dev = part_ids[0].device
+    flat, sizes = exchange_sized(part_ids, valid, payload, mesh)
+    # the buffers hold the rows that moved and no more
+    tracing.add("slots", sum(sizes))
+    tracing.add("rows", sum(sizes))
+    return (flat, [torch.ones(k, dtype=torch.bool, device=dev)
+                   for k in sizes],
+            torch.zeros((), dtype=torch.bool, device=dev))

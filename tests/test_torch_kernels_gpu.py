@@ -1320,6 +1320,27 @@ def test_nccl_mesh_matches_one_process(tmp_path):
     run_mesh_workers(tmp_path, 4 if cards >= 4 else 2, "cuda", timeout=300)
 
 
+def test_own_partitions_on_four_nccl_ranks_match_the_reference(tmp_path):
+    """With four or more cards: four NCCL processes, one card and one
+    partition each, each making only its own chunk of a mid-size ORDERS ⋈
+    CUSTOMER (4,000,000 orders, 400,000 customers), run the pipeline's
+    own-partition entry point; its answers equal the plain reference's
+    over the whole tables (``tests/torch_mp_own_partitions_worker.py``)."""
+    from test_torch_own_partitions import run_workers
+
+    from gandiva_tpu_torch.ops.kernels import build
+
+    _card()
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four cards for four NCCL processes")
+    build.build_all()            # once, before four processes load them
+    rcs, outs, doc = run_workers(tmp_path, 4, "cuda", timeout=300,
+                                 orders=4_000_000)
+    assert rcs == [0, 0, 0, 0], [err[-3000:] for _, err in outs]
+    assert doc["answers"] == doc["reference"]
+    assert all(a[3] > 0 for a in doc["answers"].values())
+
+
 # ---------------------------------------------------------------------------
 # the plan compiler: generated kernels against the eager route on the card
 # ---------------------------------------------------------------------------

@@ -561,11 +561,10 @@ def test_pipeline_matches_reference_and_acero(meshes):
                                             num_groups=16,
                                             filter_threshold=50)
     rkeys, rsums, rcounts, rmetrics = j_pipe.run_pipeline(jfn, *inputs, jm)
-    tfn = t_pipe.build_filter_join_agg_sort(tm, nper, build_per,
-                                            num_groups=16,
+    tfn = t_pipe.build_filter_join_agg_sort(tm, num_groups=16,
                                             filter_threshold=50)
     assert t_pipe.build_filter_join_agg_sort(
-        tm, nper, build_per, num_groups=16, filter_threshold=50) is tfn
+        tm, num_groups=16, filter_threshold=50) is tfn
     keys, sums, counts, metrics = t_pipe.run_pipeline(tfn, *inputs, tm)
     np.testing.assert_array_equal(keys, rkeys)
     np.testing.assert_array_equal(sums, rsums)
@@ -583,29 +582,35 @@ def test_pipeline_matches_reference_and_acero(meshes):
 
 def test_pipeline_overflow_retry_recovers(meshes):
     """test_pipeline.py::test_pipeline_overflow_retry_recovers on the
-    port: factor 1 with no hot keys must overflow, and the retry loop
-    must double its factors and match the oracle."""
+    port, on the capacities that are still guesses: the exchanges are
+    sized by the rows that move, so 80% of the orders on two keys overflow
+    none of them (the reference's ``shuffle_factor`` 1 does), but the two
+    keys' build rows, hot and on one partition, overflow a hot capacity of
+    1, and seven segments overflow one group a partition; the retry loop
+    must double both and match the oracle."""
     _, tm = meshes
     nper, build_per = 512, 32
     rng = np.random.default_rng(7)
     total, btotal = nper * NDEV, build_per * NDEV
-    orders_key = np.where(rng.random(total) < 0.8, 3,
-                          rng.integers(0, btotal * 2, total)).astype(np.int64)
-    orders_amt = rng.integers(1, 100, total).astype(np.int64)
     dim_key = rng.permutation(btotal * 2)[:btotal].astype(np.int64)
-    dim_key[0] = 3
+    u = rng.random(total)
+    orders_key = np.where(u < 0.4, dim_key[0], np.where(
+        u < 0.8, dim_key[1], rng.integers(0, btotal * 2, total))).astype(
+            np.int64)
+    orders_amt = rng.integers(1, 100, total).astype(np.int64)
     dim_seg = rng.integers(0, 7, btotal).astype(np.int64)
     inputs = (orders_key, orders_amt, dim_key, dim_seg)
-    fn = t_pipe.build_filter_join_agg_sort(
-        tm, nper, build_per, num_groups=16, filter_threshold=50,
-        shuffle_factor=1, out_factor=1, num_hot=0, hot_capacity=1)
-    with pytest.raises(t_pipe.PipelineOverflowError):
-        t_pipe.run_pipeline(fn, *inputs, tm)
+    for groups, hot in ((16, 1), (1, 64)):
+        fn = t_pipe.build_filter_join_agg_sort(
+            tm, num_groups=groups, filter_threshold=50, num_hot=8,
+            hot_capacity=hot)
+        with pytest.raises(t_pipe.PipelineOverflowError):
+            t_pipe.run_pipeline(fn, *inputs, tm)
     keys, sums, counts, metrics = t_pipe.run_pipeline_with_retry(
-        tm, *inputs, num_groups=16, filter_threshold=50, shuffle_factor=1,
-        out_factor=1, num_hot=0, hot_capacity=1)
+        tm, *inputs, num_groups=1, filter_threshold=50, num_hot=8,
+        hot_capacity=1)
     assert metrics["retries"] >= 1
-    assert metrics["shuffle_factor"] > 1
+    assert metrics["num_groups"] > 1 and metrics["hot_capacity"] > 1
     want, _ = _acero_pipeline(*inputs)
     assert sorted(zip(keys.tolist(), sums.tolist(), counts.tolist())) == want
 

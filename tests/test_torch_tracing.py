@@ -132,14 +132,21 @@ def test_pipeline_records_its_tree():
     # the join's build and probe and the aggregate's exchange nest in them
     assert any(spans[s.parent].name == "gt.aggregate"
                for s in by_name["gt.exchange"])
-    assert {"gt.sync.group_ids", "gt.sync.hot_table", "gt.sync.bincount",
+    assert {"gt.sync.group_ids", "gt.sync.hot_table",
+            "gt.sync.exchange_counts",
             "gt.sync.walk", "gt.sync.fast_flag", "gt.sync.distinct",
             "gt.sync.rows_in", "gt.sync.n_groups", "gt.sync.overflow",
             "gt.sync.metrics", "gt.sync.results",
             "gt.sync.hot_isin"} <= set(by_name)
     assert len(by_name["gt.sync.results"]) == 3
-    # torch's bincount reads its input's min and max on a card
-    assert all(s.counters == {"reads": 2} for s in by_name["gt.sync.bincount"])
+    # the exchanges are sized by their rows: one count read each, and
+    # their buffers hold the rows that moved (three exchanges: the join's
+    # probe and build sides, the aggregate's)
+    assert len(by_name["gt.sync.exchange_counts"]) == 3
+    assert "gt.sync.bincount" not in by_name
+    moved = [s.counters for s in by_name["gt.exchange"]]
+    assert len(moved) == 3 and all(c["slots"] == c["rows"] > 0
+                                   for c in moved)
     # isin over 512 build and 4,096 probe keys with a table of 64 sorts
     # (64 >= 10·512^0.145 and 10·4096^0.145): three waits each
     assert [s.counters for s in by_name["gt.sync.hot_isin"]] == \

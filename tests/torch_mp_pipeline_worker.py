@@ -6,7 +6,11 @@ a 4-partition mesh, either in one process holding all four partitions or
 as one of ``world`` ``torch.distributed`` processes holding 4 / world each
 (gloo on the CPU; NCCL with one card a process, ``cuda:<rank>``). Same
 seeded inputs every way; rank 0 writes the results (the per-partition
-outputs gathered in mesh order) to a JSON file.
+outputs gathered in mesh order) to a JSON file. A process of a group joins
+it with a finite timeout and leaves it as every rank does
+(``parallel.join_group`` / ``leave_group``: a barrier, then the group
+destroyed), so that no rank tears down its side while another still talks
+to it.
 
 Usage: python torch_mp_pipeline_worker.py <single|dist> <rank> <world>
        <port> <out> <cpu|cuda>
@@ -19,7 +23,6 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 mode, rank, world, port, out_path, kind = (
     sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
@@ -27,14 +30,14 @@ mode, rank, world, port, out_path, kind = (
 device = "cpu" if kind == "cpu" else f"cuda:{rank}"
 if kind == "cuda":
     torch.cuda.set_device(rank)
-if mode == "dist":
-    dist.init_process_group("gloo" if kind == "cpu" else "nccl",
-                            init_method=f"tcp://localhost:{port}",
-                            world_size=world, rank=rank)
-
 from gandiva_tpu_torch.parallel import (build_filter_join_agg_sort,
-                                        dist_sort, make_mesh, run_pipeline,
-                                        shard, shuffle_by_key, unshard)
+                                        dist_sort, join_group, leave_group,
+                                        make_mesh, run_pipeline, shard,
+                                        shuffle_by_key, unshard)
+
+if mode == "dist":
+    join_group("gloo" if kind == "cpu" else "nccl", int(port), world, rank,
+               120, device)
 
 P = 4
 mesh = make_mesh(P, device=device)
@@ -48,8 +51,8 @@ dim_key = rng.permutation(BTOTAL * 2)[:BTOTAL].astype(np.int64)
 dim_seg = rng.integers(0, 5, BTOTAL).astype(np.int64)
 valid = rng.random(TOTAL) < 0.9
 
-fn = build_filter_join_agg_sort(mesh, TOTAL // P, BTOTAL // P,
-                                num_groups=16, num_hot=8, hot_capacity=64)
+fn = build_filter_join_agg_sort(mesh, num_groups=16, num_hot=8,
+                                hot_capacity=64)
 keys, sums, counts, metrics = run_pipeline(fn, orders_key, orders_amt,
                                            dim_key, dim_seg, mesh)
 
@@ -74,6 +77,6 @@ if rank == 0:
     with open(out_path, "w") as f:
         json.dump(result, f)
 if mode == "dist":
-    dist.destroy_process_group()
+    leave_group()
 print(f"worker {mode}/{rank} of {world} on {device}: ok ({len(keys)} "
       "groups)", flush=True)
