@@ -106,16 +106,18 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                 build_unique=True: rows/s (best of 3), launches, outputs
                 checked exactly (count == n, probe_idx == arange(n),
                 build_idx == the probe keys); the join build's kernels
-                against the plain chain on the card on one more call's
-                build;
+                against the plain chain and the join probe's kernel against
+                the reference's probe chains on the card on one more call's
+                build and probe;
  16. join_stream — the full configs[3]: 16 chunks of 64,000,000 probe rows
                 made on the card from the seed and the chunk index against
                 build arange(10,000,000), each reduced to a checksum: rows/s
                 (best of 2), every chunk's checksum against
-                n + Σ iota + Σ keys, K2/K4/K3 launches, host syncs of one
-                probe_chunk, peak and own device memory, device time by
-                kernel for one call (torch.profiler); the join build's
-                kernels against the plain chain on one more call's build;
+                n + Σ iota + Σ keys, the probe kernel's and K4/K3's
+                launches, host syncs of one probe_chunk, peak and own device
+                memory, device time by kernel for one call (torch.profiler);
+                the join build's kernels and the join probe's kernel against
+                the plain chains on one more call's largest build and probe;
  17. join vs Arrow — 4,194,341 Zipf probe rows (the hot path) × 1,000,003
                 build rows, 10% null keys on both sides: all six join types
                 and a two-key join_multi against pyarrow.acero's hashjoin,
@@ -177,10 +179,10 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                 Zipf(1.3) over the same customers), 1,500,000 customers;
                 exact against pyarrow.acero; rows/s (best of 3), metrics,
                 peak memory, host syncs a call, hot keys, partition
-                balance, the profiler's top 8, launches; K2, K4 with
-                K3's rounds, K5 and the join build's kernels against their
-                plain versions on the inputs of each one's largest call in
-                the pipeline;
+                balance, the profiler's top 8, launches; the join probe's
+                kernel, K4 with K3's rounds, K5 and the join build's
+                kernels against their plain versions on the inputs of each
+                one's largest call in the pipeline;
  23. distributed_step — entrypoints.distributed_step over one configs[0]
                 batch of 64Mi rows as 4 partitions, 1024 groups, against
                 pyarrow's group_by; rows/s, launches (K1, K5), syncs; K1
@@ -221,15 +223,27 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                 kernel route's (its zeros and its sort of the home slots
                 included), the plain chain's and torch.cummin +
                 torch.cummax's over the same rows, beside the kernels' byte
-                bound.
+                bound;
+ 28. join probe — the join probe's kernel (csrc/join_probe.cu) at
+                orders_customer_pipeline's probe (7,500,000 rows against
+                its build of 4,502,048 rows, 1,500,000 customer keys valid,
+                in T = 2^26 home slots) and at orders_customer_4chip's on
+                one card (56,250,000 rows against 11,250,000 customer keys
+                whose hash32 % 4 is 0, in T = 2^26), its (start, len) bit
+                for bit against _probe_ranges_dense and, on the valid rows,
+                _probe_ranges_hot on the card; the kernel's time (CUDA
+                events), beside its byte bound, the two chains' times, one
+                full-width 16-byte gather of the home slots (a round of
+                theirs), and the launches and host syncs of one probe_chunk.
 Phases 5-25 run the plans as Make builds them: compiled on the card
 (Configuration.optimize, the default), apart from phases 18 and 20, which
 hold every signature's own eager route. Phase 2 also builds the entry
 points' generated plans and phase 26's, with the kernels, in parallel.
 Then one {"kernels": [...]} line (K1's launches by path include every
-scan and distributed_step; K2-K5's and the join build's the configs[4]
-pipeline; the plan kernel's every path of phase 26), and last {"ok": true, "device":
-{...}}.
+scan and distributed_step; K2-K5's, the join build's and the join
+probe's the configs[4] pipeline, where K2 launches no more since the
+probe kernel; the plan kernel's every path of phase 26), and last
+{"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -1665,10 +1679,10 @@ def clone_args(x):
 
 @contextlib.contextmanager
 def keep_largest_inputs(kept: dict):
-    """While open, the CUDA entries of K1, K2, K4, K5 and the join build
-    keep in ``kept[name]`` clones of the arguments of their call with the
-    most rows, so each can be held against its plain version at the shapes
-    a path gives it."""
+    """While open, the CUDA entries of K1, K2, K4, K5, the join build and
+    the join probe keep in ``kept[name]`` clones of the arguments of their
+    call with the most rows, so each can be held against its plain version
+    at the shapes a path gives it."""
     from gandiva_tpu_torch.ops import hash_join as hj
     from gandiva_tpu_torch.ops.kernels import aggregate as k5
     from gandiva_tpu_torch.ops.kernels import compaction as k1
@@ -1679,7 +1693,8 @@ def keep_largest_inputs(kept: dict):
                ("compact_fragnet", k2, "compact_fragnet_cuda"),
                ("sort_block", k4, "block_sort_cuda"),
                ("aggregate", k5, "aggregate_cuda"),
-               ("join_build", hj, "build_ranges_cuda")]
+               ("join_build", hj, "build_ranges_cuda"),
+               ("join_probe", hj, "probe_ranges_cuda")]
     saved = [getattr(mod, attr) for _, mod, attr in entries]
 
     def recording(name, fn):
@@ -1702,9 +1717,10 @@ def keep_largest_inputs(kept: dict):
 def hold_kept_kernels(kept: dict, what: str, need) -> dict:
     """The kernels named in ``need`` (K1 ``compact``, K2
     ``compact_fragnet``, K4 ``sort_block`` with K3's rounds, K5
-    ``aggregate``, the join build's ``join_build``) on the inputs
-    ``keep_largest_inputs`` kept, each against its plain version. Returns
-    the largest absolute difference of each (K4 and K3 under ``sort``)."""
+    ``aggregate``, the join build's ``join_build``, the join probe's
+    ``join_probe``) on the inputs ``keep_largest_inputs`` kept, each against
+    its plain version. Returns the largest absolute difference of each (K4
+    and K3 under ``sort``)."""
     from gandiva_tpu_torch.ops.kernels import aggregate as k5
     from gandiva_tpu_torch.ops.kernels import compaction as k1
     from gandiva_tpu_torch.ops.kernels import compaction_fragnet as k2
@@ -1739,6 +1755,9 @@ def hold_kept_kernels(kept: dict, what: str, need) -> dict:
     if "join_build" in need:
         hold_join_build(kept["join_build"], f"{what} largest build")
         errs["join_build"] = 0.0
+    if "join_probe" in need:
+        hold_join_probe(kept["join_probe"], f"{what} largest probe")
+        errs["join_probe"] = 0.0
     return errs
 
 
@@ -1761,6 +1780,33 @@ def hold_join_build(args, what: str) -> None:
         f"{bool(got_unique)} equal the plain chain's on the card")
 
 
+def hold_join_probe(args, what: str) -> None:
+    """The join probe's kernel against the reference's chains on the card,
+    on the arguments (widened keys, probe_kv, table, T) a probe gave it:
+    (start, len) bit for bit against _probe_ranges_dense on every row and
+    against _probe_ranges_hot on the rows in probe_kv."""
+    from gandiva_tpu_torch.ops import hash_join as hj
+    from gandiva_tpu_torch.ops.kernels.join_probe import probe_ranges_cuda
+
+    pk64, kv, table, T = args
+    nb = table.shape[0] - T
+    start, ln = probe_ranges_cuda(pk64, kv, table, T)
+    d_start, d_ln, _ = hj._probe_ranges_dense(table, nb, pk64, kv)
+    if not (torch.equal(start, d_start) and torch.equal(ln, d_ln)):
+        raise AssertionError(f"join probe {what}: the kernel's (start, len) "
+                             "differ from the dense chain's")
+    if pk64.shape[0]:
+        h_start, h_ln, _ = hj._probe_ranges_hot(table, nb, pk64, kv, 128)
+        if not (torch.equal(start[kv], h_start[kv])
+                and torch.equal(ln[kv], h_ln[kv])):
+            raise AssertionError(f"join probe {what}: the kernel's (start, "
+                                 "len) differ from the hot-key chain's")
+    log(f"{what}: the join probe's (start, len) ({pk64.shape[0]} rows, "
+        f"{int(kv.sum())} valid, {int((ln > 0).sum())} matched, {nb} build "
+        f"rows in {table.shape[0]} slots) equal the dense chain's, and the "
+        f"hot-key chain's on the valid rows, on the card")
+
+
 def drive_configs4(gt, dev, smi: str):
     """BASELINE configs[4] as TPC-H SF10 ORDERS ⋈ CUSTOMER grouped by market
     segment, through ``run_pipeline_with_retry`` over ``make_mesh(4)`` on
@@ -1768,17 +1814,17 @@ def drive_configs4(gt, dev, smi: str):
     o_custkey: exact against pyarrow.acero, rows/s (best of 3 synchronized
     walls), the pipeline's metrics, peak memory, host syncs a call, hot
     keys, partition balance, the profiler's top 8 and busy share, and each
-    kernel's launches in the first (uniform) call. In each run, K2, K4 with
-    K3's rounds, K5 and the join build's kernels are held against their
-    plain versions on the inputs of their largest call in one more pipeline
-    call. Returns the
-    first call's launches and each kernel's largest difference."""
+    kernel's launches in the first (uniform) call. In each run, the join
+    probe's kernel, K4 with K3's rounds, K5 and the join build's kernels
+    are held against their plain versions on the inputs of their largest
+    call in one more pipeline call. Returns the first call's launches and
+    each kernel's largest difference."""
     from gandiva_tpu_torch import parallel
     from gandiva_tpu_torch.ops.kernels import LAUNCHES, reset_launches
 
     mesh = parallel.make_mesh(PIPE_PARTITIONS, device=dev)
     launches, report = None, {}
-    errs = {"compact_fragnet": 0.0, "sort": 0.0, "aggregate": 0.0,
+    errs = {"join_probe": 0.0, "sort": 0.0, "aggregate": 0.0,
             "join_build": 0.0}
     for name, zipf in (("uniform", False), ("zipf", True)):
         tables = orders_customer(dev, 22 + zipf, zipf)
@@ -1818,7 +1864,7 @@ def drive_configs4(gt, dev, smi: str):
         balance = max(per) * len(per) / max(sum(per), 1)
         for k, e in hold_kept_kernels(
                 kept, f"configs[4] {name}",
-                ("compact_fragnet", "sort_block", "aggregate",
+                ("join_probe", "sort_block", "aggregate",
                  "join_build")).items():
             errs[k] = max(errs[k], e)
         del kept
@@ -1847,7 +1893,8 @@ def drive_configs4(gt, dev, smi: str):
                         "balance": balance}
         del tables, ok, keep
     if min(launches[k] for k in ("sort_block", "merge_path",
-                                 "aggregate", "join_build")) == 0:
+                                 "aggregate", "join_build",
+                                 "join_probe")) == 0:
         raise AssertionError(f"configs[4]: launches {launches}")
     log(f"configs[4] launches in one call: {launches}")
     log(json.dumps({"configs4": {
@@ -2707,6 +2754,128 @@ def drive_join_build(dev, bw: float, smi: str) -> dict:
         report[label] = t
         del keys, valid, rows, kept, args, sk64, nv, perm, start_pos, spread
     log(json.dumps({"join_build": {"card": smi, **report}}))
+    return report
+
+
+# -- phase 28: the join probe's kernel ----------------------------------------
+
+JOIN_CELL_PROBE = 7_500_000      # orders_customer_pipeline's probe, ≈ 50%
+CUSTOMER_SF300 = 45_000_000      # SF × 150,000
+JOIN_4CHIP_PROBE = 56_250_000    # orders_customer_4chip's probe a card
+JOIN_PROBE_ITERS = 20
+
+
+def join_probe_bytes(rows: int, valid: int, slots: int = 0) -> int:
+    """Bytes the join probe must move: each row's int64 key, its validity
+    byte and its int32 start and len (17 B), and 16 B a slot its valid
+    rows read; with ``slots`` 0, one slot a valid row (its home)."""
+    return rows * 17 + (slots or valid) * 16
+
+
+def chain_reads(table, pk64, kv, T: int) -> int:
+    """The slots the valid rows read along their chains, the home slot
+    included, a round of the reference's walk at a time."""
+    from gandiva_tpu_torch.ops import hash_join as hj
+    from gandiva_tpu_torch.utils.hashing import hash32
+
+    lo, hi = hj._limbs(pk64)
+    pos = hash32(pk64) % T
+    live = kv.clone()
+    reads = 0
+    while True:
+        n = int(live.sum())
+        if n == 0:
+            return reads
+        reads += n
+        g = table.index_select(0, torch.where(live, pos, 0))
+        live = live & (g[:, 3] > 0) & ~((g[:, 0] == lo) & (g[:, 1] == hi))
+        pos = pos + 1
+
+
+def drive_join_probe(dev, bw: float, smi: str) -> dict:
+    """The join probe's kernel (csrc/join_probe.cu) at the probes of
+    orders_customer_pipeline (7,500,000 uniform o_custkey rows against the
+    one partition's padded build of 4,502,048 rows, SF10's 1,500,000
+    customer keys valid) and of orders_customer_4chip on one card
+    (56,250,000 rows against the card's 11,250,000 customer keys, every
+    one with hash32 % 4 == 0, the homes of one rank), each table from
+    build_join_table(how="inner") (T = 2^26 home slots both): (start, len)
+    held bit for bit against the reference's dense and, on the valid rows,
+    hot-key chains on the card; then the kernel's time (CUDA events) beside
+    its byte bound (one slot a valid row) and the bytes of the slots its
+    chains read, the two chains' times, one full-width 16-byte gather of the
+    home slots (a round of their walks), and one probe_chunk's probe kernel
+    launches and host syncs. Returns the times by probe."""
+    from gandiva_tpu_torch.ops import hash_join as hj
+    from gandiva_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from gandiva_tpu_torch.ops.kernels.join_probe import probe_ranges_cuda
+    from gandiva_tpu_torch.utils.hashing import hash32
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(28)
+    report = {}
+    for label in ("orders_customer_pipeline", "orders_customer_4chip card"):
+        if label == "orders_customer_pipeline":
+            nb, n = JOIN_CELL_BUILD, JOIN_CELL_PROBE
+            keys = torch.zeros(nb, dtype=torch.int64, device=dev)
+            valid = torch.zeros(nb, dtype=torch.bool, device=dev)
+            rows = torch.randperm(nb, generator=g, device=dev)[:CUSTOMER_SF10]
+            keys[rows] = torch.arange(1, CUSTOMER_SF10 + 1, device=dev)
+            valid[rows] = True
+            probe = torch.randint(1, CUSTOMER_SF10 + 1, (n,), generator=g,
+                                  device=dev)
+            del rows
+        else:
+            cand = torch.arange(1, CUSTOMER_SF300 + 1, device=dev)
+            keys = cand[hash32(cand) % 4 == 0]
+            nb, n = keys.shape[0], JOIN_4CHIP_PROBE
+            valid = None
+            probe = keys.index_select(0, torch.randint(
+                0, nb, (n,), generator=g, device=dev))
+            del cand
+        jt = hj.build_join_table(keys, build_valid=valid, how="inner")
+        T = jt.table.shape[0] - nb
+        pk64 = hj._widen(hj.normalize_key(probe))
+        kv = torch.ones(n, dtype=torch.bool, device=dev)
+        hold_join_probe((pk64, kv, jt.table, T), label)
+        reset_launches()
+        hj.probe_chunk(jt, probe, None, "inner")
+        torch.cuda.synchronize()
+        launches = LAUNCHES["join_probe"]
+        if launches != 1:
+            raise AssertionError(f"{label}: probe_chunk launched the probe "
+                                 f"kernel {launches} times")
+        syncs = count_syncs(lambda: hj.probe_chunk(jt, probe, None, "inner"))
+        home = hash32(pk64) % T
+        reads = chain_reads(jt.table, pk64, kv, T)
+        t = {"rows": n, "build_rows": nb, "slots": jt.table.shape[0],
+             "T": T, "slot_reads": reads,
+             "ms": time_ms(lambda: probe_ranges_cuda(pk64, kv, jt.table, T),
+                           iters=JOIN_PROBE_ITERS),
+             "dense_ms": time_ms(lambda: hj._probe_ranges_dense(
+                 jt.table, nb, pk64, kv), iters=3, warmup=1),
+             "hot_ms": time_ms(lambda: hj._probe_ranges_hot(
+                 jt.table, nb, pk64, kv, 128), iters=3, warmup=1),
+             "gather_ms": time_ms(lambda: jt.table.index_select(0, home),
+                                  iters=5, warmup=1),
+             "bytes": join_probe_bytes(n, n),
+             "chain_bytes": join_probe_bytes(n, n, reads),
+             "launches": launches, "probe_chunk_syncs": syncs}
+        t["bound_ms"] = t["bytes"] / bw * 1e3
+        t["chain_bound_ms"] = t["chain_bytes"] / bw * 1e3
+        log(f"{label} ({smi}): {n} rows against {nb} build rows in "
+            f"{t['slots']} slots (T {T}), {reads} slot reads "
+            f"({reads / n:.4f} a row): the kernel {t['ms']:.4f} ms, bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_ms'] / t['ms']:.1%}; with "
+            f"every chain read {t['chain_bound_ms']:.4f} ms); the dense "
+            f"chain {t['dense_ms']:.4f} ms, the hot-key chain "
+            f"{t['hot_ms']:.4f} ms, one full-width gather of the home slots "
+            f"{t['gather_ms']:.4f} ms; probe_chunk: {launches} probe "
+            f"launch, {syncs} host syncs")
+        report[label] = t
+        del keys, valid, probe, jt, pk64, kv, home
+        torch.cuda.empty_cache()
+    log(json.dumps({"join_probe": {"card": smi, **report}}))
     return report
 
 
@@ -3730,7 +3899,7 @@ def main() -> int:
     probe = zipf_keys(N_JOIN, JOIN_BUILD, g)
     build = torch.arange(JOIN_BUILD, device=dev)
     iota = torch.arange(N_JOIN, dtype=torch.int32, device=dev)
-    join_launches = {"compact_fragnet": 0, "sort_block": 0, "merge_path": 0,
+    join_launches = {"join_probe": 0, "sort_block": 0, "merge_path": 0,
                      "join_build": 0}
     join_report = {}
     for unique in (False, True):
@@ -3774,7 +3943,7 @@ def main() -> int:
             "launches": launched}
     with keep_largest_inputs({}) as kept:
         join_path()
-    hold_kept_kernels(kept, "configs[3] join", ("join_build",))
+    hold_kept_kernels(kept, "configs[3] join", ("join_build", "join_probe"))
     del kept
     diag = hj.probe_diagnostics(hj.build_join_table(build), probe)
     log(f"probe_diagnostics: { {k: int(v) for k, v in diag.items()} }")
@@ -3821,7 +3990,8 @@ def main() -> int:
         f"{join_stream_launches} in 3 calls; max_memory_allocated={peak} (the "
         f"path's own {peak - resident}); every chunk's checksum equals "
         "n + Σ iota + Σ keys")
-    # host syncs of one probe_chunk (one per walk round and per decision)
+    # host syncs of one probe_chunk (on the card: the identity expansion's
+    # one decision; the probe kernel reads nothing back)
     syncs = count_syncs(lambda: hj.probe_chunk(jt_full, keys0, n_chunk,
                                                "inner"))
     diag = {k: int(v) for k, v in hj.probe_diagnostics(jt_full,
@@ -3831,7 +4001,8 @@ def main() -> int:
     stream_busy, _ = profile_call(stream)
     with keep_largest_inputs({}) as kept:
         stream()
-    hold_kept_kernels(kept, "configs[3] join_stream", ("join_build",))
+    hold_kept_kernels(kept, "configs[3] join_stream",
+                      ("join_build", "join_probe"))
     del jt_full, keys0, outs, kept
     log(json.dumps({"join_path": {
         "resident": join_report, "rows": N_JOIN, "build_rows": JOIN_BUILD,
@@ -3930,7 +4101,6 @@ def main() -> int:
     phase("main path: configs[4] filter→join→agg→sort, TPC-H SF10 ORDERS ⋈ "
           "CUSTOMER as 4 partitions of one card")
     pipe_launches, pipe_errs = drive_configs4(gt, dev, smi)
-    k2_err = max(k2_err, pipe_errs["compact_fragnet"])
     sort_err = max(sort_err, pipe_errs["sort"])
     k5_err = max(k5_err, pipe_errs["aggregate"])
 
@@ -3961,6 +4131,11 @@ def main() -> int:
           "times")
     join_build = drive_join_build(dev, bw, smi)["orders_customer_pipeline"]
 
+    # -- 28. the join probe's kernel ---------------------------------------
+    phase("the join probe's kernel against the reference's chains, and its "
+          "times")
+    join_probe = drive_join_probe(dev, bw, smi)["orders_customer_pipeline"]
+
     # -- the kernels line, then the last line ----------------------------
     # each path's own count, read just after it ran; ``launches`` is the
     # count of the path that brought the kernel in
@@ -3985,14 +4160,15 @@ def main() -> int:
         "bound_by": "bytes",
         "library_ms": library_ms,
     }, {
+        # no main path compacts with K2 since the join probe's kernel; the
+        # reference's probe chains on the card (probe_diagnostics, phase
+        # 14's hot-key probe) still do
         "name": "compact_fragnet",
         "route": "cuda",
         "source": "gandiva_tpu_torch/csrc/compaction_fragnet.cu",
         "replaces": "gandiva_tpu/ops/kernels/compaction_pallas.py:190",
-        "launches": join_stream_launches["compact_fragnet"],
+        "launches": pipe_launches["compact_fragnet"],
         "launches_by_path": {
-            "configs[3] join": join_launches["compact_fragnet"],
-            "configs[3] join_stream": join_stream_launches["compact_fragnet"],
             "configs[4] pipeline": pipe_launches["compact_fragnet"]},
         "matches_plain": True,
         "max_abs_err": k2_err,
@@ -4088,6 +4264,28 @@ def main() -> int:
         "bound_ms": join_build["bound_ms"],
         "bound_by": "bytes",
         "library_ms": join_build["library_ms"],
+    }, {
+        # replaces no Pallas kernel: the reference probes with array
+        # operations (gathers, compactions, walks) that XLA fuses. ms is the
+        # kernel's time on orders_customer_pipeline's probe; plain_ms the
+        # dense chain's there; no one PyTorch call computes the probe
+        "name": "join_probe",
+        "route": "cuda",
+        "source": "gandiva_tpu_torch/csrc/join_probe.cu",
+        "replaces": "gandiva_tpu/ops/hash_join.py:695",
+        "launches": join_stream_launches["join_probe"],
+        "launches_by_path": {
+            "configs[3] join": join_launches["join_probe"],
+            "configs[3] join_stream": join_stream_launches["join_probe"],
+            "configs[4] pipeline": pipe_launches["join_probe"]},
+        "matches_plain": True,
+        "max_abs_err": 0.0,
+        "ms": join_probe["ms"],
+        "plain_ms": join_probe["dense_ms"],
+        "hot_ms": join_probe["hot_ms"],
+        "bound_ms": join_probe["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}), flush=True)

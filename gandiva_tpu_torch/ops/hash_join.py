@@ -12,10 +12,13 @@ configs[3] — 1B×10M skewed probe/build). The design is the reference's:
   first-fit placement (a second sort, of the runs' home slots); on a card
   the run detection and the placement are the two scans of
   ``csrc/join_build.cu``;
-- probe side: each probe key resolves to its (start, len) with one 16-byte
-  table gather, the few unresolved rows compacted (kernel K2) and walked
-  along their chains; large probes first resolve a sampled set of hot keys
-  without touching the table and compact only the cold rows (K2 again);
+- probe side: each probe key resolves to its (start, len) by walking its
+  chain from its home slot; on a card one thread a row walks it in the one
+  launch of ``csrc/join_probe.cu``, for every probe size and skew. CPU
+  tensors take the reference's chain: one 16-byte table gather, the few
+  unresolved rows compacted (kernel K2's plain version) and walked a round
+  at a time; probes of 2^22 rows or more first resolve a sampled set of
+  hot keys without touching the table and compact only the cold rows;
 - output expansion: rows explode into a fixed-capacity (probe_idx,
   build_idx) pair buffer through exclusive-cumsum offsets, each pair slot
   finding its probe row by a binary search of the rows' running ends (the
@@ -41,11 +44,12 @@ scatters write into their targets with a dump slot (no fresh-zero scatter
 and select), and the hot keys resolve by ``searchsorted`` over the sorted
 hot set (no [n, 64] compare matrix for the MXU).
 
-Data-dependent loops (the chain walks, the hot-key fallback, the choice of
-the identity expansion) are Python loops or branches that read one flag
-from the device per round: one host sync each. A walk is bounded only by
-the table's size, the one bound that cannot cut a chain. Nothing else syncs
-the host: no ``.item()``, no boolean-mask indexing, no ``nonzero``.
+Data-dependent loops (the CPU route's chain walks and hot-key fallback, the
+choice of the identity expansion) are Python loops or branches that read
+one flag from the device per round: one host sync each. A walk is bounded
+only by the table's size, the one bound that cannot cut a chain. Nothing
+else syncs the host: no ``.item()``, no boolean-mask indexing, no
+``nonzero``; the card's probe kernel syncs nothing.
 """
 from __future__ import annotations
 
@@ -59,6 +63,7 @@ from ..utils.ints import signed_view, widen
 from .compaction import compact_fragnet, compact_sort
 from .groupby import table_size_for
 from .kernels.join_build import build_ranges_cuda
+from .kernels.join_probe import probe_ranges_cuda
 from .sort import SortKey, _sort_full, _widen, normalize_key, sort_permutation
 
 _HOWS = ("inner", "left", "right", "full", "semi", "anti")
@@ -335,8 +340,8 @@ def probe_chunk(jt: JoinTable, probe_keys, capacity: Optional[int],
             else (probe_valid & probe_exists)
 
         fast_how = how in _FAST_HOWS
-        lo, ln, _ = _probe_ranges_table(jt.table, perm.shape[0],
-                                        normalize_key(probe_keys), probe_kv)
+        lo, ln = _probe_ranges(jt.table, perm.shape[0],
+                               normalize_key(probe_keys), probe_kv)
         uniq = jt.all_unique if fast_how \
             else torch.zeros((), dtype=torch.bool, device=dev)
 
@@ -594,12 +599,12 @@ def join_multi(probe_keys_list, build_keys_list, capacity: int,
 
 def _hash_probe_ranges(pk_norm, sorted_norm, n_valid, probe_kv,
                        perm=None, table_factor: int = 16):
-    """_build_ranges_table then _probe_ranges_table, for direct callers.
+    """_build_ranges_table then _probe_ranges, for direct callers.
     Returns (start, len, all_unique)."""
     table, all_unique = _build_ranges_table(sorted_norm, n_valid, perm,
                                             table_factor)
-    start, ln, _ = _probe_ranges_table(table, sorted_norm.shape[0],
-                                       pk_norm, probe_kv)
+    start, ln = _probe_ranges(table, sorted_norm.shape[0], pk_norm,
+                              probe_kv)
     if perm is None:
         all_unique = torch.zeros((), dtype=torch.bool,
                                  device=all_unique.device)
@@ -704,10 +709,31 @@ def _build_ranges_plain(sk64, n_valid, perm, T: int):
     return table[:T_tot], all_unique
 
 
+def _probe_ranges(table, nb: int, pk_norm, probe_kv):
+    """Each probe key's duplicate-run (start, len) against a table from
+    _build_ranges_table, len 0 for absent and invalid keys: the one place
+    that picks the probe's route.
+
+    CUDA tensors take the kernel of ``kernels/join_probe.py``, one launch
+    and no host sync for every probe size and skew, and the counter
+    ``kernel_rows`` of the open span says how many probe rows it took; CPU
+    tensors take the reference's chain, _probe_ranges_table."""
+    if pk_norm.device.type == "cuda":
+        tracing.add("kernel_rows", pk_norm.shape[0])
+        return probe_ranges_cuda(_widen(pk_norm).contiguous(),
+                                 probe_kv.contiguous(), table,
+                                 table.shape[0] - nb)
+    start, ln, _ = _probe_ranges_table(table, nb, pk_norm, probe_kv)
+    return start, ln
+
+
 def _probe_ranges_table(table, nb: int, pk_norm, probe_kv,
                         hot_k: int = 128, hot_min_rows: int = _HOT_MIN_ROWS):
     """Resolve each probe key to its duplicate-run (start, len) against a
-    table from _build_ranges_table.
+    table from _build_ranges_table, by the reference's chain of array
+    operations: the plain version of ``kernels/join_probe.py``, which the
+    probe takes on CPU tensors (the card's probe is the kernel, see
+    _probe_ranges) and ``probe_diagnostics`` on either.
 
     Two regimes: probes of at least ``hot_min_rows`` rows take the hot-key
     path (_probe_ranges_hot), which resolves a sampled top-``hot_k`` key set
@@ -723,11 +749,15 @@ def _probe_ranges_table(table, nb: int, pk_norm, probe_kv,
 
 def probe_diagnostics(jt: JoinTable, probe_keys, probe_valid=None):
     """Residue and fallback counters for one probe chunk, as 0-d int32
-    tensors, the same five on both paths: ``hot_rows`` (0 on the dense
-    path), ``residue_rows`` against ``residue_capacity`` (the compacted
-    tier), ``walk_rows`` (the rows the compacted chain walk took: on the
-    dense path min(residue_rows, residue_capacity)) and ``fallback_rows``
-    (> 0 means a capacity overflowed and a full-width walk ran)."""
+    tensors, the same five on both paths of the reference's chain
+    (_probe_ranges_table), which this runs on any device: ``hot_rows`` (0
+    on the dense path), ``residue_rows`` against ``residue_capacity`` (the
+    compacted tier), ``walk_rows`` (the rows the compacted chain walk took:
+    on the dense path min(residue_rows, residue_capacity)) and
+    ``fallback_rows`` (> 0 means a capacity overflowed and a full-width walk
+    ran). They describe the reference's tiers: the card's probe
+    (``probe_chunk`` on CUDA tensors) no longer takes them, its kernel walks
+    every row's chain in one pass."""
     np_ = probe_keys.shape[0]
     if probe_valid is None:
         probe_valid = torch.ones(np_, dtype=torch.bool,

@@ -121,6 +121,111 @@ def test_cpu_build_never_loads_the_join_build_kernels(monkeypatch, how):
                                       how=how), port)
 
 
+def _probe_kernel_args(case):
+    """(keys, probe_kv, table, T) that break one of ``probe_ranges_cuda``'s
+    conditions each, all on the CPU."""
+    keys = torch.arange(8, dtype=torch.int64)
+    kv = torch.ones(8, dtype=torch.bool)
+    table = torch.zeros(16, 4, dtype=torch.int32)
+    T = 8
+    if case == "keys_int32":
+        keys = keys.to(torch.int32)
+    elif case == "kv_uint8":
+        kv = kv.to(torch.uint8)
+    elif case == "kv_short":
+        kv = kv[:7]
+    elif case == "table_int64":
+        table = table.to(torch.int64)
+    elif case == "table_rows_of_3":
+        table = table[:, :3]
+    elif case == "T_zero":
+        T = 0
+    elif case == "T_past_table":
+        T = 17
+    elif case == "keys_strided":
+        keys = torch.arange(16, dtype=torch.int64)[::2]
+    return keys, kv, table, T
+
+
+@pytest.mark.parametrize("case,match", [
+    ("keys_int32", "int64"), ("kv_uint8", "bool"), ("kv_short", "bool"),
+    ("table_int64", "int32"), ("table_rows_of_3", "int32"),
+    ("T_zero", "T must"), ("T_past_table", "T must"), ("cpu", "CUDA"),
+    ("keys_strided", "contiguous")])
+def test_join_probe_kernel_refuses_what_it_does_not_take(monkeypatch, case,
+                                                         match):
+    """``probe_ranges_cuda`` checks its arguments before it loads
+    csrc/join_probe.cu or launches: the wrong dtype, shape or table slots,
+    and CPU tensors, raise with what was wrong."""
+    from gandiva_tpu_torch.ops.kernels import join_probe
+
+    def refuse(*_args, **_kwargs):
+        raise AssertionError("the probe kernel's library was loaded")
+
+    monkeypatch.setattr(join_probe, "library", refuse)
+    with pytest.raises(ValueError, match=match):
+        join_probe.probe_ranges_cuda(*_probe_kernel_args(case))
+
+
+@pytest.mark.parametrize("route,rows,sites", [
+    ("dense", NP, {"walk"}),
+    # 2^22 rows of 3,500 uniform keys: the hot-key tier holds 128 of them,
+    # so the cold tier overflows and the full-width walk runs
+    ("hot", 1 << 22, {"probe_capacity", "walk"})])
+def test_cpu_probe_takes_the_plain_chain(monkeypatch, route, rows, sites):
+    """CPU tensors take the reference's chain (``_probe_ranges_table``,
+    with its 2^22-row rule, tiers and sync sites): ``probe_chunk`` loads no
+    kernel library, launches no probe kernel, counts no ``kernel_rows`` on
+    its ``gt.join.probe`` span, and its (start, len) are the chain's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gandiva_tpu_torch import tracing
+    from gandiva_tpu_torch.ops.kernels import build, join_probe
+
+    def refuse(*_args, **_kwargs):
+        raise AssertionError("a probe on CPU tensors loaded a kernel library")
+
+    monkeypatch.setattr(join_probe, "library", refuse)
+    monkeypatch.setattr(build, "load", refuse)
+    rng = np.random.default_rng(29)
+    build_keys = rng.integers(0, 3000, NB)
+    probe = rng.integers(0, 3500, rows)
+    valid = rng.random(rows) >= 0.05
+    jt = t_hj.build_join_table(_t(build_keys))
+    seen = []
+    chain = t_hj._probe_ranges_table
+
+    def spy(*args, **kwargs):
+        out = chain(*args, **kwargs)
+        seen.append(out)
+        return out
+
+    monkeypatch.setattr(t_hj, "_probe_ranges_table", spy)
+    reset_launches()
+    tracing.clear()
+    try:
+        with profile(activities=[ProfilerActivity.CPU]):
+            res = t_hj.probe_chunk(jt, _t(probe), None, "inner",
+                                   probe_valid=_t(valid))
+        spans = tracing.spans()
+    finally:
+        tracing.clear()
+    assert LAUNCHES["join_probe"] == 0
+    probes = [s for s in spans if s.name == "gt.join.probe"]
+    assert [s.counters for s in probes] == [{}]
+    waits = {s.name[len("gt.sync."):] for s in spans
+             if s.name.startswith("gt.sync.")}
+    assert sites <= waits
+    (start, ln, diag), = seen
+    assert (int(diag["fallback_rows"]) > 0) == (route == "hot")
+    dense = t_hj._probe_ranges_dense(jt.table, NB,
+                                     t_sort.normalize_key(_t(probe)),
+                                     _t(valid))
+    assert torch.equal(start[_t(valid)], dense[0][_t(valid)])
+    assert torch.equal(ln[_t(valid)], dense[1][_t(valid)])
+    assert int(res.count) == int(torch.where(_t(valid), ln, 0).sum())
+
+
 @pytest.mark.parametrize("with_perm", [False, True])
 @pytest.mark.parametrize("unique", [False, True])
 def test_build_ranges_table_matches_reference(with_perm, unique):

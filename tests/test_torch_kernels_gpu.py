@@ -822,8 +822,10 @@ def test_sort_columns_on_card_matches_cpu():
 
 
 # ---------------------------------------------------------------------------
-# The join (slice E) on the card: K4 and K3 sort the build side, K2 compacts
-# the probe's residues; the same join on the CPU takes their plain versions
+# The join (slice E) on the card: K4 and K3 sort the build side, the join
+# build's kernels place the table and the probe kernel resolves every probe
+# row; the same join on the CPU takes the plain chains (K2's plain version
+# compacts the probe's residues there)
 # ---------------------------------------------------------------------------
 
 def _join_both(fn, arrays):
@@ -852,8 +854,9 @@ def _same_join(got, want):
 @pytest.mark.parametrize("how", ["inner", "left", "right", "full", "semi",
                                  "anti"])
 def test_join_on_card_matches_cpu(how):
-    """The dense probe: 100,003 probe rows × 30,011 build rows with
-    duplicates and 10% null keys on both sides."""
+    """100,003 probe rows × 30,011 build rows with duplicates and 10% null
+    keys on both sides: the probe kernel on the card (one launch, no K2),
+    the dense chain on the CPU."""
     import numpy as np
 
     from gandiva_tpu_torch.ops import join
@@ -866,13 +869,13 @@ def test_join_on_card_matches_cpu(how):
         lambda p, b, pv, bv: join(p, b, 400_000, how, probe_valid=pv,
                                   build_valid=bv), arrays)
     _same_join(got, want)
-    assert launched["compact_fragnet"] >= 1
+    assert launched["join_probe"] == 1 and launched["compact_fragnet"] == 0
     assert launched["sort_block"] == 2 and launched["merge_path"] >= 2
 
 
 def test_join_hot_path_on_card_matches_cpu():
-    """The hot-key probe (≥ 2^22 rows): Zipf(1.3) probe keys, so the cold
-    rows and their second tier go through K2."""
+    """A probe of ≥ 2^22 rows of Zipf(1.3) keys: the CPU takes the hot-key
+    tiers, the card the probe kernel in one launch, with no compaction."""
     import numpy as np
 
     from gandiva_tpu_torch.ops import join
@@ -884,7 +887,7 @@ def test_join_hot_path_on_card_matches_cpu():
     got, want, launched = _join_both(
         lambda p, b: join(p, b, 16 * n, "inner"), arrays)
     _same_join(got, want)
-    assert launched["compact_fragnet"] == 2
+    assert launched["join_probe"] == 1 and launched["compact_fragnet"] == 0
 
 
 @pytest.mark.parametrize("dups", [0, 5_000])
@@ -932,7 +935,7 @@ def test_join_multi_and_stream_on_card_match_cpu():
     for i in range(3):
         _same_join(type(want[0])(*(f[i] for f in got[0])),
                    type(want[0])(*(f[i] for f in want[0])))
-    assert launched["compact_fragnet"] >= 3
+    assert launched["join_probe"] == 3
 
 
 # The join build's run detection and placement (csrc/join_build.cu) against
@@ -1068,6 +1071,168 @@ def test_join_build_kernels_join_and_probe_match_cpu():
     assert bool(got[0].all_unique) == bool(want[0].all_unique)
     _same_join(got[1], want[1])
     assert launched["join_build"] == 2
+
+
+# The join probe (csrc/join_probe.cu) against the reference's chains on the
+# card, on the same table: (start, len) equal _probe_ranges_dense's on every
+# row and _probe_ranges_hot's on every row in probe_kv. Uniform keys at
+# 2^22 + 1 rows (where the CPU takes the hot-key tiers); Zipf(1.3); the
+# four-card cell's builds, whose homes are all ≡ 0 (mod 4), at its load;
+# every key absent; null and non-existing rows; one home for every build
+# key, so the chain runs on into the slack tail; int32, uint64 and float64
+# keys; an empty probe.
+_PROBE_CASES = ["uniform", "zipf", "homes_mod_4", "absent", "nulls_exists",
+                "one_home", "int32", "uint64", "float64", "empty"]
+
+
+def _probe_case(case, rng):
+    """(build keys, probe keys, probe_kv, home slots T or None): numpy
+    arrays; with T, the build keys are unique and sorted, and the table is
+    placed at that T directly, else ``build_join_table`` sizes it."""
+    import numpy as np
+
+    from gandiva_tpu_torch.utils.hashing import hash32
+
+    T = None
+    if case == "uniform":
+        build = rng.permutation(1 << 21)[:1_500_000]
+        probe = rng.integers(0, 1 << 21, (1 << 22) + 1)
+    elif case == "zipf":
+        build = rng.integers(0, 100_000, 200_003)
+        probe = (rng.zipf(1.3, (1 << 22) + 37) % 100_000).astype(np.int64)
+    elif case == "homes_mod_4":
+        # 11.25M keys in 2^26 slots a card: a load of 0.67 on the homes
+        # ≡ 0 (mod 4), the only ones a card's keys have
+        cand = torch.arange(1, 2_812_501)
+        build = cand[hash32(cand) % 4 == 0].numpy()
+        T = 1 << 22
+        probe = np.concatenate([rng.choice(build, 3_000_000),
+                                rng.integers(1, 2_812_501, 1_000_000)])
+    elif case == "absent":
+        build = rng.integers(0, 1 << 30, 100_003)
+        probe = rng.integers(1 << 31, 1 << 40, 500_000)
+    elif case == "nulls_exists":
+        build = rng.integers(0, 50_000, 100_003)
+        probe = rng.integers(0, 60_000, 1_000_003)
+    elif case == "one_home":
+        cand = torch.arange(0, 1 << 20)
+        same = cand[hash32(cand) % 64 == 5].numpy()
+        build = np.sort(same[:3000])
+        T = 64
+        probe = np.concatenate([build, same[3000:4000],
+                                rng.integers(0, 1 << 20, 4000)])
+    elif case == "int32":
+        build = rng.integers(-(1 << 31), 1 << 31, 100_003).astype(np.int32)
+        build[:500] = [-(1 << 31), (1 << 31) - 1, -1, 0, 1] * 100
+        probe = np.concatenate([rng.choice(build, 500_000),
+                                rng.integers(-(1 << 31), 1 << 31, 500_000)
+                                ]).astype(np.int32)
+    elif case == "uint64":
+        build = rng.integers(0, 1 << 63, 100_003, dtype=np.uint64) * 2
+        build[:3] = [0, (1 << 64) - 1, 1 << 63]
+        probe = np.concatenate([rng.choice(build, 500_000),
+                                rng.integers(0, 1 << 63, 500_000,
+                                             dtype=np.uint64)])
+    elif case == "float64":
+        build = np.round(rng.normal(0, 1e3, 100_003), 1)
+        build[:4] = [0.0, -0.0, np.nan, np.inf]
+        probe = np.concatenate([rng.choice(build, 500_000),
+                                np.round(rng.normal(0, 1e3, 500_000), 2),
+                                [-0.0, 0.0, np.nan, -np.inf]])
+    else:  # empty
+        build = rng.integers(0, 1000, 5000)
+        probe = np.zeros(0, dtype=np.int64)
+    kv = rng.random(probe.size) >= (0.25 if case == "nulls_exists" else 0.0)
+    return build, probe, kv, T
+
+
+@pytest.mark.parametrize("case", _PROBE_CASES)
+def test_join_probe_kernel_matches_plain(case):
+    import numpy as np
+
+    from gandiva_tpu_torch.ops import hash_join as hj
+    from gandiva_tpu_torch.ops.kernels.join_build import build_ranges_cuda
+    from gandiva_tpu_torch.ops.kernels.join_probe import probe_ranges_cuda
+    from gandiva_tpu_torch.ops.sort import _widen, normalize_key
+
+    dev = _card()
+    rng = np.random.default_rng(_PROBE_CASES.index(case) + 40)
+    build, probe, kv, T = _probe_case(case, rng)
+    if T is None:
+        table = hj.build_join_table(torch.from_numpy(build).to(dev)).table
+        nb = build.size
+        T = table.shape[0] - nb
+    else:
+        nb = build.size
+        sk64 = normalize_key(torch.from_numpy(build).to(dev))
+        table, _ = build_ranges_cuda(sk64, nb, None, T)
+    pk = normalize_key(torch.from_numpy(probe).to(dev))
+    pkv = torch.from_numpy(kv).to(dev)
+    reset_launches()
+    start, ln = probe_ranges_cuda(_widen(pk).contiguous(), pkv, table, T)
+    torch.cuda.synchronize()
+    assert LAUNCHES["join_probe"] == (1 if probe.size else 0)
+    assert start.shape == ln.shape == (probe.size,)
+    assert start.dtype == ln.dtype == torch.int32
+    if not probe.size:
+        return
+    d_start, d_ln, _ = hj._probe_ranges_dense(table, nb, pk, pkv)
+    assert torch.equal(start, d_start) and torch.equal(ln, d_ln)
+    h_start, h_ln, _ = hj._probe_ranges_hot(table, nb, pk, pkv, 128)
+    assert torch.equal(start[pkv], h_start[pkv])
+    assert torch.equal(ln[pkv], h_ln[pkv])
+    matched = int((ln > 0).sum())
+    if case == "absent":
+        assert matched == 0
+    else:
+        assert matched > 0
+    occupied = (table[:, 3] > 0).nonzero().flatten()
+    if case == "one_home":      # the chain runs on past slot T - 1
+        assert int(occupied.max()) >= T
+    elif case == "homes_mod_4":  # rows displaced off their homes ≡ 0 mod 4
+        assert bool((occupied % 4 != 0).any())
+
+
+def test_probe_chunk_on_card_launches_the_probe_kernel_once():
+    """probe_chunk on the card: one ``join_probe`` launch, its rows on the
+    ``gt.join.probe`` span's ``kernel_rows``, and none of the reference
+    chain's sync sites (no walk round, no capacity read), for a probe of
+    2^22 + 1 rows, where the CPU takes the hot-key tiers; the JoinResult
+    equals the CPU's."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from gandiva_tpu_torch import tracing
+    from gandiva_tpu_torch.ops import build_join_table, probe_chunk
+
+    dev = _card()
+    rng = np.random.default_rng(47)
+    n, nb = (1 << 22) + 1, 300_007
+    arrays = [rng.integers(0, 400_000, n), rng.integers(0, 400_000, nb),
+              rng.random(n) >= 0.1]
+
+    def run(p, b, pv):
+        return probe_chunk(build_join_table(b, how="left"), p, None, "left",
+                           probe_valid=pv)
+
+    got, want, launched = _join_both(run, arrays)
+    _same_join(got, want)
+    assert launched["join_probe"] == 1 and launched["compact_fragnet"] == 0
+    p, b, pv = (torch.from_numpy(a).to(dev) for a in arrays)
+    jt = build_join_table(b, how="left")
+    torch.cuda.synchronize()
+    tracing.clear()
+    try:
+        with profile(activities=[ProfilerActivity.CPU]):
+            probe_chunk(jt, p, None, "left", probe_valid=pv)
+        spans = tracing.spans()
+    finally:
+        tracing.clear()
+    probes = [s for s in spans if s.name == "gt.join.probe"]
+    assert [s.counters for s in probes] == [{"kernel_rows": n}]
+    names = {s.name for s in spans}
+    assert "gt.sync.walk" not in names
+    assert "gt.sync.probe_capacity" not in names
 
 
 # ---------------------------------------------------------------------------
