@@ -273,8 +273,6 @@ N_GENERIC = 10_000_000           # the generic group-by's hold (3000 keys)
 N_SORT = 100_000_000             # bench.py's configs[2] (bench.py:101-122)
 I64_MIN = -(1 << 63)
 N_HUGE = 1 << 28                 # 65,536 tiles: many more than are resident
-# K2 built with other staging budgets, timed beside the default (16 B)
-K2_VARIANTS = (("K2_STAGE_ROW_BYTES=8",), ("K2_STAGE_ROW_BYTES=48",))
 BACK_TO_BACK = 20
 N_JOIN = 100_000_000             # bench.py's configs[3] join (bench.py:236)
 JOIN_BUILD = 1 << 20             # bench.py's BENCH_BUILD_ROWS default
@@ -2922,14 +2920,12 @@ def main() -> int:
     sources = plan_sources(gt)
     with ThreadPoolExecutor(1) as pool:     # the plans' nvccs meanwhile
         plans_built = pool.submit(jit.build_all, sources)
-        build_logs = build.build_all(variants=[
-            ("compaction_fragnet", d) for d in K2_VARIANTS])
+        build_logs = build.build_all()
         plans_built.result()
     log(f"{len(sources)} generated plan sources built (the entry points' "
         f"plans and phase 26's emitter Projectors)")
     for name, text in build_logs.items():
-        source, _, defines = name.partition(" ")
-        log(f"-- csrc/{source}.cu {defines}")
+        log(f"-- csrc/{name}.cu")
         for line in ptxas_lines(text):
             log("   " + line)
     log(f"build {time.perf_counter() - t:.1f}s")
@@ -3824,15 +3820,6 @@ def main() -> int:
         t["rows"], t["survivors"] = mask.shape[0], survivors
         t["bytes"] = compaction_bytes(mask.shape[0], survivors, width)
         t["bound_ms"] = t["bytes"] / bw * 1e3
-        # the staging sweep: K2 built with other budgets of bytes a row a
-        # group may take, each held against the plain version first
-        t["k2_sweep_ms"] = {"16 B (default)": t["k2_ms"]}
-        want = k2.compact_fragnet_plain(mask, pay)
-        for defines in K2_VARIANTS:
-            hold(k2.launch(mask, pay, defines), want, f"K2 {defines[0]}")
-            t["k2_sweep_ms"][f"{defines[0].split('=')[1]} B"] = time_ms(
-                lambda d=defines: k2.launch(mask, pay, d), iters=iters)
-        del want
         log(json.dumps(t))
         return t
 

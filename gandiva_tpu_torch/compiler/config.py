@@ -12,22 +12,14 @@ installs ``jax.jit``; the nodes without an emitter stay eager around it.
 ``optimize=False`` evaluates every node eagerly, a torch call per
 registry function. Results are identical either way. On the CPU both run
 the eager route. Compiled plans are cached on disk under ``build/plans/``
-at the root of the checkout (``plan_cache_dir``), the counterpart of the
-JAX package's ``enable_persistent_cache``. ``dump_ir`` keeps a text dump
+at the root of the checkout (``ops/kernels/build.py``), the counterpart of
+the JAX package's ``enable_persistent_cache``. ``dump_ir`` keeps a text dump
 of the plan on the plan object (``.hlo`` / ``.llvm_ir``: the generated
 source of a compiled plan, the decomposed signatures of an eager one).
 """
 from __future__ import annotations
 
 import dataclasses
-from pathlib import Path
-
-
-def plan_cache_dir() -> Path:
-    """Where compiled plan libraries and their sources are kept, by the
-    hash of the source and the flags: ``build/plans/`` at the root of the
-    checkout."""
-    return Path(__file__).resolve().parents[2] / "build" / "plans"
 
 
 @dataclasses.dataclass(frozen=True)

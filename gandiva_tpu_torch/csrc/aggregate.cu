@@ -738,7 +738,7 @@ int gt_aggregate_max_values() { return kMaxValues; }
 
 int gt_aggregate_max_groups() { return kMaxGroups; }
 
-const char* gt_aggregate_error_string(int code) {
+const char* gt_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

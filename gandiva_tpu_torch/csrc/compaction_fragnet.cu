@@ -81,12 +81,8 @@ namespace {
 
 // Staged payload bytes a row of a tile, at most, per group: 4096 x (16 + 2)
 // B = 72 KB. One group holds the two flagship columns (8 + 1 B) or an int64
-// key with a 4-byte slot. Another budget (8 .. 48) is built only to measure
-// it, with -DK2_STAGE_ROW_BYTES=<bytes> (chip_smoke.py phase 14).
-#ifndef K2_STAGE_ROW_BYTES
-#define K2_STAGE_ROW_BYTES 16
-#endif
-constexpr int kStageRowBytes = K2_STAGE_ROW_BYTES;
+// key with a 4-byte slot.
+constexpr int kStageRowBytes = 16;
 static_assert(kStageRowBytes >= 8 && kStageRowBytes <= 48,
               "a group must hold one 8-byte column and fit a block's shared "
               "memory");

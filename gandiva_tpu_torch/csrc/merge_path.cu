@@ -316,7 +316,7 @@ int gt_merge_path_smem_limit() { return kSmemLimit; }
 
 int gt_merge_path_items() { return kItems; }
 
-const char* gt_merge_path_error_string(int code) {
+const char* gt_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

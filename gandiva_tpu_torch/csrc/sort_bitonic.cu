@@ -224,7 +224,7 @@ int gt_block_sort_smem_limit() { return kSmemLimit; }
 
 int gt_block_sort_items() { return kItems; }
 
-const char* gt_block_sort_error_string(int code) {
+const char* gt_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

@@ -2,12 +2,10 @@
 
 The port's own copy of gandiva_tpu's host runtime: a memory pool, the Arrow
 validity-bitmap codec, the SQL LIKE / ILIKE matcher over string
-dictionaries and FNV-1a-64 byte hashing. ``host_runtime.cpp`` is compiled on
-first use with ``g++ -O3 -std=c++17 -shared -fPIC`` into ``build/native/``
-at the root of the checkout (listed in ``.gitignore``), named by a hash of
-the source and the flags; the compiler writes a temporary file that is
-renamed into place, so processes building at once do not see a partial
-library.
+dictionaries and FNV-1a-64 byte hashing. ``host_runtime.cpp`` is compiled
+on first use by ``g++`` into ``build/native/`` at the root of the checkout,
+loaded and bound from ``_FUNCTIONS`` by ``ops/kernels/build.py``
+(``build.load_runtime``).
 
 There is no fallback: an entry point raises ``RuntimeError`` when the
 library cannot be built or loaded. ``available()`` reports whether it can.
@@ -18,94 +16,39 @@ The one other route is the caller's, not this module's: ``like_match`` and
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
-import threading
 from pathlib import Path
 from typing import Optional
 
 import numpy as np
 
+from ..ops.kernels import build
+
 _SRC = Path(__file__).resolve().parent / "host_runtime.cpp"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
-CXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
-
-_lib: Optional[ctypes.CDLL] = None
-_lock = threading.Lock()
-
-
-def library_path() -> Path:
-    h = hashlib.sha256(_SRC.read_bytes())
-    h.update(" ".join(CXX_FLAGS).encode())
-    return BUILD_DIR / f"libgandiva_tpu_torch_host-{h.hexdigest()[:16]}.so"
-
-
-def _build(out: Path) -> None:
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-    cmd = ["g++", *CXX_FLAGS, "-o", str(tmp), str(_SRC)]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True,
-                              timeout=300)
-    except (OSError, subprocess.SubprocessError) as e:
-        raise RuntimeError(f"cannot build {_SRC.name}: {e}") from e
-    if proc.returncode != 0:
-        raise RuntimeError(f"g++ failed for {_SRC.name}:\n{proc.stderr}")
-    os.replace(tmp, out)
+_VP, _I64 = ctypes.c_void_p, ctypes.c_int64
+_U8P = np.ctypeslib.ndpointer(dtype=np.uint8, flags="C_CONTIGUOUS")
+_I32P = np.ctypeslib.ndpointer(dtype=np.int32, flags="C_CONTIGUOUS")
+_U64P = np.ctypeslib.ndpointer(dtype=np.uint64, flags="C_CONTIGUOUS")
+_FUNCTIONS = {
+    "gt_pool_create": (_VP, []),
+    "gt_pool_destroy": (None, [_VP]),
+    "gt_pool_alloc": (_VP, [_VP, _I64, _I64]),
+    "gt_pool_free": (None, [_VP, _VP, _I64, _I64]),
+    "gt_pool_bytes_allocated": (_I64, [_VP]),
+    "gt_pool_peak_bytes": (_I64, [_VP]),
+    "gt_pool_num_allocs": (_I64, [_VP]),
+    "gt_unpack_bitmap": (None, [_VP, _I64, _I64, _U8P]),
+    "gt_pack_bitmap": (None, [_U8P, _I64, _U8P]),
+    "gt_like_match_many": (None, [_VP, _I32P, _I64, ctypes.c_char_p, _I64,
+                                  ctypes.c_uint8, ctypes.c_int32, _U8P]),
+    "gt_ilike_match_many": (None, [_VP, _I32P, _I64, ctypes.c_char_p, _I64,
+                                   _U8P]),
+    "gt_hash_bytes_many": (None, [_VP, _I32P, _I64, ctypes.c_uint64, _U64P])}
 
 
 def load() -> ctypes.CDLL:
     """The native library, built at first use; raises RuntimeError if it
     cannot be built or loaded."""
-    global _lib
-    if _lib is not None:
-        return _lib
-    with _lock:
-        if _lib is not None:
-            return _lib
-        path = library_path()
-        if not path.exists():
-            _build(path)
-        try:
-            lib = ctypes.CDLL(str(path))
-        except OSError as e:
-            raise RuntimeError(f"cannot load {path}: {e}") from e
-        lib.gt_pool_create.restype = ctypes.c_void_p
-        lib.gt_pool_create.argtypes = []
-        lib.gt_pool_destroy.restype = None
-        lib.gt_pool_destroy.argtypes = [ctypes.c_void_p]
-        lib.gt_pool_alloc.restype = ctypes.c_void_p
-        lib.gt_pool_alloc.argtypes = [ctypes.c_void_p, ctypes.c_int64,
-                                      ctypes.c_int64]
-        lib.gt_pool_free.restype = None
-        lib.gt_pool_free.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                                     ctypes.c_int64, ctypes.c_int64]
-        for f in ("gt_pool_bytes_allocated", "gt_pool_peak_bytes",
-                  "gt_pool_num_allocs"):
-            getattr(lib, f).restype = ctypes.c_int64
-            getattr(lib, f).argtypes = [ctypes.c_void_p]
-        u8p = np.ctypeslib.ndpointer(dtype=np.uint8, flags="C_CONTIGUOUS")
-        i32p = np.ctypeslib.ndpointer(dtype=np.int32, flags="C_CONTIGUOUS")
-        u64p = np.ctypeslib.ndpointer(dtype=np.uint64, flags="C_CONTIGUOUS")
-        lib.gt_unpack_bitmap.restype = None
-        lib.gt_unpack_bitmap.argtypes = [ctypes.c_void_p, ctypes.c_int64,
-                                         ctypes.c_int64, u8p]
-        lib.gt_pack_bitmap.restype = None
-        lib.gt_pack_bitmap.argtypes = [u8p, ctypes.c_int64, u8p]
-        lib.gt_like_match_many.restype = None
-        lib.gt_like_match_many.argtypes = [
-            ctypes.c_void_p, i32p, ctypes.c_int64, ctypes.c_char_p,
-            ctypes.c_int64, ctypes.c_uint8, ctypes.c_int32, u8p]
-        lib.gt_ilike_match_many.restype = None
-        lib.gt_ilike_match_many.argtypes = [
-            ctypes.c_void_p, i32p, ctypes.c_int64, ctypes.c_char_p,
-            ctypes.c_int64, u8p]
-        lib.gt_hash_bytes_many.restype = None
-        lib.gt_hash_bytes_many.argtypes = [
-            ctypes.c_void_p, i32p, ctypes.c_int64, ctypes.c_uint64, u64p]
-        _lib = lib
-        return _lib
+    return build.load_runtime(_SRC, _FUNCTIONS)
 
 
 def available() -> bool:

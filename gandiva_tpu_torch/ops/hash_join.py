@@ -597,20 +597,6 @@ def join_multi(probe_keys_list, build_keys_list, capacity: int,
                       cand.overflow | (total > C))
 
 
-def _hash_probe_ranges(pk_norm, sorted_norm, n_valid, probe_kv,
-                       perm=None, table_factor: int = 16):
-    """_build_ranges_table then _probe_ranges, for direct callers.
-    Returns (start, len, all_unique)."""
-    table, all_unique = _build_ranges_table(sorted_norm, n_valid, perm,
-                                            table_factor)
-    start, ln = _probe_ranges(table, sorted_norm.shape[0], pk_norm,
-                              probe_kv)
-    if perm is None:
-        all_unique = torch.zeros((), dtype=torch.bool,
-                                 device=all_unique.device)
-    return start, ln, all_unique
-
-
 def _table_size(nb: int, table_factor: int) -> int:
     """Slots before the slack tail. Small builds widen the factor (higher
     factors cut chain incidence and length); each slot is 4 × int32 =

@@ -42,6 +42,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from . import LAUNCHES, build
+from .build import INT, LL, VP, check
 
 MAX_VALUES = 4
 MAX_GROUPS = 1024
@@ -52,6 +53,16 @@ _I64_MAX = (1 << 63) - 1
 _I64_MIN = -(1 << 63)
 _NAN_MIN_KEY = 0x7FF8_0000_0000_0000   # above +inf
 _NAN_MAX_KEY = _I64_MIN + 1            # below -inf
+_FUNCTIONS = {
+    "gt_aggregate": (INT, [VP, VP, LL, INT, VP, VP, VP, VP, INT, VP, LL, VP,
+                           VP, VP, VP, VP]),
+    "gt_aggregate_scratch_bytes": (LL, [INT, INT]),
+    "gt_aggregate_copies": (INT, [INT, INT]),
+    "gt_aggregate_warps": (INT, []),
+    "gt_aggregate_max_values": (INT, []),
+    "gt_aggregate_max_groups": (INT, [])}
+_EXPECT = {"gt_aggregate_max_values": MAX_VALUES,
+           "gt_aggregate_max_groups": MAX_GROUPS}
 
 
 class ValueColumn(NamedTuple):
@@ -152,27 +163,7 @@ def _outputs(gcap: int, ncols: int, dev):
 
 
 def _lib() -> ctypes.CDLL:
-    lib = build.load("aggregate")
-    if not getattr(lib, "_gt_typed", False):
-        vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.gt_aggregate.argtypes = [vp, vp, ll, ci, vp, vp, vp, vp, ci, vp,
-                                     ll, vp, vp, vp, vp, vp]
-        lib.gt_aggregate.restype = ci
-        lib.gt_aggregate_scratch_bytes.argtypes = [ci, ci]
-        lib.gt_aggregate_scratch_bytes.restype = ll
-        lib.gt_aggregate_copies.argtypes = [ci, ci]
-        lib.gt_aggregate_copies.restype = ci
-        lib.gt_aggregate_warps.restype = ci
-        lib.gt_aggregate_max_values.restype = ci
-        lib.gt_aggregate_max_groups.restype = ci
-        lib.gt_aggregate_error_string.argtypes = [ci]
-        lib.gt_aggregate_error_string.restype = ctypes.c_char_p
-        if lib.gt_aggregate_max_values() != MAX_VALUES or \
-                lib.gt_aggregate_max_groups() != MAX_GROUPS:
-            raise RuntimeError("csrc/aggregate.cu disagrees on MAX_VALUES or "
-                               "MAX_GROUPS")
-        lib._gt_typed = True
-    return lib
+    return build.load("aggregate", _FUNCTIONS, _EXPECT)
 
 
 def accumulator_copies(gcap: int, ncols: int) -> Tuple[int, bool]:
@@ -217,7 +208,7 @@ def aggregate_cuda(keys: torch.Tensor, code: Optional[torch.Tensor],
                 *[_WANT_SUM * c.want_sum + _WANT_MINMAX * c.want_minmax
                   for c in group])
             # the same keys, count and count_all are written by every launch
-            _check(lib, lib.gt_aggregate(
+            check(lib, lib.gt_aggregate(
                 keys.data_ptr(), None if code is None else code.data_ptr(),
                 keys.shape[0], k, ctypes.cast(data, ctypes.c_void_p),
                 ctypes.cast(valids, ctypes.c_void_p),
@@ -225,16 +216,10 @@ def aggregate_cuda(keys: torch.Tensor, code: Optional[torch.Tensor],
                 ctypes.cast(flags, ctypes.c_void_p), gcap,
                 scratch.data_ptr(), nbytes, out_keys.data_ptr(),
                 meta.data_ptr(), count_all.data_ptr(),
-                acc[g:g + k].data_ptr() if k else None, stream))
+                acc[g:g + k].data_ptr() if k else None, stream),
+                "gt_aggregate")
             LAUNCHES["aggregate"] += 1
     return AggResult(out_keys, meta[0], meta[1] != 0, count_all, acc)
-
-
-def _check(lib, code: int) -> None:
-    if code != 0:
-        raise RuntimeError(f"gt_aggregate failed: "
-                           f"{lib.gt_aggregate_error_string(code).decode()} "
-                           f"({code})")
 
 
 def aggregate_plain(keys: torch.Tensor, code: Optional[torch.Tensor],

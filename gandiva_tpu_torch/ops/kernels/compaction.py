@@ -35,37 +35,22 @@ import torch
 
 from ... import tracing
 from . import LAUNCHES, build
+from .build import INT, LL, VP, check
 
 MAX_PAYLOADS = 8
 _WIDTHS = (1, 2, 4, 8)
+_FUNCTIONS = {
+    "gt_compact_count": (INT, [VP, LL, VP, VP]),
+    "gt_compact_scatter": (INT, [VP, LL, VP, VP, VP, INT, VP, VP, VP, VP]),
+    "gt_compact_scatter_shape": (INT, [INT, VP, VP]),
+    "gt_compact_tile_rows": (INT, []),
+    "gt_compact_max_payloads": (INT, [])}
+_EXPECT = {"gt_compact_max_payloads": MAX_PAYLOADS}
 
 
 def _lib() -> ctypes.CDLL:
     """K1's kernel library, built at first use."""
-    lib = build.load("compaction")
-    if not getattr(lib, "_gt_typed", False):
-        vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.gt_compact_count.argtypes = [vp, ll, vp, vp]
-        lib.gt_compact_count.restype = ci
-        lib.gt_compact_scatter.argtypes = [vp, ll, vp, vp, vp, ci, vp, vp,
-                                           vp, vp]
-        lib.gt_compact_scatter.restype = ci
-        lib.gt_compact_scatter_shape.argtypes = [ci, vp, vp]
-        lib.gt_compact_scatter_shape.restype = ci
-        lib.gt_compact_tile_rows.restype = ci
-        lib.gt_compact_max_payloads.restype = ci
-        lib.gt_error_string.argtypes = [ci]
-        lib.gt_error_string.restype = ctypes.c_char_p
-        if lib.gt_compact_max_payloads() != MAX_PAYLOADS:
-            raise RuntimeError("csrc/compaction.cu disagrees on MAX_PAYLOADS")
-        lib._gt_typed = True
-    return lib
-
-
-def _check(lib, code: int, what: str) -> None:
-    if code != 0:
-        raise RuntimeError(
-            f"{what} failed: {lib.gt_error_string(code).decode()} ({code})")
+    return build.load("compaction", _FUNCTIONS, _EXPECT)
 
 
 def _validate(mask: torch.Tensor, columns: Sequence[torch.Tensor]) -> None:
@@ -112,9 +97,9 @@ def tile_counts(mask: torch.Tensor) -> torch.Tensor:
                          dtype=torch.int32, device=mask.device)
     with torch.cuda.device(mask.device):
         stream = torch.cuda.current_stream(mask.device).cuda_stream
-        _check(lib, lib.gt_compact_count(mask.data_ptr(), n,
-                                         counts.data_ptr(), stream),
-               "gt_compact_count")
+        check(lib, lib.gt_compact_count(mask.data_ptr(), n,
+                                        counts.data_ptr(), stream),
+              "gt_compact_count")
     return counts
 
 
@@ -135,7 +120,7 @@ def scatter(mask: torch.Tensor, counts: torch.Tensor,
         stream = torch.cuda.current_stream(mask.device).cuda_stream
         for g in range(0, max(len(columns), 1), MAX_PAYLOADS):
             group = range(g, min(g + MAX_PAYLOADS, len(columns)))
-            _check(lib, lib.gt_compact_scatter(
+            check(lib, lib.gt_compact_scatter(
                 mask.data_ptr(), n, counts.data_ptr(),
                 indices.data_ptr() if g == 0 else None,
                 count.data_ptr() if g == 0 else None, len(group),
@@ -154,8 +139,8 @@ def scatter_shape(columns: Sequence[torch.Tensor]) -> Tuple[int, int, int]:
     widths = (ctypes.c_int * MAX_PAYLOADS)(
         *[columns[i].element_size() for i in group])
     shape = (ctypes.c_int * 3)()
-    _check(lib, lib.gt_compact_scatter_shape(len(group), widths, shape),
-           "gt_compact_scatter_shape")
+    check(lib, lib.gt_compact_scatter_shape(len(group), widths, shape),
+          "gt_compact_scatter_shape")
     return shape[0], shape[1], shape[2]
 
 

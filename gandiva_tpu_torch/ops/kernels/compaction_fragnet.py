@@ -37,44 +37,27 @@ import torch
 
 from ...utils.ints import signed_view
 from . import LAUNCHES, build
-from .compaction import MAX_PAYLOADS, _check, _validate, payload_group
+from .build import INT, LL, VP, check
+from .compaction import MAX_PAYLOADS, _validate, payload_group
+
+_FUNCTIONS = {
+    "gt_fragnet_compact": (INT, [VP, LL, VP, VP, VP, VP, INT, VP, VP, VP,
+                                 VP]),
+    "gt_fragnet_scatter": (INT, [VP, LL, VP, INT, VP, VP, VP, VP]),
+    "gt_fragnet_tile_rows": (INT, []),
+    "gt_fragnet_max_payloads": (INT, [])}
+_EXPECT = {"gt_fragnet_max_payloads": MAX_PAYLOADS}
 
 
-def library(defines: Sequence[str] = ()) -> ctypes.CDLL:
-    """K2's kernel library, built at first use; ``defines`` (``NAME=value``
-    for nvcc's -D) select a build other than the one the wrapper launches,
-    so a measurement can time another staging budget."""
-    lib = build.load("compaction_fragnet", defines)
-    if not getattr(lib, "_gt_typed", False):
-        vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.gt_fragnet_compact.argtypes = [vp, ll, vp, vp, vp, vp, ci, vp, vp,
-                                           vp, vp]
-        lib.gt_fragnet_compact.restype = ci
-        lib.gt_fragnet_scatter.argtypes = [vp, ll, vp, ci, vp, vp, vp, vp]
-        lib.gt_fragnet_scatter.restype = ci
-        lib.gt_fragnet_tile_rows.restype = ci
-        lib.gt_fragnet_max_payloads.restype = ci
-        lib.gt_error_string.argtypes = [ci]
-        lib.gt_error_string.restype = ctypes.c_char_p
-        if lib.gt_fragnet_max_payloads() != MAX_PAYLOADS:
-            raise RuntimeError("csrc/compaction_fragnet.cu disagrees on "
-                               "MAX_PAYLOADS")
-        lib._gt_typed = True
-    return lib
+def library() -> ctypes.CDLL:
+    """K2's kernel library, built at first use."""
+    return build.load("compaction_fragnet", _FUNCTIONS, _EXPECT)
 
 
 def compact_fragnet_cuda(mask: torch.Tensor, columns: Sequence[torch.Tensor]
                          ) -> Tuple[torch.Tensor, List[torch.Tensor],
                                     torch.Tensor]:
     """Launch K2 on ``mask``'s card: (indices, packed columns, count)."""
-    return launch(mask, columns, ())
-
-
-def launch(mask: torch.Tensor, columns: Sequence[torch.Tensor],
-           defines: Sequence[str]
-           ) -> Tuple[torch.Tensor, List[torch.Tensor], torch.Tensor]:
-    """``compact_fragnet_cuda`` through K2 built with ``defines``
-    (``library``)."""
     if mask.device.type != "cuda":
         raise ValueError(f"compact_fragnet_cuda takes CUDA tensors, got "
                          f"{mask.device}")
@@ -85,7 +68,7 @@ def launch(mask: torch.Tensor, columns: Sequence[torch.Tensor],
     outs = [torch.empty_like(c) for c in columns]
     if n == 0:
         return indices, outs, torch.zeros((), dtype=torch.int32, device=dev)
-    lib = library(defines)
+    lib = library()
     tiles = -(-n // lib.gt_fragnet_tile_rows())
     status = torch.zeros(tiles + 1, dtype=torch.int64, device=dev)
     count = torch.empty((), dtype=torch.int32, device=dev)
@@ -95,7 +78,7 @@ def launch(mask: torch.Tensor, columns: Sequence[torch.Tensor],
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         first = range(min(len(columns), MAX_PAYLOADS))
-        _check(lib, lib.gt_fragnet_compact(
+        check(lib, lib.gt_fragnet_compact(
             mask.data_ptr(), n, status.data_ptr(),
             tile_counts.data_ptr() if more else None, count.data_ptr(),
             indices.data_ptr(), len(first),
@@ -104,7 +87,7 @@ def launch(mask: torch.Tensor, columns: Sequence[torch.Tensor],
         LAUNCHES["compact_fragnet"] += 1
         for g in range(MAX_PAYLOADS, len(columns), MAX_PAYLOADS):
             group = range(g, min(g + MAX_PAYLOADS, len(columns)))
-            _check(lib, lib.gt_fragnet_scatter(
+            check(lib, lib.gt_fragnet_scatter(
                 mask.data_ptr(), n, tile_counts.data_ptr(), len(group),
                 *payload_group(columns, outs, group), stream),
                 "gt_fragnet_scatter")

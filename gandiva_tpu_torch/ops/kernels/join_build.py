@@ -36,27 +36,20 @@ from typing import Optional, Tuple
 import torch
 
 from . import LAUNCHES, build
-from .compaction import _check
+from .build import INT, LL, VP, check
 from .merge_path import merge_sort
 
 _MAX_ROWS = (1 << 31) - 1       # the rows hold positions in int32
+_FUNCTIONS = {
+    "gt_join_detect": (INT, [VP, LL, VP, LL, VP, LL, LL, VP, VP, VP, VP,
+                             VP]),
+    "gt_join_place": (INT, [VP, VP, LL, LL, VP, VP, VP, VP]),
+    "gt_join_build_tile_rows": (INT, [])}
 
 
 def library() -> ctypes.CDLL:
     """The join build's kernel library, built at first use."""
-    lib = build.load("join_build")
-    if not getattr(lib, "_gt_typed", False):
-        vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.gt_join_detect.argtypes = [vp, ll, vp, ll, vp, ll, ll, vp, vp,
-                                       vp, vp, vp]
-        lib.gt_join_detect.restype = ci
-        lib.gt_join_place.argtypes = [vp, vp, ll, ll, vp, vp, vp, vp]
-        lib.gt_join_place.restype = ci
-        lib.gt_join_build_tile_rows.restype = ci
-        lib.gt_error_string.argtypes = [ci]
-        lib.gt_error_string.restype = ctypes.c_char_p
-        lib._gt_typed = True
-    return lib
+    return build.load("join_build", _FUNCTIONS)
 
 
 def build_ranges_cuda(sk64: torch.Tensor, n_valid,
@@ -95,7 +88,7 @@ def build_ranges_cuda(sk64: torch.Tensor, n_valid,
     all_unique = torch.empty((), dtype=torch.bool, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        _check(lib, lib.gt_join_detect(
+        check(lib, lib.gt_join_detect(
             sk64.data_ptr(), nb, nv_ptr, nv_value,
             perm.data_ptr() if perm is not None else None, T, T_tot,
             status.data_ptr(), rows.data_ptr(), homes.data_ptr(),
@@ -103,7 +96,7 @@ def build_ranges_cuda(sk64: torch.Tensor, n_valid,
         LAUNCHES["join_build"] += 1
         # the home words are the norms the sort takes: its stable order
         order, homes_sorted = merge_sort([homes])
-        _check(lib, lib.gt_join_place(
+        check(lib, lib.gt_join_place(
             homes_sorted[0].data_ptr(), order.data_ptr(), nb, T_tot,
             rows.data_ptr(), table.data_ptr(), status.data_ptr(), stream),
             "gt_join_place")

@@ -34,20 +34,14 @@ from typing import Tuple
 import torch
 
 from . import LAUNCHES, build
-from .compaction import _check
+from .build import INT, LL, VP, check
+
+_FUNCTIONS = {"gt_join_probe": (INT, [VP, VP, LL, VP, LL, LL, VP, VP, VP])}
 
 
 def library() -> ctypes.CDLL:
     """The join probe's kernel library, built at first use."""
-    lib = build.load("join_probe")
-    if not getattr(lib, "_gt_typed", False):
-        vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.gt_join_probe.argtypes = [vp, vp, ll, vp, ll, ll, vp, vp, vp]
-        lib.gt_join_probe.restype = ci
-        lib.gt_error_string.argtypes = [ci]
-        lib.gt_error_string.restype = ctypes.c_char_p
-        lib._gt_typed = True
-    return lib
+    return build.load("join_probe", _FUNCTIONS)
 
 
 def _validate(pk64: torch.Tensor, probe_kv: torch.Tensor,
@@ -92,7 +86,7 @@ def probe_ranges_cuda(pk64: torch.Tensor, probe_kv: torch.Tensor,
     lib = library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        _check(lib, lib.gt_join_probe(
+        check(lib, lib.gt_join_probe(
             pk64.data_ptr(), probe_kv.data_ptr(), n, table.data_ptr(), T,
             table.shape[0], start.data_ptr(), ln.data_ptr(), stream),
             "gt_join_probe")

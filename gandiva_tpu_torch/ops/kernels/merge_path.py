@@ -40,6 +40,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from . import LAUNCHES, build
+from .build import INT, LL, VP, check
 from .sort_bitonic import (DEFAULT_W_LOG2, MIN_W_LOG2, SMEM_BYTES,
                            block_sort, segment_sort_plain, tile_log2,
                            validate_words)
@@ -48,6 +49,13 @@ Pair = Tuple[torch.Tensor, torch.Tensor]
 
 MERGE_T_LOG2 = 12           # T = 4096 outputs a K3 CTA, at most
 MERGE_ITEMS = 8             # outputs a K3 thread merges
+_FUNCTIONS = {
+    "gt_merge_round": (INT, [VP, VP, LL, INT, LL, INT, VP, VP, VP, VP]),
+    "gt_merge_partition": (INT, [VP, LL, INT, LL, INT, VP, VP]),
+    "gt_merge_path_smem_limit": (INT, []),
+    "gt_merge_path_items": (INT, [])}
+_EXPECT = {"gt_merge_path_smem_limit": SMEM_BYTES,
+           "gt_merge_path_items": MERGE_ITEMS}
 
 
 def merge_smem(num_words: int, t_log2: int) -> int:
@@ -112,31 +120,7 @@ def _outputs(words: torch.Tensor, idx: torch.Tensor,
 
 
 def _lib() -> ctypes.CDLL:
-    lib = build.load("merge_path")
-    if not getattr(lib, "_gt_typed", False):
-        vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.gt_merge_round.argtypes = [vp, vp, ll, ci, ll, ci, vp, vp, vp,
-                                       vp]
-        lib.gt_merge_round.restype = ci
-        lib.gt_merge_partition.argtypes = [vp, ll, ci, ll, ci, vp, vp]
-        lib.gt_merge_partition.restype = ci
-        lib.gt_merge_path_smem_limit.restype = ci
-        lib.gt_merge_path_items.restype = ci
-        lib.gt_merge_path_error_string.argtypes = [ci]
-        lib.gt_merge_path_error_string.restype = ctypes.c_char_p
-        if (lib.gt_merge_path_smem_limit(), lib.gt_merge_path_items()) \
-                != (SMEM_BYTES, MERGE_ITEMS):
-            raise RuntimeError("csrc/merge_path.cu disagrees on SMEM_BYTES "
-                               "or MERGE_ITEMS")
-        lib._gt_typed = True
-    return lib
-
-
-def _check(lib, code: int, what: str) -> None:
-    if code != 0:
-        raise RuntimeError(
-            f"{what} failed: {lib.gt_merge_path_error_string(code).decode()} "
-            f"({code})")
+    return build.load("merge_path", _FUNCTIONS, _EXPECT)
 
 
 def _splits(words: torch.Tensor, run: int) -> Tuple[int, torch.Tensor]:
@@ -166,7 +150,7 @@ def merge_round_cuda(words: torch.Tensor, idx: torch.Tensor, run: int,
     dev = words.device
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        _check(lib, lib.gt_merge_round(
+        check(lib, lib.gt_merge_round(
             words.data_ptr(), idx.data_ptr(), n, k, run, t_log2,
             splits.data_ptr(), ow.data_ptr(), oi.data_ptr(), stream),
             "gt_merge_round")
@@ -189,7 +173,7 @@ def merge_splits_cuda(words: torch.Tensor, run: int) -> torch.Tensor:
     dev = words.device
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        _check(lib, lib.gt_merge_partition(
+        check(lib, lib.gt_merge_partition(
             words.data_ptr(), words.shape[1], words.shape[0], run, t_log2,
             splits.data_ptr(), stream), "gt_merge_partition")
     return splits

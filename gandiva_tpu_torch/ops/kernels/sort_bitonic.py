@@ -32,6 +32,7 @@ from typing import Tuple
 import torch
 
 from . import LAUNCHES, build
+from .build import INT, LL, VP, check
 
 SMEM_BYTES = 232_448        # dynamic shared memory one Hopper block may use
 ITEMS = 16                  # rows a K4 thread holds in registers
@@ -39,6 +40,11 @@ DEFAULT_W_LOG2 = 13         # W = 8192 rows, halved until a tile fits
 MIN_W_LOG2 = 6
 MAX_W_LOG2 = 14             # ITEMS · 1024 threads
 I64_MIN = -(1 << 63)
+_FUNCTIONS = {"gt_block_sort": (INT, [VP, LL, INT, INT, VP, VP, VP]),
+              "gt_block_sort_smem_limit": (INT, []),
+              "gt_block_sort_items": (INT, [])}
+_EXPECT = {"gt_block_sort_smem_limit": SMEM_BYTES,
+           "gt_block_sort_items": ITEMS}
 
 
 def tile_smem(num_words: int, w_log2: int) -> int:
@@ -79,21 +85,7 @@ def validate_words(words: torch.Tensor, w_log2: int) -> None:
 
 
 def _lib() -> ctypes.CDLL:
-    lib = build.load("sort_bitonic")
-    if not getattr(lib, "_gt_typed", False):
-        vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.gt_block_sort.argtypes = [vp, ll, ci, ci, vp, vp, vp]
-        lib.gt_block_sort.restype = ci
-        lib.gt_block_sort_smem_limit.restype = ci
-        lib.gt_block_sort_items.restype = ci
-        lib.gt_block_sort_error_string.argtypes = [ci]
-        lib.gt_block_sort_error_string.restype = ctypes.c_char_p
-        if (lib.gt_block_sort_smem_limit(), lib.gt_block_sort_items()) \
-                != (SMEM_BYTES, ITEMS):
-            raise RuntimeError("csrc/sort_bitonic.cu disagrees on SMEM_BYTES "
-                               "or ITEMS")
-        lib._gt_typed = True
-    return lib
+    return build.load("sort_bitonic", _FUNCTIONS, _EXPECT)
 
 
 def block_sort_cuda(words: torch.Tensor, w_log2: int
@@ -112,12 +104,9 @@ def block_sort_cuda(words: torch.Tensor, w_log2: int
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        code = lib.gt_block_sort(words.data_ptr(), n, k, w_log2,
-                                 out.data_ptr(), idx.data_ptr(), stream)
-        if code != 0:
-            raise RuntimeError(
-                f"gt_block_sort failed: "
-                f"{lib.gt_block_sort_error_string(code).decode()} ({code})")
+        check(lib, lib.gt_block_sort(words.data_ptr(), n, k, w_log2,
+                                     out.data_ptr(), idx.data_ptr(), stream),
+              "gt_block_sort")
         LAUNCHES["sort_block"] += 1
     return idx, out
 

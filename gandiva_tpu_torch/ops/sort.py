@@ -64,11 +64,6 @@ def _norm_float(values: torch.Tensor) -> torch.Tensor:
     return torch.where(bits < 0, ~bits, bits | sign)
 
 
-def _norm_f32(values: torch.Tensor) -> torch.Tensor:
-    """float32 → uint32 lane (as int32 bits), ordered as IEEE total order."""
-    return _norm_float(values)
-
-
 def normalize_key(values: torch.Tensor, ascending: bool = True
                   ) -> torch.Tensor:
     """Map a numeric column to unsigned lanes whose unsigned order equals

@@ -43,7 +43,6 @@ TEMPORAL = [dt.date32, dt.date64, dt.time32, dt.time64, dt.timestamp]
 ORDERED = NUMERIC + TEMPORAL          # types supporting <, > etc. natively
 EQ_ONLY_EXTRA = [dt.bool_]
 
-_INT64_MIN = -(1 << 63)
 _INT64_MAX = (1 << 63) - 1
 
 

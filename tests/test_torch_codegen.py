@@ -22,6 +22,7 @@ from gandiva_tpu.batch import Batch as GBatch, Column as GColumn
 from gandiva_tpu_torch import entrypoints as t_entry
 from gandiva_tpu_torch.compiler import codegen, jit
 from gandiva_tpu_torch.compiler import projector as t_projector
+from gandiva_tpu_torch.ops.kernels import build
 from gandiva_tpu_torch.registry import decimal_ops as t_dec
 
 from torch_differential import (CPU, assert_same_column, batches, column,
@@ -465,10 +466,10 @@ def test_source_is_deterministic():
         return codegen.generate([cond.root], mask_root=True).source
 
     assert source(500) == source(500)
-    assert jit.library_path(source(500)) == jit.library_path(source(500))
-    assert jit.library_path(source(500)) != jit.library_path(source(501))
-    assert (jit.library_path(source(500), "host")
-            != jit.library_path(source(500), "cuda"))
+    assert build.plan_path(source(500)) == build.plan_path(source(500))
+    assert build.plan_path(source(500)) != build.plan_path(source(501))
+    assert (build.plan_path(source(500), "host")
+            != build.plan_path(source(500), "cuda"))
     q1 = [t_entry.tpch_q1_scan(CPU)._roots for _ in range(2)]
     assert codegen.generate(q1[0], True).source == \
         codegen.generate(q1[1], True).source
@@ -619,17 +620,18 @@ def test_empty_batch():
 def test_failed_build_raises(monkeypatch):
     """A plan whose build fails raises at Make; nothing runs the eager
     route in its place."""
-    monkeypatch.setattr(jit, "_command", lambda backend: ["false"])
+    monkeypatch.setattr(build, "_PLAN", {"cuda": ("false", [], ".cu"),
+                                         "host": ("false", [], ".cpp")})
     B, dt = gt.TreeExprBuilder, gt.dtypes
     schema = dt.Schema([dt.Field("a", dt.int64)])
     cond = B.make_condition(B.make_function(
         "less_than", [B.make_field(schema.field("a")),
                       B.make_int64_literal(987_654_321)], dt.bool_))
-    with pytest.raises(RuntimeError, match="plan build failed"):
+    with pytest.raises(RuntimeError, match="false failed for .*libplan"):
         jit.host_build(gt.make_filter(schema, cond, use_cache=False,
                                       device=CPU))
     # on the card's route too: Make builds, and the failure propagates
     monkeypatch.setattr(t_projector, "resolve_device",
                         lambda d: torch.device("cuda", 0))
-    with pytest.raises(RuntimeError, match="plan build failed"):
+    with pytest.raises(RuntimeError, match="false failed for .*libplan"):
         gt.make_filter(schema, cond, use_cache=False)

@@ -347,19 +347,6 @@ def test_compact_fragnet_takes_plain_version_only_on_cpu():
                                           device="meta"))
 
 
-def test_kernel_variant_builds_have_their_own_library():
-    """A source built with -D defines goes to a library of its own, named by
-    the defines, and the plain build's library keeps its name."""
-    from gandiva_tpu_torch.ops.kernels import build
-
-    plain = build.library_path("compaction_fragnet")
-    assert build.library_path("compaction_fragnet", ()) == plain
-    eight = build.library_path("compaction_fragnet", ["K2_STAGE_ROW_BYTES=8"])
-    wide = build.library_path("compaction_fragnet", ["K2_STAGE_ROW_BYTES=48"])
-    assert len({plain, eight, wide}) == 3
-    assert all(p.parent == build.BUILD_DIR for p in (plain, eight, wide))
-
-
 def test_library_names_hash_only_the_headers_a_source_includes(
         tmp_path, monkeypatch):
     """A library's name follows its source and the headers that source

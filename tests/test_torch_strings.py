@@ -506,10 +506,11 @@ def test_memory_pool_accounts():
 
 def test_native_build_failure_raises(monkeypatch, tmp_path):
     """No quiet fallback: a library that cannot be built raises."""
-    monkeypatch.setattr(native, "_lib", None)
+    from gandiva_tpu_torch.ops.kernels import build
+
     monkeypatch.setattr(native, "_SRC", tmp_path / "missing.cpp")
     (tmp_path / "missing.cpp").write_text("this is not C++")
-    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(build, "RUNTIME_DIR", tmp_path / "build")
     with pytest.raises(RuntimeError, match="g\\+\\+ failed"):
         native.load()
     assert not native.available()
