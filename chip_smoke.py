@@ -2877,6 +2877,82 @@ def drive_join_probe(dev, bw: float, smi: str) -> dict:
     return report
 
 
+# -- phase 29: hot-key membership ------------------------------------------
+
+ORDERS_SF300_CARD = 112_500_000  # orders_customer_4chip's probe keys a card
+CUSTOMER_SF300_CARD = 11_250_000  # and its build keys
+KEY_TABLE_ITERS = 20
+
+
+def drive_key_table(dev, bw: float, smi: str) -> dict:
+    """Hot-key membership (csrc/key_table.cu) at the skew join's two calls
+    a query: orders_customer_pipeline's 15,000,000 probe and 1,500,000 build
+    keys, and a card of orders_customer_4chip's 112,500,000 and 11,250,000,
+    uniform over the customer keys, against a table of 64 entries (the
+    pipeline's num_hot) all invalid (uniform o_custkey finds no hot key) and
+    half valid. The flags are held bit for bit against the plain route on
+    the card (_is_in_table_plain); then the kernel's time (CUDA events)
+    beside its byte bound (9 B a key), the plain route's time (its host
+    read of the table included) and torch.isin's alone on the masked
+    table. Returns the times by size and table."""
+    from gandiva_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from gandiva_tpu_torch.ops.kernels.key_table import is_in_table_cuda
+    from gandiva_tpu_torch.parallel.ops import _is_in_table, _is_in_table_plain
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(29)
+    report = {}
+    for label, n, customers in (
+            ("orders_customer_pipeline probe", ORDERS_SF10, CUSTOMER_SF10),
+            ("orders_customer_pipeline build", CUSTOMER_SF10, CUSTOMER_SF10),
+            ("orders_customer_4chip card probe", ORDERS_SF300_CARD,
+             CUSTOMER_SF300),
+            ("orders_customer_4chip card build", CUSTOMER_SF300_CARD,
+             CUSTOMER_SF300)):
+        keys = torch.randint(1, customers + 1, (n,), generator=g, device=dev)
+        table = torch.randint(1, customers + 1, (64,), generator=g,
+                              device=dev)
+        for tv in ("all invalid", "half valid"):
+            valid = torch.arange(64, device=dev) < (0 if tv == "all invalid"
+                                                    else 32)
+            reset_launches()
+            got = _is_in_table(keys, table, valid)
+            want = _is_in_table_plain(keys, table, valid)
+            torch.cuda.synchronize()
+            if LAUNCHES["key_table"] != 1:
+                raise AssertionError(f"key table {label}, {tv}: "
+                                     f"_is_in_table launched the kernel "
+                                     f"{LAUNCHES['key_table']} times")
+            if not torch.equal(got, want):
+                raise AssertionError(f"key table {label}, {tv}: the "
+                                     f"kernel's flags differ from the plain "
+                                     f"route's")
+            members = int(got.sum())
+            masked = torch.where(valid, table,
+                                 table[int(torch.argmax(valid.int()))])
+            t = {"keys": n, "entries": 64, "valid": int(valid.sum()),
+                 "members": members,
+                 "ms": time_ms(lambda: is_in_table_cuda(keys, table, valid),
+                               iters=KEY_TABLE_ITERS),
+                 "plain_ms": time_ms(lambda: _is_in_table_plain(
+                     keys, table, valid), iters=3, warmup=1),
+                 "isin_ms": time_ms(lambda: torch.isin(keys, masked),
+                                    iters=3, warmup=1),
+                 "bytes": 9 * n}
+            t["bound_ms"] = t["bytes"] / bw * 1e3
+            log(f"key table {label}, {tv} ({smi}): {n} keys, {members} "
+                f"members: the kernel {t['ms']:.4f} ms, bound "
+                f"{t['bound_ms']:.4f} ms ({t['bound_ms'] / t['ms']:.1%}); "
+                f"the plain route {t['plain_ms']:.4f} ms, torch.isin "
+                f"{t['isin_ms']:.4f} ms")
+            report[f"{label}, {tv}"] = t
+            del got, want, masked
+        del keys, table
+        torch.cuda.empty_cache()
+    log(json.dumps({"key_table": {"card": smi, **report}}))
+    return report
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -4123,6 +4199,12 @@ def main() -> int:
           "times")
     join_probe = drive_join_probe(dev, bw, smi)["orders_customer_pipeline"]
 
+    # -- 29. hot-key membership -------------------------------------------
+    phase("hot-key membership's kernel against the plain route, and its "
+          "times")
+    key_table = drive_key_table(dev, bw, smi)[
+        "orders_customer_pipeline probe, all invalid"]
+
     # -- the kernels line, then the last line ----------------------------
     # each path's own count, read just after it ran; ``launches`` is the
     # count of the path that brought the kernel in
@@ -4273,6 +4355,25 @@ def main() -> int:
         "bound_ms": join_probe["bound_ms"],
         "bound_by": "bytes",
         "library_ms": None,
+    }, {
+        # replaces no Pallas kernel: the reference compares every key with
+        # every entry, which XLA fuses. ms is the kernel's time on
+        # orders_customer_pipeline's probe keys; plain_ms the plain route's
+        # there; library_ms torch.isin's on the masked table
+        "name": "key_table",
+        "route": "cuda",
+        "source": "gandiva_tpu_torch/csrc/key_table.cu",
+        "replaces": "gandiva_tpu/parallel/ops.py:242",
+        "launches": pipe_launches["key_table"],
+        "launches_by_path": {
+            "configs[4] pipeline": pipe_launches["key_table"]},
+        "matches_plain": True,
+        "max_abs_err": 0.0,
+        "ms": key_table["ms"],
+        "plain_ms": key_table["plain_ms"],
+        "bound_ms": key_table["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": key_table["isin_ms"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}), flush=True)

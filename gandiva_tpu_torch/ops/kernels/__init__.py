@@ -13,14 +13,16 @@ counts the plan compiler's generated kernels (compiler/jit.py), one per
 launch: one per evaluation of a one-stage plan. ``join_build`` counts the
 join build's run detection and placement (csrc/join_build.cu): two per
 build on the card. ``join_probe`` counts the join probe (csrc/join_probe.cu):
-one per probe of at least one row on the card.
+one per probe of at least one row on the card. ``key_table`` counts the
+key-table membership (csrc/key_table.cu): one per call of at least one key
+on the card, two per query of the skew join on each held partition.
 """
 from typing import Dict
 
 LAUNCHES: Dict[str, int] = {"compact": 0, "compact_fragnet": 0,
                             "aggregate": 0, "sort_block": 0, "merge_path": 0,
                             "plan": 0, "join_build": 0,
-                            "join_probe": 0}
+                            "join_probe": 0, "key_table": 0}
 
 
 def reset_launches() -> None:

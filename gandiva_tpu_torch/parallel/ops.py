@@ -40,6 +40,7 @@ from ..ops.compaction import compact_sort
 from ..ops.groupby import group_ids, key_to_i64
 from ..ops.hash_aggregate import hash_aggregate
 from ..ops.hash_join import JoinResult, gather_payload, join
+from ..ops.kernels.key_table import is_in_table_cuda
 from ..ops.sort import SortKey, _take, normalize_key, sort_permutation
 from ..utils.hashing import partition_of
 from ..utils.ints import UNSIGNED_VIEW, signed_view
@@ -287,12 +288,27 @@ def detect_hot_keys(keys, valid, mesh: Mesh, num_hot: int,
 
 def _is_in_table(keys, table_keys, table_valid):
     """Membership of each key in a small key table of ``key_to_i64``
-    images (the reference compares every key with every entry; ``isin``
-    sorts the table instead)."""
+    images (the reference compares every key with every entry).
+
+    CUDA tensors take the kernel of ``kernels/key_table.py``, one launch
+    and no host sync, and the counter ``kernel_rows`` of the open span says
+    how many keys it took; CPU tensors take _is_in_table_plain."""
     if table_keys.shape[0] == 0:
         return torch.zeros(keys.shape[0], dtype=torch.bool,
                            device=keys.device)
     k, t = key_to_i64(keys), key_to_i64(table_keys)
+    if k.device.type == "cuda":
+        tracing.add("kernel_rows", k.shape[0])
+        return is_in_table_cuda(k.contiguous(), t.contiguous(),
+                                table_valid.contiguous())
+    return _is_in_table_plain(k, t, table_valid)
+
+
+def _is_in_table_plain(k, t, table_valid):
+    """The key table's plain version on any device, over int64 keys ``k``
+    and a non-empty table ``t``: the table read on the host, then
+    ``torch.isin`` (which sorts the table instead of comparing every
+    entry once it is large enough)."""
     # invalid entries repeat the first valid key, so they add no member
     with tracing.sync("hot_table"):       # a 0-d tensor index reads it
         first = t[torch.argmax(table_valid.to(torch.int32))]

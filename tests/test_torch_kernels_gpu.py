@@ -1236,6 +1236,104 @@ def test_probe_chunk_on_card_launches_the_probe_kernel_once():
 
 
 # ---------------------------------------------------------------------------
+# hot-key membership (csrc/key_table.cu) against the CPU route of
+# parallel/ops.py::_is_in_table (the table read on the host, torch.isin)
+# ---------------------------------------------------------------------------
+
+_EDGE_KEYS = [-(1 << 63), (1 << 63) - 1, 0, -1]
+
+
+def _key_table_case(entries, valid, n, seed):
+    """(keys, table, table_valid) on the CPU: a table of ``entries`` int64
+    keys, the edge keys and repeats among them, valid "none", "mixed" or
+    "all"; ``n`` keys, half drawn from the table (valid entries and
+    invalid ones alike), the edge keys and keys near the table's."""
+    g = torch.Generator()
+    g.manual_seed(seed)
+    table = torch.randint(-(1 << 62), 1 << 62, (entries,), generator=g)
+    table[:min(entries, 4)] = torch.tensor(_EDGE_KEYS[:min(entries, 4)])
+    if entries >= 8:
+        table[-2:] = table[4:6]              # each repeated once
+    if valid == "none":
+        ok = torch.zeros(entries, dtype=torch.bool)
+    elif valid == "all":
+        ok = torch.ones(entries, dtype=torch.bool)
+    else:
+        ok = torch.rand(entries, generator=g) < 0.5
+        ok[0] = True
+        if entries > 1:                       # int64 max among the keys
+            ok[1] = False
+        if entries >= 8:                      # one copy valid, one not
+            ok[4], ok[-2] = True, False
+    keys = torch.randint(-(1 << 62), 1 << 62, (n,), generator=g)
+    if n:
+        pick = torch.rand(n, generator=g) < 0.5
+        drawn = table[torch.randint(0, entries, (n,), generator=g)]
+        keys = torch.where(pick, drawn, keys)
+        keys[:min(n, 4)] = torch.tensor(_EDGE_KEYS[:min(n, 4)])
+        near = min(n, 3)
+        keys[-near:] = table[torch.arange(near) % entries] + 1
+    return keys, table, ok
+
+
+@pytest.mark.parametrize("entries", [1, 8, 64, 65, 1024])
+@pytest.mark.parametrize("valid", ["none", "mixed", "all"])
+def test_key_table_kernel_matches_plain(entries, valid):
+    from gandiva_tpu_torch.ops.kernels.key_table import (MAX_ENTRIES,
+                                                         is_in_table_cuda)
+    from gandiva_tpu_torch.parallel.ops import _is_in_table
+
+    dev = _card()
+    assert entries <= MAX_ENTRIES
+    n = (1 << 20) + 3
+    keys, table, ok = _key_table_case(entries, valid, n,
+                                      entries * 3 + len(valid))
+    reset_launches()
+    got = is_in_table_cuda(keys.to(dev), table.to(dev), ok.to(dev))
+    torch.cuda.synchronize()
+    assert LAUNCHES["key_table"] == 1
+    assert got.dtype == torch.bool and got.shape == (n,)
+    want = _is_in_table(keys, table, ok)
+    assert torch.equal(got.cpu(), want)
+    assert bool(want.any()) == (valid != "none")
+
+
+@pytest.mark.parametrize("n", [0, 1, 7, (1 << 20) + 3])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_key_table_kernel_edge_shapes_match_plain(n, offset):
+    """n keys as a view at ``offset`` elements into a larger tensor: an odd
+    offset leaves the keys 8-byte aligned only (the kernel's 8-byte loads);
+    n % 8 keys are the tail one key a thread."""
+    from gandiva_tpu_torch.ops.kernels.key_table import is_in_table_cuda
+    from gandiva_tpu_torch.parallel.ops import _is_in_table
+
+    dev = _card()
+    keys, table, ok = _key_table_case(64, "mixed", n, n + offset)
+    base = torch.cat([torch.tensor([7] * offset, dtype=torch.int64),
+                      keys]).to(dev)
+    view = base[offset:]
+    assert view.is_contiguous()
+    assert not n or view.data_ptr() % 16 == 8 * offset
+    reset_launches()
+    got = is_in_table_cuda(view, table.to(dev), ok.to(dev))
+    torch.cuda.synchronize()
+    assert LAUNCHES["key_table"] == (1 if n else 0)
+    assert got.shape == (n,)
+    assert torch.equal(got.cpu(), _is_in_table(keys, table, ok))
+
+
+def test_key_table_kernel_refuses_a_table_over_its_limit():
+    from gandiva_tpu_torch.ops.kernels.key_table import (MAX_ENTRIES,
+                                                         is_in_table_cuda)
+
+    dev = _card()
+    table = torch.arange(MAX_ENTRIES + 1, device=dev)
+    with pytest.raises(ValueError, match="entries"):
+        is_in_table_cuda(table, table,
+                         torch.ones_like(table, dtype=torch.bool))
+
+
+# ---------------------------------------------------------------------------
 # the decimal, date/time, interval and hash registry on the card
 # ---------------------------------------------------------------------------
 
@@ -1436,6 +1534,11 @@ def test_pipeline_on_the_card_matches_the_cpu(num_hot):
             num_hot=num_hot, hot_capacity=64)
     cpu, card = out["cpu"], out[str(dev)]
     assert min(LAUNCHES["sort_block"], LAUNCHES["aggregate"]) > 0, LAUNCHES
+    # hot-key membership: none without a hot-key table, else one launch on
+    # the build keys and one on the probe keys of each of the 4 partitions
+    # an attempt
+    attempts = 1 + card[3]["retries"]
+    assert LAUNCHES["key_table"] == (0 if num_hot == 0 else 8 * attempts)
     for a, b in zip(cpu[:3], card[:3]):
         np.testing.assert_array_equal(a, b)
     for k in ("rows_in", "filter_out", "join_out", "agg_groups",

@@ -438,6 +438,105 @@ def test_detect_hot_keys_matches_reference(meshes):
         assert bool(tv.any())
 
 
+_EDGE = [-(1 << 63), (1 << 63) - 1, 0, -1]
+
+
+@pytest.mark.parametrize("entries,valid", [
+    (1, "all"), (8, "none"), (8, "mixed"), (64, "mixed"), (64, "all"),
+    (65, "mixed")])
+def test_is_in_table_matches_reference(entries, valid):
+    """Hot-key membership on CPU tensors against the reference's broadcast
+    compare: the edge keys and a repeated entry in the table, an invalid
+    entry equal to keys that are present. The route is the plain one (the
+    table read on the host, then ``torch.isin``): no kernel launched, no
+    ``kernel_rows`` counted."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gandiva_tpu_torch import tracing
+    from gandiva_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+
+    rng = np.random.default_rng(entries)
+    table = rng.integers(-(1 << 62), 1 << 62, entries)
+    table[:min(entries, 4)] = _EDGE[:min(entries, 4)]
+    if entries >= 8:
+        table[-1] = table[4]
+    ok = {"none": np.zeros(entries, bool), "all": np.ones(entries, bool),
+          "mixed": np.arange(entries) % 3 != 1}[valid]
+    keys = np.concatenate([rng.choice(table, 3000),
+                           rng.integers(-(1 << 62), 1 << 62, 3000),
+                           _EDGE, table + 1])
+    want = np.asarray(j_ops._is_in_table(jnp.asarray(keys),
+                                         jnp.asarray(table),
+                                         jnp.asarray(ok)))
+    reset_launches()
+    tracing.clear()
+    try:
+        with profile(activities=[ProfilerActivity.CPU]):
+            with tracing.span("gt.join.hot_keys"):
+                got = t_ops._is_in_table(torch.from_numpy(keys),
+                                         torch.from_numpy(table),
+                                         torch.from_numpy(ok))
+        spans = tracing.spans()
+    finally:
+        tracing.clear()
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert want.any() == (valid != "none")
+    assert not any(LAUNCHES.values())
+    assert [s.counters for s in spans if s.name == "gt.join.hot_keys"] \
+        == [{}]
+    assert {"gt.sync.hot_table", "gt.sync.hot_isin"} <= \
+        {s.name for s in spans}
+
+
+def _key_table_args(case):
+    """(keys, table, table_valid) that break one of ``is_in_table_cuda``'s
+    conditions each, none on a CUDA card."""
+    from gandiva_tpu_torch.ops.kernels.key_table import MAX_ENTRIES
+
+    keys = torch.arange(16, dtype=torch.int64)
+    table = torch.arange(4, dtype=torch.int64)
+    ok = torch.ones(4, dtype=torch.bool)
+    if case == "keys_int32":
+        keys = keys.to(torch.int32)
+    elif case == "keys_2d":
+        keys = keys.reshape(4, 4)
+    elif case == "table_int32":
+        table = table.to(torch.int32)
+    elif case == "valid_uint8":
+        ok = ok.to(torch.uint8)
+    elif case == "valid_short":
+        ok = ok[:3]
+    elif case == "table_over_limit":
+        table = torch.arange(MAX_ENTRIES + 1, dtype=torch.int64)
+        ok = torch.ones(MAX_ENTRIES + 1, dtype=torch.bool)
+    elif case == "keys_strided":
+        keys = keys[::2]
+    elif case == "devices_differ":
+        table = torch.empty(4, dtype=torch.int64, device="meta")
+    return keys, table, ok
+
+
+@pytest.mark.parametrize("case,match", [
+    ("cpu", "CUDA"), ("keys_int32", "int64"), ("keys_2d", "int64"),
+    ("table_int32", "int64"), ("valid_uint8", "bool"),
+    ("valid_short", "bool"), ("table_over_limit", "1024"),
+    ("keys_strided", "contiguous"), ("devices_differ", "one device")])
+def test_key_table_kernel_refuses_what_it_does_not_take(monkeypatch, case,
+                                                        match):
+    """``is_in_table_cuda`` checks its arguments before it loads
+    csrc/key_table.cu or launches: CPU tensors, the wrong dtype or shape,
+    a table past its limit, a strided view and tensors on two devices
+    raise with what was wrong."""
+    from gandiva_tpu_torch.ops.kernels import key_table
+
+    def refuse(*_args, **_kwargs):
+        raise AssertionError("the key table's library was loaded")
+
+    monkeypatch.setattr(key_table, "library", refuse)
+    with pytest.raises(ValueError, match=match):
+        key_table.is_in_table_cuda(*_key_table_args(case))
+
+
 def _skewed_inputs(nper=512, build_per=32, null_frac=0.0):
     rng = np.random.default_rng(11)
     total, btotal = nper * NDEV, build_per * NDEV
